@@ -1,0 +1,27 @@
+"""audiocodecs_tpu_torch: the codec framework on PyTorch and CUDA (Hopper).
+
+A port of ``audiocodecs_tpu`` that keeps its module names and its tensor
+contract (``[B, T]`` waveforms ↔ ``[B, N, K]`` tokens ↔ ``[B, N, H]``
+features). It imports ``torch``, never ``jax`` and nothing of
+``audiocodecs_tpu``. Hand-written CUDA kernels live in ``csrc/`` and are
+built at first use (:mod:`audiocodecs_tpu_torch.ops._build`).
+
+Importing the package is light: the codec classes load on first access.
+"""
+
+__all__ = ["Codec", "CodecConfig", "Encodec", "EncodecModelConfig"]
+
+_LAZY = {
+    "Codec": "audiocodecs_tpu_torch.codec",
+    "CodecConfig": "audiocodecs_tpu_torch.codec",
+    "Encodec": "audiocodecs_tpu_torch.models.encodec",
+    "EncodecModelConfig": "audiocodecs_tpu_torch.models.encodec",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,98 @@
+"""Multi-layer LSTM matching PyTorch ``nn.LSTM`` numerics (gate order i,f,g,o).
+
+Counterpart of ``audiocodecs_tpu/nn/lstm.py``. The input projection for the
+whole sequence is one ``torch.matmul`` (TF32 off), written time-major; the
+recurrence always goes through :func:`..ops.lstm_recurrence.lstm_recurrence`,
+which launches the CUDA kernel for CUDA tensors and runs the plain loop for
+CPU tensors. On the card a width the kernel does not take (``H % 32 != 0``
+or ``H > 1024``) raises rather than running the plain loop.
+
+Params per layer: ``{"w_ih": [Cin, 4H], "w_hh": [H, 4H], "b": [4H]}`` with
+the two PyTorch biases summed, as in the reference package.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from audiocodecs_tpu_torch.nn.layers import exact_fp32
+from audiocodecs_tpu_torch.ops.lstm_recurrence import lstm_recurrence
+
+__all__ = ["LSTM", "LSTMLayer", "init_lstm_params", "lstm", "lstm_cell_step"]
+
+
+def _layer(x: torch.Tensor, p, h0=None, c0=None):
+    """One LSTM layer. ``x``: [B, T, Cin] → ([B, T, H], (h_T, c_T))."""
+    B = x.shape[0]
+    H = p["w_hh"].shape[0]
+    with exact_fp32():
+        gates_x = torch.matmul(x.transpose(0, 1), p["w_ih"]) + p["b"]
+    h = x.new_zeros((B, H)) if h0 is None else h0.contiguous()
+    c = x.new_zeros((B, H)) if c0 is None else c0.contiguous()
+    ys, h, c = lstm_recurrence(gates_x.contiguous(), p["w_hh"].contiguous(),
+                               h, c)
+    return ys.transpose(0, 1), (h, c)
+
+
+def lstm_cell_step(gates_x, h, c, w_hh):
+    """One recurrence step. ``gates_x``: [B, 4H] (input projection + bias)."""
+    _, h, c = lstm_recurrence(gates_x[None].contiguous(), w_hh.contiguous(),
+                              h.contiguous(), c.contiguous())
+    return h, c
+
+
+def lstm(x: torch.Tensor, params, state=None):
+    """Stacked LSTM. ``x``: [B, T, C] → ([B, T, H], per-layer (h, c)).
+
+    ``state`` is an optional list of per-layer ``(h, c)`` carries.
+    """
+    new_state = []
+    for li, p in enumerate(params):
+        h0c0 = state[li] if state is not None else (None, None)
+        x, hc = _layer(x, p, *h0c0)
+        new_state.append(hc)
+    return x, new_state
+
+
+class LSTMLayer(nn.Module):
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.w_ih = nn.Parameter(torch.empty(input_size, 4 * hidden_size))
+        self.w_hh = nn.Parameter(torch.empty(hidden_size, 4 * hidden_size))
+        self.b = nn.Parameter(torch.empty(4 * hidden_size))
+
+    def params(self) -> dict:
+        return {"w_ih": self.w_ih, "w_hh": self.w_hh, "b": self.b}
+
+
+class LSTM(nn.ModuleList):
+    """A stack of :class:`LSTMLayer` (state-dict keys ``<i>.w_ih`` …)."""
+
+    def __init__(self, num_layers: int, input_size: int, hidden_size: int):
+        super().__init__(
+            LSTMLayer(input_size if li == 0 else hidden_size, hidden_size)
+            for li in range(num_layers))
+
+    def forward(self, x: torch.Tensor, state=None):
+        return lstm(x, [layer.params() for layer in self], state)
+
+
+def init_lstm_params(generator: torch.Generator, num_layers: int,
+                     input_size: int, hidden_size: int) -> list:
+    """Per-layer params, uniform in ±1/sqrt(H) with zero bias (the
+    reference package's init; the draws differ from ``jax.random``'s)."""
+    s = 1.0 / hidden_size ** 0.5
+    params = []
+    for li in range(num_layers):
+        cin = input_size if li == 0 else hidden_size
+
+        def uniform(*shape):
+            return (torch.rand(shape, generator=generator) * 2 - 1) * s
+
+        params.append({
+            "w_ih": uniform(cin, 4 * hidden_size),
+            "w_hh": uniform(hidden_size, 4 * hidden_size),
+            "b": torch.zeros(4 * hidden_size),
+        })
+    return params

@@ -1,0 +1,283 @@
+"""SEANet-style convolutional encoder/decoder stacks (EnCodec family).
+
+Counterpart of ``audiocodecs_tpu/nn/seanet.py``: the same layer plans (a
+list of ``(kind, layer_index, meta...)`` specs) build the modules, drive the
+forward pass and name the state-dict keys (``<layer_index>.w`` …), so the
+weight bridge maps the reference's param tree key for key. Inside the stacks
+the layout is PyTorch's ``[B, C, T]``.
+
+The residual blocks that the fused kernel covers (causal, dilations (1, 1),
+k3 then 1×1 conv, conv shortcut: all of EnCodec's) go to
+:func:`..ops.seanet_resblock.seanet_resblock` on every device — it launches
+the CUDA kernel for CUDA tensors and runs its plain version for CPU
+tensors. Other blocks take the general path (:func:`_resnet_plain`).
+
+Streaming execution and the bidirectional LSTM are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from audiocodecs_tpu_torch.nn.layers import (
+    causal_conv1d,
+    conv_transpose1d,
+    elu,
+    pad1d,
+)
+from audiocodecs_tpu_torch.nn.lstm import LSTM, init_lstm_params
+from audiocodecs_tpu_torch.ops.seanet_resblock import seanet_resblock
+
+__all__ = ["SEANetConfig", "SEANet", "seanet_encoder_plan",
+           "seanet_decoder_plan", "init_seanet_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SEANetConfig:
+    audio_channels: int = 1
+    num_filters: int = 32
+    hidden_size: int = 128
+    ratios: tuple[int, ...] = (8, 5, 4, 2)  # decoder order (upsampling)
+    kernel_size: int = 7
+    last_kernel_size: int = 7
+    residual_kernel_size: int = 3
+    dilation_growth_rate: int = 2
+    num_residual_layers: int = 1
+    compress: int = 2
+    num_lstm_layers: int = 2
+    causal: bool = True
+    pad_mode: str = "reflect"
+    use_conv_shortcut: bool = True
+    trim_right_ratio: float = 1.0
+
+    @property
+    def hop_length(self) -> int:
+        return math.prod(self.ratios)
+
+
+# ----------------------------------------------------------------------- #
+# Layer plans (the reference's, spec for spec)
+# ----------------------------------------------------------------------- #
+
+
+def seanet_encoder_plan(cfg: SEANetConfig):
+    plan, i = [], 0
+    plan.append(("conv", i, cfg.audio_channels, cfg.num_filters,
+                 cfg.kernel_size, 1, 1))
+    i += 1
+    scale = 1
+    for ratio in reversed(cfg.ratios):
+        ch = scale * cfg.num_filters
+        for j in range(cfg.num_residual_layers):
+            plan.append(("resnet", i, ch, (cfg.dilation_growth_rate**j, 1)))
+            i += 1
+        plan.append(("elu", i)); i += 1
+        plan.append(("conv", i, ch, ch * 2, ratio * 2, ratio, 1)); i += 1
+        scale *= 2
+    last_in = scale * cfg.num_filters
+    if cfg.num_lstm_layers > 0:
+        plan.append(("lstm", i, last_in)); i += 1
+    plan.append(("elu", i)); i += 1
+    plan.append(("conv", i, last_in, cfg.hidden_size,
+                 cfg.last_kernel_size, 1, 1)); i += 1
+    return plan
+
+
+def seanet_decoder_plan(cfg: SEANetConfig):
+    plan, i = [], 0
+    scale = 2 ** len(cfg.ratios)
+    plan.append(("conv", i, cfg.hidden_size, scale * cfg.num_filters,
+                 cfg.kernel_size, 1, 1)); i += 1
+    if cfg.num_lstm_layers > 0:
+        plan.append(("lstm", i, scale * cfg.num_filters)); i += 1
+    for ratio in cfg.ratios:
+        ch = scale * cfg.num_filters
+        plan.append(("elu", i)); i += 1
+        plan.append(("convtr", i, ch, ch // 2, ratio * 2, ratio)); i += 1
+        for j in range(cfg.num_residual_layers):
+            plan.append(("resnet", i, ch // 2,
+                         (cfg.dilation_growth_rate**j, 1)))
+            i += 1
+        scale //= 2
+    plan.append(("elu", i)); i += 1
+    plan.append(("conv", i, cfg.num_filters, cfg.audio_channels,
+                 cfg.last_kernel_size, 1, 1)); i += 1
+    return plan
+
+
+# ----------------------------------------------------------------------- #
+# Modules
+# ----------------------------------------------------------------------- #
+
+
+class Conv1d(nn.Module):
+    """Weights only: ``w`` [Cout, Cin, K], ``b`` [Cout]."""
+
+    def __init__(self, cin: int, cout: int, k: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(cout, cin, k))
+        self.b = nn.Parameter(torch.empty(cout))
+
+
+class ConvTranspose1d(nn.Module):
+    """Weights only: ``w`` [Cin, Cout, K] (PyTorch's layout), ``b`` [Cout]."""
+
+    def __init__(self, cin: int, cout: int, k: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(cin, cout, k))
+        self.b = nn.Parameter(torch.empty(cout))
+
+
+class ResBlock(nn.Module):
+    def __init__(self, ch: int, cfg: SEANetConfig):
+        super().__init__()
+        hidden = ch // cfg.compress
+        ks = (cfg.residual_kernel_size, 1)
+        self.block = nn.ModuleList(
+            Conv1d(ch if bi == 0 else hidden,
+                   ch if bi == len(ks) - 1 else hidden, k)
+            for bi, k in enumerate(ks))
+        self.shortcut = Conv1d(ch, ch, 1) if cfg.use_conv_shortcut else None
+
+
+def _fused_eligible(p: ResBlock, cfg: SEANetConfig, dilations) -> bool:
+    return (cfg.causal and tuple(dilations) == (1, 1)
+            and p.shortcut is not None
+            and p.block[0].w.shape[-1] == 3 and p.block[1].w.shape[-1] == 1
+            and p.shortcut.w.shape[-1] == 1)
+
+
+def _resnet_plain(x, p: ResBlock, cfg: SEANetConfig, dilations):
+    """ELU→conv(k_res, dilation)→ELU→conv(1) with (conv|identity) shortcut,
+    each conv a library call (the reference's XLA form)."""
+    h = x
+    for conv, dil in zip(p.block, dilations):
+        h = causal_conv1d(elu(h), conv.w, conv.b, dilation=dil,
+                          causal=cfg.causal, pad_mode=cfg.pad_mode)
+    if p.shortcut is not None:
+        x = causal_conv1d(x, p.shortcut.w, p.shortcut.b, causal=cfg.causal,
+                          pad_mode=cfg.pad_mode)
+    return x + h
+
+
+def _apply_resnet(x, p: ResBlock, cfg: SEANetConfig, dilations):
+    if not _fused_eligible(p, cfg, dilations):
+        return _resnet_plain(x, p, cfg, dilations)
+    x = x.contiguous()
+    # the two causal samples before t=0, padded as the k3 conv would pad
+    halo = pad1d(x[..., :3], 2, 0, mode=cfg.pad_mode)[..., :2].contiguous()
+    c1, c2, s = p.block[0], p.block[1], p.shortcut
+    return seanet_resblock(x, halo, c1.w, c1.b, c2.w, c2.b, s.w, s.b)
+
+
+def _apply_convtr(x, p: ConvTranspose1d, cfg: SEANetConfig, kernel: int,
+                  stride: int):
+    y = conv_transpose1d(x, p.w, p.b, stride=stride)
+    padding_total = kernel - stride
+    if cfg.causal:
+        right = math.ceil(padding_total * cfg.trim_right_ratio)
+    else:
+        right = padding_total // 2
+    left = padding_total - right
+    return y[..., left: y.shape[-1] - right]
+
+
+class SEANet(nn.Module):
+    """One SEANet stack built from a plan; the layer with plan index ``i``
+    is the submodule ``str(i)``. ``forward``: [B, Cin, T] → [B, Cout, T']."""
+
+    def __init__(self, cfg: SEANetConfig, plan):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = list(plan)
+        for spec in self.plan:
+            kind, idx = spec[0], str(spec[1])
+            if kind == "conv":
+                _, _, cin, cout, k, _, _ = spec
+                self.add_module(idx, Conv1d(cin, cout, k))
+            elif kind == "convtr":
+                _, _, cin, cout, k, _ = spec
+                self.add_module(idx, ConvTranspose1d(cin, cout, k))
+            elif kind == "resnet":
+                self.add_module(idx, ResBlock(spec[2], cfg))
+            elif kind == "lstm":
+                dim = spec[2]
+                self.add_module(idx, LSTM(cfg.num_lstm_layers, dim, dim))
+            elif kind != "elu":
+                raise NotImplementedError(f"plan kind {kind!r} is not ported")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        for spec in self.plan:
+            kind, idx = spec[0], str(spec[1])
+            if kind == "elu":
+                x = elu(x)
+            elif kind == "conv":
+                _, _, _cin, _cout, k, stride, dil = spec
+                p = getattr(self, idx)
+                x = causal_conv1d(x, p.w, p.b, stride=stride, dilation=dil,
+                                  causal=cfg.causal, pad_mode=cfg.pad_mode)
+            elif kind == "convtr":
+                _, _, _cin, _cout, k, stride = spec
+                x = _apply_convtr(x, getattr(self, idx), cfg, k, stride)
+            elif kind == "resnet":
+                x = _apply_resnet(x, getattr(self, idx), cfg, spec[3])
+            elif kind == "lstm":
+                # residual LSTM in fp32 over [B, T, C]
+                y, _ = getattr(self, idx)(x.transpose(1, 2))
+                x = x + y.transpose(1, 2)
+        return x
+
+
+# ----------------------------------------------------------------------- #
+# Init (random weights from an explicit generator)
+# ----------------------------------------------------------------------- #
+
+
+def _init_conv(generator, cout, cin, k, *, transposed=False):
+    scale = 1.0 / math.sqrt(cin * k)
+    shape = (cin, cout, k) if transposed else (cout, cin, k)
+    return {
+        "w": torch.randn(shape, generator=generator) * scale,
+        "b": (torch.rand(cout, generator=generator) * 2 - 1) * scale,
+    }
+
+
+def init_seanet_params(generator: torch.Generator, cfg: SEANetConfig,
+                       plan) -> dict:
+    """Flat state dict (``"<idx>.w"`` …) of one stack, in the reference
+    package's distributions (the draws differ from ``jax.random``'s)."""
+    flat = {}
+
+    def put(prefix, tree):
+        for k, v in tree.items():
+            flat[f"{prefix}.{k}"] = v
+
+    for spec in plan:
+        kind, idx = spec[0], str(spec[1])
+        if kind == "conv":
+            _, _, cin, cout, k, _, _ = spec
+            put(idx, _init_conv(generator, cout, cin, k))
+        elif kind == "convtr":
+            _, _, cin, cout, k, _ = spec
+            put(idx, _init_conv(generator, cout, cin, k, transposed=True))
+        elif kind == "resnet":
+            ch = spec[2]
+            hidden = ch // cfg.compress
+            ks = (cfg.residual_kernel_size, 1)
+            for bi, k in enumerate(ks):
+                cin = ch if bi == 0 else hidden
+                cout = ch if bi == len(ks) - 1 else hidden
+                put(f"{idx}.block.{bi}", _init_conv(generator, cout, cin, k))
+            if cfg.use_conv_shortcut:
+                put(f"{idx}.shortcut", _init_conv(generator, ch, ch, 1))
+        elif kind == "lstm":
+            dim = spec[2]
+            layers = init_lstm_params(generator, cfg.num_lstm_layers, dim, dim)
+            for li, p in enumerate(layers):
+                put(f"{idx}.{li}", p)
+    return flat

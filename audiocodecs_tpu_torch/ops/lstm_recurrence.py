@@ -1,0 +1,132 @@
+"""One LSTM layer's recurrence: CUDA kernel and its plain PyTorch version.
+
+The kernel (``csrc/lstm_recurrence.cu``) replaces the TPU kernel
+``audiocodecs_tpu/ops/lstm_pallas.py::lstm_layer_pallas``: a persistent
+cooperative grid in which each block keeps its slice of ``w_hh`` in shared
+memory and the time loop runs inside the kernel, one grid barrier a step.
+The source's header states its bound and design.
+
+:func:`lstm_recurrence` launches the kernel for CUDA tensors and runs
+:func:`lstm_recurrence_reference` for CPU tensors; there is no other path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from audiocodecs_tpu_torch.ops import _build
+
+__all__ = ["lstm_recurrence", "lstm_recurrence_reference", "MAX_HIDDEN"]
+
+MAX_HIDDEN = 1024  # the kernel keeps a [H, 4U] slice of w_hh per SM
+
+_P = ctypes.c_void_p
+_lib_cache: list = []
+
+
+def _lib():
+    if not _lib_cache:
+        lib = _build.load("lstm_recurrence")
+        lib.lstm_recurrence_f32.argtypes = [_P] * 7 + [ctypes.c_int] * 4 + [_P]
+        lib.lstm_recurrence_f32.restype = ctypes.c_int
+        lib.lstm_recurrence_max_batch.argtypes = [ctypes.c_int]
+        lib.lstm_recurrence_max_batch.restype = ctypes.c_int
+        lib.lstm_recurrence_error_string.argtypes = [ctypes.c_int]
+        lib.lstm_recurrence_error_string.restype = ctypes.c_char_p
+        _lib_cache.append(lib)
+    return _lib_cache[0]
+
+
+def lstm_recurrence_reference(gates_x: torch.Tensor, w_hh: torch.Tensor,
+                              h0: torch.Tensor, c0: torch.Tensor):
+    """Plain recurrence, the math of ``_scan_reference`` (time-major).
+
+    ``gates_x``: [T, B, 4H] (input projection + bias, gate order i, f, g, o);
+    ``w_hh``: [H, 4H]; ``h0``/``c0``: [B, H] → (ys [T, B, H], h_T, c_T).
+    """
+    H = w_hh.shape[0]
+    h, c = h0, c0
+    ys = []
+    for gx in gates_x:
+        gates = gx + torch.matmul(h, w_hh)
+        i = torch.sigmoid(gates[:, 0 * H:1 * H])
+        f = torch.sigmoid(gates[:, 1 * H:2 * H])
+        g = torch.tanh(gates[:, 2 * H:3 * H])
+        o = torch.sigmoid(gates[:, 3 * H:4 * H])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys.append(h)
+    if not ys:
+        return gates_x.new_empty((0,) + tuple(h0.shape)), h0, c0
+    return torch.stack(ys), h, c
+
+
+def _check(gates_x, w_hh, h0, c0):
+    if gates_x.ndim != 3 or w_hh.ndim != 2:
+        raise ValueError("gates_x must be [T, B, 4H] and w_hh [H, 4H]")
+    T, B, H4 = gates_x.shape
+    H = w_hh.shape[0]
+    if T < 1 or B < 1:
+        raise ValueError(f"empty recurrence: T={T}, B={B}")
+    if H4 != 4 * H or tuple(w_hh.shape) != (H, 4 * H):
+        raise ValueError(f"shape mismatch: gates_x {tuple(gates_x.shape)}, "
+                         f"w_hh {tuple(w_hh.shape)}")
+    if H % 32 or H > MAX_HIDDEN:
+        raise ValueError(f"kernel takes H % 32 == 0 and H <= {MAX_HIDDEN}, "
+                         f"got H={H}")
+    for name, t, shape in (("gates_x", gates_x, (T, B, H4)),
+                           ("w_hh", w_hh, (H, H4)),
+                           ("h0", h0, (B, H)), ("c0", c0, (B, H))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")
+        if t.device != gates_x.device:
+            raise ValueError(f"{name} is on {t.device}, gates_x on "
+                             f"{gates_x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
+                    h0: torch.Tensor, c0: torch.Tensor):
+    """Run one layer's recurrence: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. Same contract as
+    :func:`lstm_recurrence_reference`; the kernel takes float32,
+    ``H % 32 == 0`` and ``H <= 1024``. A batch larger than one launch's
+    shared memory holds runs as consecutive row slices, one launch each."""
+    if gates_x.device.type == "cpu":
+        return lstm_recurrence_reference(gates_x, w_hh, h0, c0)
+    if gates_x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gates_x.device}")
+    _check(gates_x, w_hh, h0, c0)
+    T, B, _ = gates_x.shape
+    H = w_hh.shape[0]
+    ys = torch.empty((T, B, H), device=gates_x.device, dtype=torch.float32)
+    h_t = torch.empty((B, H), device=gates_x.device, dtype=torch.float32)
+    c_t = torch.empty_like(h_t)
+    lib = _lib()
+    f32 = 4  # bytes
+    with torch.cuda.device(gates_x.device):
+        stream = torch.cuda.current_stream(gates_x.device).cuda_stream
+        rows = lib.lstm_recurrence_max_batch(H)
+        if rows < 1:
+            raise RuntimeError(f"lstm_recurrence: no launch fits H={H}")
+        for b0 in range(0, B, rows):
+            nb = min(rows, B - b0)
+            err = lib.lstm_recurrence_f32(
+                gates_x.data_ptr() + f32 * b0 * 4 * H, w_hh.data_ptr(),
+                h0.data_ptr() + f32 * b0 * H, c0.data_ptr() + f32 * b0 * H,
+                ys.data_ptr() + f32 * b0 * H, h_t.data_ptr() + f32 * b0 * H,
+                c_t.data_ptr() + f32 * b0 * H, T, nb, B, H, stream)
+            if err:
+                raise RuntimeError(
+                    "lstm_recurrence kernel launch failed: "
+                    + lib.lstm_recurrence_error_string(err).decode())
+            lstm_recurrence.launches += 1
+    return ys, h_t, c_t
+
+
+lstm_recurrence.launches = 0  # kernel launches in this process

@@ -1,0 +1,72 @@
+"""Weight bridge from the reference package's param trees.
+
+:func:`from_jax_params` takes the JAX package's param tree, with numpy
+arrays as leaves (``jax.tree.map(np.asarray, params)``), and returns the
+state dict of a port module, ready for ``load_state_dict(strict=True)``.
+Nothing here imports JAX: the tree is plain dicts, lists and arrays.
+
+Layouts (reference → port):
+
+* conv ``w [K, Cin, Cout]`` → ``[Cout, Cin, K]``;
+* transposed-conv ``w [K, Cin, Cout]``, stored pre-flipped so that it runs as
+  a plain dilated conv → ``flip(w, 0).permute(1, 2, 0)`` = ``[Cin, Cout, K]``,
+  PyTorch's ``ConvTranspose1d`` layout;
+* LSTM ``w_ih [Cin, 4H]``, ``w_hh [H, 4H]``, summed ``b [4H]``: unchanged
+  (gate order i, f, g, o);
+* codebooks ``[K, C, H]`` and biases: unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from audiocodecs_tpu_torch.nn.seanet import Conv1d, ConvTranspose1d
+
+__all__ = ["flatten_tree", "from_jax_params"]
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """Nested dicts/lists → ``{"encoder.1.block.0.w": array, ...}``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def _to_port_layout(owner: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
+    if leaf == "w" and isinstance(owner, ConvTranspose1d):
+        return np.flip(a, 0).transpose(1, 2, 0)
+    if leaf == "w" and isinstance(owner, Conv1d):
+        return a.transpose(2, 1, 0)
+    return a
+
+
+def from_jax_params(tree, model: nn.Module) -> dict:
+    """The reference tree as ``model``'s state dict (float32 tensors on the
+    CPU). Raises on a missing or extra key or a shape mismatch."""
+    flat = flatten_tree(tree)
+    want = model.state_dict()
+    missing = sorted(set(want) - set(flat))
+    extra = sorted(set(flat) - set(want))
+    if missing or extra:
+        raise KeyError(f"param tree does not match the model: missing "
+                       f"{missing[:5]}, unexpected {extra[:5]}")
+    out = {}
+    for key, ref in want.items():
+        owner_name, _, leaf = key.rpartition(".")
+        owner = model.get_submodule(owner_name) if owner_name else model
+        a = _to_port_layout(owner, leaf, np.asarray(flat[key]))
+        t = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+        if t.shape != ref.shape:
+            raise ValueError(f"{key}: converted shape {tuple(t.shape)} != "
+                             f"model shape {tuple(ref.shape)}")
+        out[key] = t
+    return out

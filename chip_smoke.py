@@ -1,0 +1,420 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``audiocodecs_tpu_torch``) on one NVIDIA GPU.
+
+Run from the root of the repository: ``python3 chip_smoke.py``. It needs one
+CUDA card, ``nvcc`` (``/usr/local/cuda``) and no network; it imports nothing
+of JAX or of ``audiocodecs_tpu``. Phases, each of which exits non-zero when
+it fails:
+
+1. card: name and power limit (``nvidia-smi``);
+2. build: every kernel of the main path, one ``nvcc`` each, all at once;
+3. kernel 1, the LSTM recurrence, against its plain version at the main
+   path's shape (T=750, B=8, H=512), a ragged one and a batch split over
+   two launches, with timings;
+4. kernel 2, the fused SEANet residual block, against its plain version at
+   the main path's four (C, T) shapes (B=8) and a ragged one, with timings;
+5. the main path as a small server: EnCodec-24 kHz, 8 codebooks, seeded
+   random weights, three requests through ``sig_to_toks`` → ``toks_to_sig``
+   with the kernel launches counted, parity against the same weights on the
+   CPU, then the warm roundtrip time, peak memory and the device time by
+   kernel over one roundtrip (torch.profiler).
+
+The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
+card line come before the last line, ``{"ok": true, "device": ...}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# Published peaks (NVIDIA data sheets): fp32 on CUDA cores and HBM rate.
+_PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
+# main path, ragged, and a batch split over two launches
+LSTM_SHAPES = [(750, 8, 512), (257, 3, 512), (40, 100, 512)]
+RESBLOCK_SHAPES = [(8, 32, 240000), (8, 64, 120000), (8, 128, 30000),
+                   (8, 256, 6000)]
+RESBLOCK_RAGGED = (3, 64, 1001)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float, peaks) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_card(torch):
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
+    return name, card, _PEAKS["pcie" if "PCIe" in name else "sxm"]
+
+
+def phase_build():
+    from audiocodecs_tpu_torch.ops import _build
+
+    try:
+        secs = _build.build_all()
+    except RuntimeError as e:
+        fail(f"kernel build: {e}")
+    log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} s")
+
+
+def phase_lstm(torch, peaks):
+    from audiocodecs_tpu_torch.nn.layers import exact_fp32
+    from audiocodecs_tpu_torch.nn.lstm import _layer
+    from audiocodecs_tpu_torch.ops.lstm_recurrence import (
+        lstm_recurrence, lstm_recurrence_reference)
+
+    gen = torch.Generator().manual_seed(1)
+    dev = "cuda"
+    worst, row = 0.0, None
+    for T, B, H in LSTM_SHAPES:
+        s = 1.0 / math.sqrt(H)
+        gx = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(dev)
+        w_ih = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) * s).to(dev)
+        w_hh = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) * s).to(dev)
+        b = ((torch.rand(4 * H, generator=gen) * 2 - 1) * s).to(dev)
+        h0 = (torch.randn(B, H, generator=gen) * 0.1).to(dev)
+        c0 = (torch.randn(B, H, generator=gen) * 0.1).to(dev)
+        with torch.inference_mode(), exact_fp32():
+            got = lstm_recurrence(gx, w_hh, h0, c0)
+            want = lstm_recurrence_reference(gx, w_hh, h0, c0)
+            torch.cuda.synchronize()
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        log(f"lstm_recurrence T={T} B={B} H={H}: max_abs_err={err:.3e}")
+        if not err <= 1e-5:
+            fail(f"lstm_recurrence disagrees with its plain version: {err}")
+        worst = max(worst, err)
+        if (T, B, H) != LSTM_SHAPES[0]:
+            continue
+        with torch.inference_mode(), exact_fp32():
+            ms = cuda_ms(torch, lambda: lstm_recurrence(gx, w_hh, h0, c0))
+            plain_ms = cuda_ms(
+                torch, lambda: lstm_recurrence_reference(gx, w_hh, h0, c0))
+            x = (torch.randn(T, B, H, generator=gen) * 0.5).to(dev)
+            p = {"w_ih": w_ih, "w_hh": w_hh, "b": b}
+            layer_ms = cuda_ms(
+                torch, lambda: _layer(x.transpose(0, 1), p, h0, c0))
+            ref = torch.nn.LSTM(H, H, 1).to(dev)
+            ref.weight_ih_l0.copy_(w_ih.T)
+            ref.weight_hh_l0.copy_(w_hh.T)
+            ref.bias_ih_l0.copy_(b)
+            ref.bias_hh_l0.zero_()
+            lib_ms = cuda_ms(torch, lambda: ref(x, (h0[None], c0[None])))
+            lib_err = float((ref(x, (h0[None], c0[None]))[0]
+                             - _layer(x.transpose(0, 1), p, h0, c0)[0]
+                             .transpose(0, 1)).abs().max())
+            # the same grid with the least work a step: barrier + L2 floor
+            g1, h1, c1 = gx[:, :1].contiguous(), h0[:1].contiguous(), \
+                c0[:1].contiguous()
+            floor_ms = cuda_ms(torch, lambda: lstm_recurrence(g1, w_hh, h1, c1))
+        flops = 2.0 * T * B * H * 4 * H
+        nbytes = 4.0 * (T * B * 4 * H + H * 4 * H + T * B * H + 4 * B * H)
+        b_ms, b_by = bound(flops, nbytes, peaks)
+        log(f"lstm_recurrence T={T} B={B} H={H}: kernel_ms={ms:.4f} "
+            f"per_step_us={ms / T * 1e3:.3f} plain_ms={plain_ms:.4f} "
+            f"port_layer_ms={layer_ms:.4f} library_ms(nn.LSTM)={lib_ms:.4f} "
+            f"library_vs_port_max_abs={lib_err:.3e} bound_ms={b_ms:.4f} "
+            f"({b_by}); at B=1: kernel_ms={floor_ms:.4f} "
+            f"per_step_us={floor_ms / T * 1e3:.3f}")
+        row = {"name": "lstm_recurrence", "status": "ported",
+               "route": "cuda",
+               "source": "audiocodecs_tpu_torch/csrc/lstm_recurrence.cu",
+               "replaces": "audiocodecs_tpu/ops/lstm_pallas.py:195",
+               "launches": 0, "max_abs_err": worst, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms, "port_layer_ms": layer_ms,
+               "b1_ms": floor_ms,
+               "shape": {"T": T, "B": B, "H": H}}
+    row["max_abs_err"] = worst
+    return row
+
+
+def _resblock_inputs(torch, gen, B, C, T, dev):
+    Hc = C // 2
+
+    def w(*shape, fan_in):
+        return (torch.randn(*shape, generator=gen) / math.sqrt(fan_in)).to(dev)
+
+    x = (torch.randn(B, C, T, generator=gen) * 0.5).to(dev)
+    weights = (w(Hc, C, 3, fan_in=3 * C), w(Hc, fan_in=3 * C),
+               w(C, Hc, 1, fan_in=Hc), w(C, fan_in=Hc),
+               w(C, C, 1, fan_in=C), w(C, fan_in=C))
+    return x, weights
+
+
+def phase_resblock(torch, peaks):
+    from audiocodecs_tpu_torch.nn.layers import exact_fp32, pad1d
+    from audiocodecs_tpu_torch.nn.seanet import (
+        ResBlock, SEANetConfig, _resnet_plain)
+    from audiocodecs_tpu_torch.ops.seanet_resblock import (
+        seanet_resblock, seanet_resblock_reference)
+
+    gen = torch.Generator().manual_seed(2)
+    dev = "cuda"
+    cfg = SEANetConfig()
+    worst = 0.0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "cudnn_path_ms": 0.0, "flops": 0.0,
+           "bytes": 0.0}
+    for B, C, T in RESBLOCK_SHAPES + [RESBLOCK_RAGGED]:
+        x, (w1, b1, w2, b2, ws, bs) = _resblock_inputs(torch, gen, B, C, T,
+                                                       dev)
+        with torch.inference_mode(), exact_fp32():
+            halo = pad1d(x[..., :3], 2, 0, mode="reflect")[..., :2].contiguous()
+            args = (x, halo, w1, b1, w2, b2, ws, bs)
+            got = seanet_resblock(*args)
+            want = seanet_resblock_reference(*args)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(want.abs().max()))
+            err = float((got - want).abs().max())
+        log(f"seanet_resblock B={B} C={C} T={T}: max_abs_err={err:.3e} "
+            f"(limit {1e-5 * scale:.3e})")
+        if not err <= 1e-5 * scale:
+            fail(f"seanet_resblock disagrees with its plain version: {err}")
+        worst = max(worst, err)
+        if (B, C, T) == RESBLOCK_RAGGED:
+            continue
+        blk = ResBlock(C, cfg).to(dev)
+        with torch.inference_mode(), exact_fp32():
+            for conv, (wt, bt) in zip((*blk.block, blk.shortcut),
+                                      ((w1, b1), (w2, b2), (ws, bs))):
+                conv.w.copy_(wt)
+                conv.b.copy_(bt)
+            ms = cuda_ms(torch, lambda: seanet_resblock(*args))
+            plain_ms = cuda_ms(torch, lambda: seanet_resblock_reference(*args))
+            cudnn_ms = cuda_ms(
+                torch, lambda: _resnet_plain(x, blk, cfg, (1, 1)))
+        Hc = C // 2
+        flops = 2.0 * B * T * (3 * C * Hc + Hc * C + C * C)
+        nbytes = 4.0 * (2 * B * C * T + 2 * B * C
+                        + 3 * C * Hc + Hc * C + C * C + Hc + 2 * C)
+        b_ms, b_by = bound(flops, nbytes, peaks)
+        log(f"seanet_resblock B={B} C={C} T={T}: kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} cudnn_path_ms={cudnn_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) "
+            f"fp32_share_of_peak={flops / peaks[0] / (ms / 1e3):.3f}")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["cudnn_path_ms"] += cudnn_ms
+        tot["flops"] += flops
+        tot["bytes"] += nbytes
+    b_ms, b_by = bound(tot["flops"], tot["bytes"], peaks)
+    return {"name": "seanet_resblock", "status": "ported",
+            "route": "cuda",
+            "source": "audiocodecs_tpu_torch/csrc/seanet_resblock.cu",
+            "replaces": "audiocodecs_tpu/ops/seanet_block_pallas.py:96",
+            "launches": 0, "max_abs_err": worst, "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "cudnn_path_ms": tot["cudnn_path_ms"],
+            "shape": "sum over the four main-path (C, T) shapes at B=8"}
+
+
+def phase_main_path(torch, rows):
+    from audiocodecs_tpu_torch.models.encodec import Encodec
+    from audiocodecs_tpu_torch.ops.lstm_recurrence import lstm_recurrence
+    from audiocodecs_tpu_torch.ops.seanet_resblock import seanet_resblock
+    from audiocodecs_tpu_torch.quant.rvq import rvq_decode, rvq_encode
+
+    sr, B, seconds = 24000, 8, 10.0
+    T = int(sr * seconds)
+    codec = Encodec(sr, sr, num_codebooks=8, device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
+    cpu = Encodec(sr, sr, num_codebooks=8, device="cpu", state_dict=state)
+    rng = np.random.default_rng(0)
+    requests = [rng.standard_normal((B, T)).astype(np.float32) * 0.1,
+                rng.standard_normal((B, T)).astype(np.float32) * 0.1,
+                rng.standard_normal((1, 79201)).astype(np.float32) * 0.1]
+
+    # the counted run: the main path only
+    lstm_recurrence.launches = 0
+    seanet_resblock.launches = 0
+    answers = []
+    for sig in requests:
+        toks = codec.sig_to_toks(sig)
+        answers.append((toks, codec.toks_to_sig(toks)))
+    torch.cuda.synchronize()
+    counts = {"lstm_recurrence": lstm_recurrence.launches,
+              "seanet_resblock": seanet_resblock.launches}
+    log(f"main path launches over {len(requests)} roundtrips: "
+        f"{json.dumps(counts)}")
+    n = len(requests)
+    if counts != {"lstm_recurrence": 4 * n, "seanet_resblock": 8 * n}:
+        fail(f"expected {4 * n} LSTM and {8 * n} resblock launches, got "
+             f"{counts}")
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+
+    for sig, (toks, y) in zip(requests, answers):
+        N = math.ceil(sig.shape[1] / 320)
+        if tuple(toks.shape) != (sig.shape[0], N, 8) or tuple(y.shape) != (
+                sig.shape[0], N * 320):
+            fail(f"shapes: toks {tuple(toks.shape)}, sig {tuple(y.shape)} "
+                 f"for input {sig.shape}")
+        if not bool(torch.isfinite(y).all()):
+            fail("non-finite waveform")
+    if tuple(answers[0][0].shape) != (8, 750, 8):
+        fail(f"main request tokens {tuple(answers[0][0].shape)}")
+
+    # parity against the plain versions on the CPU, same weights
+    for i in (0, 2):
+        sig, (toks, y) = requests[i], answers[i]
+        f_gpu = codec.sig_to_feats(sig).cpu()
+        f_cpu = cpu.sig_to_feats(sig)
+        f_err = float((f_gpu - f_cpu).abs().max())
+        f_lim = 1e-4 * float(f_cpu.abs().max())
+        t_cpu = cpu.sig_to_toks(sig)
+        mism = int((toks.cpu() != t_cpu).sum())
+        match = 1.0 - mism / t_cpu.numel()
+        y_cpu = cpu.toks_to_sig(toks.cpu())
+        y_err = float((y.cpu() - y_cpu).abs().max())
+        y_lim = 1e-4 * float(y_cpu.abs().max())
+        log(f"request {i} {sig.shape}: feats max_abs_diff={f_err:.3e} "
+            f"(limit {f_lim:.3e}); token_match={match:.6f} "
+            f"({mism} of {t_cpu.numel()} differ); decode max_abs_diff="
+            f"{y_err:.3e} (limit {y_lim:.3e})")
+        if not f_err <= f_lim:
+            fail("features disagree with the CPU path")
+        if not match >= 0.999:
+            fail(f"token_match {match} < 0.999")
+        if not y_err <= y_lim:
+            fail("decoded waveform disagrees with the CPU path")
+
+    # warm roundtrip time, stages, peak memory
+    sig = requests[0]
+    sig_dev = torch.as_tensor(sig, device="cuda")
+    rt_ms = cuda_ms(torch, lambda: codec.roundtrip(sig_dev), reps=5)
+    with torch.inference_mode():
+        feats = codec._sig_to_feats(sig_dev, None)
+        toks = rvq_encode(feats, codec.codebooks, 8)
+        q = rvq_decode(toks, codec.codebooks)
+        stages = {
+            "encoder_ms": cuda_ms(
+                torch, lambda: codec._sig_to_feats(sig_dev, None), reps=5),
+            "rvq_encode_ms": cuda_ms(
+                torch, lambda: rvq_encode(feats, codec.codebooks, 8), reps=5),
+            "rvq_decode_ms": cuda_ms(
+                torch, lambda: rvq_decode(toks, codec.codebooks), reps=5),
+            "decoder_ms": cuda_ms(
+                torch, lambda: codec._feats_to_sig(q, None), reps=5),
+        }
+    torch.cuda.reset_peak_memory_stats()
+    codec.roundtrip(sig_dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    per_stream = seconds / (rt_ms / 1e3)
+    log(f"roundtrip B={B} x {seconds} s: {rt_ms:.3f} ms warm; "
+        f"rtf_per_stream={per_stream:.3f} rtf_aggregate={per_stream * B:.3f};"
+        f" peak_mem_bytes={peak}")
+    log(f"stages: {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+    phase_profile(torch, codec, sig_dev, rt_ms)
+
+
+_KERNEL_GROUPS = (("lstm_recurrence", "lstm_recurrence_kernel"),
+                  ("seanet_resblock", "seanet_resblock_kernel"),
+                  ("conv (cuDNN)", "cudnn"), ("conv (cuDNN)", "conv"),
+                  ("conv (cuDNN)", "xmma"), ("matmul (cuBLAS)", "gemm"),
+                  ("elementwise", "elementwise"), ("reduce", "reduce"))
+
+
+def phase_profile(torch, codec, sig_dev, rt_ms):
+    """Device time of one warm roundtrip by kernel (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        codec.roundtrip(sig_dev)
+        torch.cuda.synchronize()
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        kernels.append((us / 1e3, evt.count, evt.key))
+    busy = sum(k[0] for k in kernels)
+    if busy <= 0:
+        log("profile: the profiler saw no device time (not measured)")
+        return
+    groups = {}
+    for ms, _, key in kernels:
+        g = next((g for g, pat in _KERNEL_GROUPS if pat in key.lower()),
+                 "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    log(f"profile: device busy {busy:.3f} ms of a {rt_ms:.3f} ms roundtrip "
+        f"(idle share {max(0.0, 1 - busy / rt_ms):.3f}); by group (ms): "
+        + json.dumps({g: round(v, 3) for g, v in
+                      sorted(groups.items(), key=lambda kv: -kv[1])}))
+    for ms, count, key in sorted(kernels, reverse=True)[:12]:
+        log(f"  {ms:9.3f} ms  x{count:<4d} {key[:100]}")
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this script runs the port on a GPU")
+    try:
+        import audiocodecs_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"audiocodecs_tpu_torch not importable ({e}); run from the root "
+             "of the repository")
+    t0 = time.perf_counter()
+    name, card, peaks = phase_card(torch)
+    phase_build()
+    rows = [phase_lstm(torch, peaks), phase_resblock(torch, peaks)]
+    phase_main_path(torch, rows)
+    log(f"total seconds: {time.perf_counter() - t0:.1f}")
+    log(json.dumps({"kernels": rows}))
+    log(f"card: {card}")
+    if "jax" in sys.modules or any(
+            m == "audiocodecs_tpu" or m.startswith("audiocodecs_tpu.")
+            for m in sys.modules):
+        fail("the port pulled in jax or audiocodecs_tpu")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

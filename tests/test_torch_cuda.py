@@ -1,0 +1,128 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU and the CUDA toolkit (``nvcc``) and
+skips without them. The file imports neither JAX nor the JAX package, so it
+runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: kernel against plain version 1e-5 (absolute for the LSTM,
+relative to max|ref| for the block), the limits ``chip_smoke.py`` uses.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from audiocodecs_tpu_torch.models.encodec import Encodec, EncodecModelConfig
+from audiocodecs_tpu_torch.nn.layers import exact_fp32, pad1d
+from audiocodecs_tpu_torch.nn.lstm import init_lstm_params, lstm
+from audiocodecs_tpu_torch.ops.lstm_recurrence import (
+    lstm_recurrence,
+    lstm_recurrence_reference,
+)
+from audiocodecs_tpu_torch.ops.seanet_resblock import (
+    seanet_resblock,
+    seanet_resblock_reference,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _t(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("T,B,H", [(257, 3, 512), (20, 200, 512),
+                                   (33, 4, 32), (9, 2, 1024)])
+def test_lstm_kernel_matches_plain_version(dev, T, B, H):
+    """B=200 at H=512 is more rows than one launch holds: the wrapper
+    splits it into two launches."""
+    rng = np.random.default_rng(T + B + H)
+    args = [_t(rng.standard_normal((T, B, 4 * H)), dev),
+            _t(rng.uniform(-1, 1, (H, 4 * H)) / np.sqrt(H), dev),
+            _t(rng.standard_normal((B, H)) * 0.5, dev),
+            _t(rng.standard_normal((B, H)) * 0.5, dev)]
+    before = lstm_recurrence.launches
+    with torch.inference_mode(), exact_fp32():
+        got = lstm_recurrence(*args)
+        want = lstm_recurrence_reference(*args)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches > before
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("C,T,pad_mode", [(32, 1001, "reflect"),
+                                          (256, 300, "reflect"),
+                                          (8, 2, "reflect"),
+                                          (64, 129, "constant")])
+def test_resblock_kernel_matches_plain_version(dev, C, T, pad_mode):
+    rng = np.random.default_rng(C + T)
+    Hc = C // 2
+    x = _t(rng.standard_normal((2, C, T)), dev)
+    halo = pad1d(x[..., :3], 2, 0, mode=pad_mode)[..., :2].contiguous()
+    weights = [_t(rng.standard_normal(s) / np.sqrt(f), dev) for s, f in (
+        ((Hc, C, 3), 3 * C), ((Hc,), 3 * C), ((C, Hc, 1), Hc), ((C,), Hc),
+        ((C, C, 1), C), ((C,), C))]
+    before = seanet_resblock.launches
+    with torch.inference_mode():
+        got = seanet_resblock(x, halo, *weights)
+        want = seanet_resblock_reference(x, halo, *weights)
+    torch.cuda.synchronize()
+    assert seanet_resblock.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("H", [48, 1056])
+def test_lstm_on_the_card_refuses_widths_the_kernel_does_not_take(dev, H):
+    """No plain loop on the card: the kernel takes H % 32 == 0, H <= 1024."""
+    params = [{k: v.to(dev) for k, v in p.items()} for p in
+              init_lstm_params(torch.Generator().manual_seed(0), 1, 8, H)]
+    before = lstm_recurrence.launches
+    with pytest.raises(ValueError, match="H % 32 == 0"):
+        lstm(torch.zeros(1, 3, 8, device=dev), params)
+    assert lstm_recurrence.launches == before
+
+
+def test_resblock_on_the_card_refuses_widths_the_kernel_does_not_take(dev):
+    C = 512
+    args = [torch.zeros(s, device=dev) for s in (
+        (1, C, 4), (1, C, 2), (C // 2, C, 3), (C // 2,), (C, C // 2, 1),
+        (C,), (C, C, 1), (C,))]
+    before = seanet_resblock.launches
+    with pytest.raises(ValueError, match="C <= 384"):
+        seanet_resblock(*args)
+    assert seanet_resblock.launches == before
+
+
+def test_small_encodec_roundtrip_launches_and_matches_cpu(dev):
+    """Narrow widths drive the kernels' generic tiles: H=32 LSTMs and
+    C=8/16 blocks (2 a side), against the same weights on the CPU."""
+    mc = EncodecModelConfig(num_filters=8, hidden_size=16,
+                            upsampling_ratios=(4, 2), codebook_size=64,
+                            codebook_dim=16, num_quantizers=4)
+    gpu = Encodec(24000, num_codebooks=4, model_config=mc, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    cpu = Encodec(24000, num_codebooks=4, model_config=mc, device="cpu",
+                  state_dict={k: v.cpu() for k, v in gpu.state_dict().items()})
+    sig = (np.random.default_rng(1).standard_normal((3, 4001)) * 0.3).astype(
+        np.float32)
+    n_lstm, n_block = lstm_recurrence.launches, seanet_resblock.launches
+    toks = gpu.sig_to_toks(sig)
+    y = gpu.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches - n_lstm == 4
+    assert seanet_resblock.launches - n_block == 4
+    assert (toks.cpu() == cpu.sig_to_toks(sig)).float().mean() >= 0.999
+    y_cpu = cpu.toks_to_sig(toks.cpu())
+    assert float((y.cpu() - y_cpu).abs().max()) <= 1e-4 * float(
+        y_cpu.abs().max())

@@ -1,0 +1,164 @@
+"""Port parity: the fused SEANet residual block's plain version and the
+port's ``_apply_resnet`` against the JAX package's Pallas kernel (interpret
+mode) and its XLA ``_apply_resnet`` (CPU, fp32, atol 2e-6).
+
+The CUDA kernel itself is held against the plain version on the card by
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from audiocodecs_tpu.nn.layers import pad1d as j_pad1d
+from audiocodecs_tpu.nn.seanet import SEANetConfig as JSEANetConfig
+from audiocodecs_tpu.nn.seanet import _apply_resnet as j_apply_resnet
+from audiocodecs_tpu.ops.seanet_block_pallas import seanet_resblock_pallas
+from audiocodecs_tpu_torch.nn.layers import pad1d
+from audiocodecs_tpu_torch.nn.seanet import (
+    ResBlock,
+    SEANetConfig,
+    _apply_resnet,
+    _fused_eligible,
+    _resnet_plain,
+)
+from audiocodecs_tpu_torch.ops.seanet_resblock import (
+    seanet_resblock,
+    seanet_resblock_reference,
+)
+
+ATOL = 2e-6
+
+
+def _jax_params(rng, C, H, shortcut=True):
+    def c(k, i, o):
+        return {"w": rng.standard_normal((k, i, o)).astype(np.float32) * 0.1,
+                "b": rng.standard_normal(o).astype(np.float32) * 0.1}
+
+    p = {"block": [c(3, C, H), c(1, H, C)]}
+    if shortcut:
+        p["shortcut"] = c(1, C, C)
+    return p
+
+
+def _port_block(p, C, cfg):
+    blk = ResBlock(C, cfg)
+    convs = [*blk.block] + ([blk.shortcut] if blk.shortcut is not None else [])
+    src = [*p["block"]] + ([p["shortcut"]] if "shortcut" in p else [])
+    with torch.no_grad():
+        for conv, q in zip(convs, src):
+            conv.w.copy_(torch.from_numpy(q["w"].transpose(2, 1, 0).copy()))
+            conv.b.copy_(torch.from_numpy(q["b"]))
+    return blk
+
+
+def _kernel_args(x_bct, blk, pad_mode):
+    halo = pad1d(x_bct[..., :3], 2, 0, mode=pad_mode)[..., :2].contiguous()
+    c1, c2, s = blk.block[0], blk.block[1], blk.shortcut
+    return (x_bct, halo, c1.w.detach(), c1.b.detach(), c2.w.detach(),
+            c2.b.detach(), s.w.detach(), s.b.detach())
+
+
+def _bct(x):
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1)))
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "constant"])
+@pytest.mark.parametrize("T,tile", [(100, 32), (64, 64), (130, 64), (2, 32)])
+def test_plain_block_matches_pallas_interpret(rng, pad_mode, T, tile):
+    C, H = 32, 16
+    p = _jax_params(rng, C, H)
+    x = rng.standard_normal((2, T, C)).astype(np.float32)
+    xp = j_pad1d(jnp.asarray(x), 2, 0, mode=pad_mode)
+    want = seanet_resblock_pallas(
+        xp, jnp.asarray(p["block"][0]["w"]), jnp.asarray(p["block"][0]["b"]),
+        jnp.asarray(p["block"][1]["w"][0]), jnp.asarray(p["block"][1]["b"]),
+        jnp.asarray(p["shortcut"]["w"][0]), jnp.asarray(p["shortcut"]["b"]),
+        tile=tile, interpret=True)
+    blk = _port_block(p, C, SEANetConfig(pad_mode=pad_mode))
+    got = seanet_resblock_reference(*_kernel_args(_bct(x), blk, pad_mode))
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 1),
+                               np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "constant"])
+@pytest.mark.parametrize("C,H,T", [(32, 16, 77), (64, 32, 40), (8, 4, 3),
+                                   (16, 8, 1)])
+def test_apply_resnet_matches_jax_xla_path(rng, pad_mode, C, H, T):
+    """The port's dispatch (fused block's plain version on the CPU) against
+    the reference's XLA form, including signals shorter than the halo."""
+    p = _jax_params(rng, C, H)
+    x = rng.standard_normal((2, T, C)).astype(np.float32)
+    want = j_apply_resnet(jnp.asarray(x), p,
+                          JSEANetConfig(causal=True, pad_mode=pad_mode), (1, 1))
+    cfg = SEANetConfig(pad_mode=pad_mode)
+    blk = _port_block(p, C, cfg)
+    assert _fused_eligible(blk, cfg, (1, 1))
+    with torch.no_grad():
+        got = _apply_resnet(_bct(x), blk, cfg, (1, 1))
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 1),
+                               np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("dilations,shortcut", [((2, 1), True),
+                                                ((1, 1), False)])
+def test_general_resnet_path_matches_jax(rng, dilations, shortcut):
+    """Blocks the kernel does not cover take the general path."""
+    C, H = 16, 8
+    p = _jax_params(rng, C, H, shortcut=shortcut)
+    x = rng.standard_normal((2, 50, C)).astype(np.float32)
+    jcfg = JSEANetConfig(causal=True, pad_mode="reflect",
+                         use_conv_shortcut=shortcut)
+    want = j_apply_resnet(jnp.asarray(x), p, jcfg, dilations)
+    cfg = SEANetConfig(use_conv_shortcut=shortcut)
+    blk = _port_block(p, C, cfg)
+    assert not _fused_eligible(blk, cfg, dilations)
+    with torch.no_grad():
+        got = _apply_resnet(_bct(x), blk, cfg, dilations)
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 1),
+                               np.asarray(want), atol=ATOL)
+
+
+def test_wrapper_on_cpu_runs_plain_version_without_launching(rng):
+    C, H = 32, 16
+    cfg = SEANetConfig()
+    blk = _port_block(_jax_params(rng, C, H), C, cfg)
+    x = _bct(rng.standard_normal((2, 45, C)).astype(np.float32))
+    args = _kernel_args(x, blk, "reflect")
+    before = seanet_resblock.launches
+    got = seanet_resblock(*args)
+    assert seanet_resblock.launches == before
+    torch.testing.assert_close(got, seanet_resblock_reference(*args),
+                               rtol=0, atol=0)
+    with torch.no_grad():
+        torch.testing.assert_close(got, _resnet_plain(x, blk, cfg, (1, 1)),
+                                   rtol=0, atol=ATOL)
+
+
+def test_kernel_input_checks(rng):
+    """What the kernel does not take raises before any launch."""
+    from audiocodecs_tpu_torch.ops.seanet_resblock import _check
+
+    C = 32
+    blk = _port_block(_jax_params(rng, C, 16), C, SEANetConfig())
+    x = _bct(rng.standard_normal((1, 20, C)).astype(np.float32))
+    args = list(_kernel_args(x, blk, "reflect"))
+    _check(*args)
+    bad_halo = args[:1] + [args[1][..., :1]] + args[2:]
+    with pytest.raises(ValueError):
+        _check(*bad_halo)
+    with pytest.raises(TypeError):
+        _check(*[a.double() for a in args])
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2)] + args[1:]
+    with pytest.raises(ValueError):
+        _check(*strided)
+    with pytest.raises(ValueError):
+        seanet_resblock(*[a.to("meta") for a in args])
+    C = 512  # wider than the kernel's widest tile
+    wide = [torch.zeros(s) for s in ((1, C, 4), (1, C, 2), (C // 2, C, 3),
+                                     (C // 2,), (C, C // 2, 1), (C,),
+                                     (C, C, 1), (C,))]
+    with pytest.raises(ValueError, match="C <= 384"):
+        _check(*wide)
