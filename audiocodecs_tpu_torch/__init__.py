@@ -9,11 +9,14 @@ built at first use (:mod:`audiocodecs_tpu_torch.ops._build`).
 Importing the package is light: the codec classes load on first access.
 """
 
-__all__ = ["Codec", "CodecConfig", "Encodec", "EncodecModelConfig"]
+__all__ = ["Codec", "CodecConfig", "DAC", "DACModelConfig", "Encodec",
+           "EncodecModelConfig"]
 
 _LAZY = {
     "Codec": "audiocodecs_tpu_torch.codec",
     "CodecConfig": "audiocodecs_tpu_torch.codec",
+    "DAC": "audiocodecs_tpu_torch.models.dac",
+    "DACModelConfig": "audiocodecs_tpu_torch.models.dac",
     "Encodec": "audiocodecs_tpu_torch.models.encodec",
     "EncodecModelConfig": "audiocodecs_tpu_torch.models.encodec",
 }

@@ -26,7 +26,8 @@ from torch import nn
 from audiocodecs_tpu_torch.nn.layers import exact_fp32
 from audiocodecs_tpu_torch.resample import resample as _resample_sig
 
-__all__ = ["Codec", "CodecConfig", "MODES", "resolve_device"]
+__all__ = ["Codec", "CodecConfig", "MODES", "prune_params_for_mode",
+           "resolve_device"]
 
 MODES = ("encode", "decode", "reconstruct")
 
@@ -65,6 +66,15 @@ def resolve_device(device=None) -> torch.device:
                 "pass device='cpu' to run it on the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+def prune_params_for_mode(state_dict: dict, mode: str) -> dict:
+    """Drop the entries a mode does not use (encode: no decoder; decode:
+    no encoder)."""
+    drop = {"encode": "decoder.", "decode": "encoder."}.get(mode)
+    if drop is None:
+        return dict(state_dict)
+    return {k: v for k, v in state_dict.items() if not k.startswith(drop)}
 
 
 def _serving(fn):

@@ -20,7 +20,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from audiocodecs_tpu_torch.codec import Codec, CodecConfig
+from audiocodecs_tpu_torch.codec import (
+    Codec,
+    CodecConfig,
+    prune_params_for_mode,
+)
 from audiocodecs_tpu_torch.nn.seanet import (
     SEANet,
     SEANetConfig,
@@ -193,11 +197,3 @@ def init_encodec_params(generator: torch.Generator,
         generator=generator)
     return out
 
-
-def prune_params_for_mode(state_dict: dict, mode: str) -> dict:
-    """Drop the entries a mode does not use (encode: no decoder; decode:
-    no encoder)."""
-    drop = {"encode": "decoder.", "decode": "encoder."}.get(mode)
-    if drop is None:
-        return dict(state_dict)
-    return {k: v for k, v in state_dict.items() if not k.startswith(drop)}

@@ -23,6 +23,7 @@ from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 __all__ = [
     "conv1d",
@@ -32,7 +33,10 @@ __all__ = [
     "causal_conv1d",
     "streaming_conv_frames",
     "elu",
+    "unit_norm",
     "exact_fp32",
+    "Conv1d",
+    "ConvTranspose1d",
 ]
 
 
@@ -72,6 +76,33 @@ exact_fp32 = _ExactFP32()
 
 def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
     return torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def unit_norm(x: torch.Tensor, dim: int = -1,
+              eps: float = 1e-12) -> torch.Tensor:
+    """``x · rsqrt(Σx² + eps)`` along ``dim``."""
+    return x * torch.rsqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps)
+
+
+class Conv1d(nn.Module):
+    """Weights only: ``w`` [Cout, Cin, K], ``b`` [Cout]. The weight bridge
+    converts the reference's ``[K, Cin, Cout]`` for modules of this class."""
+
+    def __init__(self, cin: int, cout: int, k: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(cout, cin, k))
+        self.b = nn.Parameter(torch.empty(cout))
+
+
+class ConvTranspose1d(nn.Module):
+    """Weights only: ``w`` [Cin, Cout, K] (PyTorch's layout), ``b`` [Cout].
+    The weight bridge unflips the reference's pre-flipped ``[K, Cin, Cout]``
+    for modules of this class."""
+
+    def __init__(self, cin: int, cout: int, k: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(cin, cout, k))
+        self.b = nn.Parameter(torch.empty(cout))
 
 
 def conv1d(x, w, b=None, *, stride: int = 1, dilation: int = 1,

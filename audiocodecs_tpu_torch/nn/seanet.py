@@ -24,6 +24,8 @@ import torch
 from torch import nn
 
 from audiocodecs_tpu_torch.nn.layers import (
+    Conv1d,
+    ConvTranspose1d,
     causal_conv1d,
     conv_transpose1d,
     elu,
@@ -112,24 +114,6 @@ def seanet_decoder_plan(cfg: SEANetConfig):
 # ----------------------------------------------------------------------- #
 # Modules
 # ----------------------------------------------------------------------- #
-
-
-class Conv1d(nn.Module):
-    """Weights only: ``w`` [Cout, Cin, K], ``b`` [Cout]."""
-
-    def __init__(self, cin: int, cout: int, k: int):
-        super().__init__()
-        self.w = nn.Parameter(torch.empty(cout, cin, k))
-        self.b = nn.Parameter(torch.empty(cout))
-
-
-class ConvTranspose1d(nn.Module):
-    """Weights only: ``w`` [Cin, Cout, K] (PyTorch's layout), ``b`` [Cout]."""
-
-    def __init__(self, cin: int, cout: int, k: int):
-        super().__init__()
-        self.w = nn.Parameter(torch.empty(cin, cout, k))
-        self.b = nn.Parameter(torch.empty(cout))
 
 
 class ResBlock(nn.Module):

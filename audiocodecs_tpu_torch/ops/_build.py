@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` into a shared
 library with a plain C interface, under ``audiocodecs_tpu_torch/_build/``
 (listed in ``.gitignore``). The library's file name carries a hash of the
 sources and flags, so an edited source is rebuilt. There is no
-``--use_fast_math``: ``expf``/``tanhf``/``expm1f`` decide encoder tokens.
+``--use_fast_math``: ``expf``/``tanhf``/``expm1f`` decide encoder tokens,
+and ``sinf`` must stay accurate for large arguments of the snake.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ __all__ = ["KERNELS", "build", "build_all", "load", "nvcc_path"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("lstm_recurrence", "seanet_resblock")
+KERNELS = ("lstm_recurrence", "seanet_resblock", "dac_resunit")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -16,6 +16,15 @@ PyTorch's ``[Cout, Cin, K]``: ``w1 [Hc, C, 3]``, ``w2 [C, Hc, 1]``,
 
 :func:`seanet_resblock` launches the kernel for CUDA tensors and runs
 :func:`seanet_resblock_reference` for CPU tensors; there is no other path.
+
+:func:`seanet_resblock_packed` is the entry point that replaces the TPU
+kernel ``audiocodecs_tpu/ops/seanet_block_packed.py::seanet_resblock_packed``
+with that function's contract: channel-last ``x [B, T, C]``, a zero causal
+pad, ``C <= 64``. The TPU kernel packs ``128 // C`` time samples into the
+lanes of its matrix unit; that has no meaning on Hopper, whose kernel here
+already walks time across threads. So the entry point converts the layout
+and launches the same kernel as :func:`seanet_resblock`, with a zero halo,
+and counts its launches apart.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ import torch.nn.functional as F
 from audiocodecs_tpu_torch.nn.layers import elu, exact_fp32
 from audiocodecs_tpu_torch.ops import _build
 
-__all__ = ["seanet_resblock", "seanet_resblock_reference"]
+__all__ = ["seanet_resblock", "seanet_resblock_reference",
+           "seanet_resblock_packed", "seanet_resblock_packed_reference"]
 
 MAX_CHANNELS = 384  # the widest register tile the kernel is built with
 
@@ -81,14 +91,7 @@ def _check(x, halo, w1, b1, w2, b2, ws, bs):
             raise ValueError(f"{name} must be contiguous")
 
 
-def seanet_resblock(x, halo, w1, b1, w2, b2, ws, bs):
-    """The fused block: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Returns ``[B, C, T]`` float32. On the card the kernel
-    takes float32 and ``C <= 384``; anything else raises."""
-    if x.device.type == "cpu":
-        return seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+def _launch(x, halo, w1, b1, w2, b2, ws, bs):
     _check(x, halo, w1, b1, w2, b2, ws, bs)
     B, C, T = x.shape
     out = torch.empty_like(x)
@@ -102,8 +105,62 @@ def seanet_resblock(x, halo, w1, b1, w2, b2, ws, bs):
     if err:
         raise RuntimeError("seanet_resblock kernel launch failed: "
                            + lib.seanet_resblock_error_string(err).decode())
+    return out
+
+
+def seanet_resblock(x, halo, w1, b1, w2, b2, ws, bs):
+    """The fused block: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. Returns ``[B, C, T]`` float32. On the card the kernel
+    takes float32 and ``C <= 384``; anything else raises."""
+    if x.device.type == "cpu":
+        return seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    out = _launch(x, halo, w1, b1, w2, b2, ws, bs)
     seanet_resblock.launches += 1
     return out
 
 
 seanet_resblock.launches = 0  # kernel launches in this process
+
+PACKED_MAX_CHANNELS = 64  # the TPU kernel's limit (two samples a lane row)
+
+
+def _packed_args(x, w1, b1, w2, b2, ws, bs):
+    """The reference layouts (``x [B, T, C]``, ``w1 [3, C, H]``,
+    ``w2 [H, C]``, ``ws [C, C]``) as the block's ``[B, C, T]`` arguments,
+    with a zero causal halo."""
+    if x.ndim != 3:
+        raise ValueError(f"x must be [B, T, C], got {tuple(x.shape)}")
+    B, T, C = x.shape
+    if C > PACKED_MAX_CHANNELS:
+        raise ValueError(f"seanet_resblock_packed needs C <= "
+                         f"{PACKED_MAX_CHANNELS}; got C={C}")
+    xc = x.transpose(1, 2).contiguous()
+    return (xc, xc.new_zeros(B, C, 2), w1.permute(2, 1, 0).contiguous(), b1,
+            w2.T.contiguous()[..., None], b2, ws.T.contiguous()[..., None], bs)
+
+
+def seanet_resblock_packed_reference(x, w1, b1, w2, b2, ws, bs):
+    """Plain version of :func:`seanet_resblock_packed`: the block's plain
+    version on the converted layout. Returns ``[B, T, C]``."""
+    args = _packed_args(x, w1, b1, w2, b2, ws, bs)
+    return seanet_resblock_reference(*args).transpose(1, 2)
+
+
+def seanet_resblock_packed(x, w1, b1, w2, b2, ws, bs):
+    """The SEANet block with the packed TPU kernel's contract: ``x``
+    [B, T, C] unpadded (the causal left side is zero), ``w1`` [3, C, H],
+    ``w2`` [H, C], ``ws`` [C, C]; returns [B, T, C]. Raises ``ValueError``
+    for C > 64. CUDA tensors launch the block kernel, CPU tensors run its
+    plain version."""
+    if x.device.type == "cpu":
+        return seanet_resblock_packed_reference(x, w1, b1, w2, b2, ws, bs)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    out = _launch(*_packed_args(x, w1, b1, w2, b2, ws, bs))
+    seanet_resblock_packed.launches += 1
+    return out.transpose(1, 2)
+
+
+seanet_resblock_packed.launches = 0  # kernel launches in this process

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from audiocodecs_tpu_torch.nn.seanet import Conv1d, ConvTranspose1d
+from audiocodecs_tpu_torch.nn.layers import Conv1d, ConvTranspose1d
 
 __all__ = ["flatten_tree", "from_jax_params"]
 

@@ -13,11 +13,20 @@ it fails:
    two launches, with timings;
 4. kernel 2, the fused SEANet residual block, against its plain version at
    the main path's four (C, T) shapes (B=8) and a ragged one, with timings;
-5. the main path as a small server: EnCodec-24 kHz, 8 codebooks, seeded
+5. the packed SEANet block entry point (channel-last, zero causal pad),
+   which launches kernel 2, against its plain version at EnCodec's two
+   narrow widths and a ragged shape, with timings;
+6. kernel 3, the fused DAC residual unit, against its plain version (which
+   the model's unfused units run) at the DAC-44.1k decoder's six
+   (C, T, dilation) shapes, a ragged one and one shorter than its padding,
+   with timings;
+7. the EnCodec path as a small server: EnCodec-24 kHz, 8 codebooks, seeded
    random weights, three requests through ``sig_to_toks`` → ``toks_to_sig``
    with the kernel launches counted, parity against the same weights on the
    CPU, then the warm roundtrip time, peak memory and the device time by
-   kernel over one roundtrip (torch.profiler).
+   kernel over one roundtrip (torch.profiler);
+8. the DAC path the same way: DAC-44.1 kHz, 9 codebooks, two 10 s requests
+   and one B = 2 ragged request, six kernel-3 launches a decode.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -41,6 +50,12 @@ LSTM_SHAPES = [(750, 8, 512), (257, 3, 512), (40, 100, 512)]
 RESBLOCK_SHAPES = [(8, 32, 240000), (8, 64, 120000), (8, 128, 30000),
                    (8, 256, 6000)]
 RESBLOCK_RAGGED = (3, 64, 1001)
+PACKED_SHAPES = [(8, 32, 240000), (8, 64, 120000)]  # (B, C, T)
+PACKED_RAGGED = (3, 64, 1001)
+# the DAC-44.1k decoder's fused units for B = 1 x 10 s: (B, C, T, dilation)
+DAC_UNIT_SHAPES = [(1, 192, 220416, d) for d in (1, 3, 9)] + [
+    (1, 96, 440832, d) for d in (1, 3, 9)]
+DAC_UNIT_EXTRA = [(3, 96, 1001, 9), (2, 8, 20, 9)]  # ragged; T < 6d
 
 
 def fail(msg: str) -> None:
@@ -247,10 +262,163 @@ def phase_resblock(torch, peaks):
             "shape": "sum over the four main-path (C, T) shapes at B=8"}
 
 
+def phase_packed(torch, peaks):
+    from audiocodecs_tpu_torch.nn.layers import exact_fp32
+    from audiocodecs_tpu_torch.nn.seanet import (
+        ResBlock, SEANetConfig, _resnet_plain)
+    from audiocodecs_tpu_torch.ops.seanet_resblock import (
+        seanet_resblock_packed, seanet_resblock_packed_reference)
+
+    gen = torch.Generator().manual_seed(3)
+    dev = "cuda"
+    cfg = SEANetConfig(pad_mode="constant")
+    worst = 0.0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "cudnn_path_ms": 0.0, "flops": 0.0,
+           "bytes": 0.0}
+    for B, C, T in PACKED_SHAPES + [PACKED_RAGGED]:
+        x, (w1, b1, w2, b2, ws, bs) = _resblock_inputs(torch, gen, B, C, T,
+                                                       dev)
+        # the packed kernel's layouts: x [B, T, C], w1 [3, C, H], w2 [H, C]
+        xt = x.transpose(1, 2).contiguous()
+        args = (xt, w1.permute(2, 1, 0).contiguous(), b1,
+                w2[..., 0].T.contiguous(), b2, ws[..., 0].T.contiguous(), bs)
+        with torch.inference_mode(), exact_fp32():
+            got = seanet_resblock_packed(*args)
+            want = seanet_resblock_packed_reference(*args)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(want.abs().max()))
+            err = float((got - want).abs().max())
+        log(f"seanet_resblock_packed B={B} C={C} T={T}: max_abs_err={err:.3e}"
+            f" (limit {1e-5 * scale:.3e})")
+        if not err <= 1e-5 * scale:
+            fail(f"seanet_resblock_packed disagrees with its plain version: "
+                 f"{err}")
+        worst = max(worst, err)
+        if (B, C, T) == PACKED_RAGGED:
+            continue
+        blk = ResBlock(C, cfg).to(dev)
+        with torch.inference_mode(), exact_fp32():
+            for conv, (wt, bt) in zip((*blk.block, blk.shortcut),
+                                      ((w1, b1), (w2, b2), (ws, bs))):
+                conv.w.copy_(wt)
+                conv.b.copy_(bt)
+            ms = cuda_ms(torch, lambda: seanet_resblock_packed(*args))
+            plain_ms = cuda_ms(
+                torch, lambda: seanet_resblock_packed_reference(*args))
+            cudnn_ms = cuda_ms(torch, lambda: _resnet_plain(
+                xt.transpose(1, 2), blk, cfg, (1, 1)).transpose(1, 2))
+        Hc = C // 2
+        flops = 2.0 * B * T * (3 * C * Hc + Hc * C + C * C)
+        nbytes = 4.0 * (2 * B * C * T + 3 * C * Hc + Hc * C + C * C + Hc
+                        + 2 * C)
+        b_ms, b_by = bound(flops, nbytes, peaks)
+        log(f"seanet_resblock_packed B={B} C={C} T={T}: kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} cudnn_path_ms={cudnn_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) "
+            f"fp32_share_of_peak={flops / peaks[0] / (ms / 1e3):.3f}")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["cudnn_path_ms"] += cudnn_ms
+        tot["flops"] += flops
+        tot["bytes"] += nbytes
+    b_ms, b_by = bound(tot["flops"], tot["bytes"], peaks)
+    return {"name": "seanet_resblock_packed", "status": "ported",
+            "route": "cuda",
+            "source": "audiocodecs_tpu_torch/csrc/seanet_resblock.cu",
+            "replaces": "audiocodecs_tpu/ops/seanet_block_packed.py:123",
+            "launches": 0, "max_abs_err": worst, "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "cudnn_path_ms": tot["cudnn_path_ms"],
+            "shape": "sum over (C, T) = (32, 240000), (64, 120000) at B=8; "
+                     "no model calls it"}
+
+
+def _unit_inputs(torch, gen, B, C, T, dev):
+    def n(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    x = n(B, C, T, scale=0.5)
+    weights = (n(C, C, 7, scale=1 / math.sqrt(7 * C)), n(C, scale=0.1),
+               (torch.randn(C, generator=gen).abs() + 0.5).to(dev),
+               n(C, C, 1, scale=1 / math.sqrt(C)), n(C, scale=0.1),
+               (torch.randn(C, generator=gen).abs() + 0.5).to(dev))
+    return x, weights
+
+
+def phase_dac_resunit(torch, peaks):
+    from audiocodecs_tpu_torch.ops.dac_resunit import (
+        dac_resunit, dac_resunit_reference)
+
+    gen = torch.Generator().manual_seed(4)
+    dev = "cuda"
+    worst = 0.0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    per_shape = []
+    for B, C, T, d in DAC_UNIT_SHAPES + DAC_UNIT_EXTRA:
+        x, weights = _unit_inputs(torch, gen, B, C, T, dev)
+        with torch.inference_mode():
+            got = dac_resunit(x, *weights, d)
+            want = dac_resunit_reference(x, *weights, d)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(want.abs().max()))
+            err = float((got - want).abs().max())
+        del got, want
+        log(f"dac_resunit B={B} C={C} T={T} d={d}: max_abs_err={err:.3e} "
+            f"(limit {1e-5 * scale:.3e})")
+        if not err <= 1e-5 * scale:
+            fail(f"dac_resunit disagrees with its plain version: {err}")
+        worst = max(worst, err)
+        if (B, C, T, d) in DAC_UNIT_EXTRA:
+            continue
+        with torch.inference_mode():
+            ms = cuda_ms(torch, lambda: dac_resunit(x, *weights, d))
+            plain_ms = cuda_ms(
+                torch, lambda: dac_resunit_reference(x, *weights, d))
+        flops = 2.0 * B * T * 8 * C * C
+        nbytes = 4.0 * (2 * B * C * T + 8 * C * C + 4 * C)
+        b_ms, b_by = bound(flops, nbytes, peaks)
+        share = flops / peaks[0] / (ms / 1e3)
+        log(f"dac_resunit B={B} C={C} T={T} d={d}: kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} kernel/plain={ms / plain_ms:.3f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) fp32_share_of_peak={share:.3f}")
+        per_shape.append({"C": C, "T": T, "d": d, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "fp32_share_of_peak": share})
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["flops"] += flops
+        tot["bytes"] += nbytes
+    b_ms, b_by = bound(tot["flops"], tot["bytes"], peaks)
+    return {"name": "dac_resunit", "status": "ported", "route": "cuda",
+            "source": "audiocodecs_tpu_torch/csrc/dac_resunit.cu",
+            "replaces": "audiocodecs_tpu/ops/dac_resunit_pallas.py:114",
+            "launches": 0, "max_abs_err": worst, "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "per_shape": per_shape,
+            "shape": "sum over the six fused units of one B=1 x 10 s decode"}
+
+
+def _counters():
+    from audiocodecs_tpu_torch.ops.dac_resunit import dac_resunit
+    from audiocodecs_tpu_torch.ops.lstm_recurrence import lstm_recurrence
+    from audiocodecs_tpu_torch.ops.seanet_resblock import (
+        seanet_resblock, seanet_resblock_packed)
+
+    return {f.__name__: f for f in (lstm_recurrence, seanet_resblock,
+                                    seanet_resblock_packed, dac_resunit)}
+
+
+def reset_counts() -> None:
+    for f in _counters().values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: f.launches for name, f in _counters().items()}
+
+
 def phase_main_path(torch, rows):
     from audiocodecs_tpu_torch.models.encodec import Encodec
-    from audiocodecs_tpu_torch.ops.lstm_recurrence import lstm_recurrence
-    from audiocodecs_tpu_torch.ops.seanet_resblock import seanet_resblock
     from audiocodecs_tpu_torch.quant.rvq import rvq_decode, rvq_encode
 
     sr, B, seconds = 24000, 8, 10.0
@@ -264,24 +432,25 @@ def phase_main_path(torch, rows):
                 rng.standard_normal((B, T)).astype(np.float32) * 0.1,
                 rng.standard_normal((1, 79201)).astype(np.float32) * 0.1]
 
-    # the counted run: the main path only
-    lstm_recurrence.launches = 0
-    seanet_resblock.launches = 0
+    # the counted run: the EnCodec path only
+    reset_counts()
     answers = []
     for sig in requests:
         toks = codec.sig_to_toks(sig)
         answers.append((toks, codec.toks_to_sig(toks)))
     torch.cuda.synchronize()
-    counts = {"lstm_recurrence": lstm_recurrence.launches,
-              "seanet_resblock": seanet_resblock.launches}
-    log(f"main path launches over {len(requests)} roundtrips: "
+    counts = read_counts()
+    log(f"EnCodec path launches over {len(requests)} roundtrips: "
         f"{json.dumps(counts)}")
     n = len(requests)
-    if counts != {"lstm_recurrence": 4 * n, "seanet_resblock": 8 * n}:
-        fail(f"expected {4 * n} LSTM and {8 * n} resblock launches, got "
-             f"{counts}")
+    want = {"lstm_recurrence": 4 * n, "seanet_resblock": 8 * n,
+            "seanet_resblock_packed": 0, "dac_resunit": 0}
+    if counts != want:
+        fail(f"expected launches {want}, got {counts}")
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row.setdefault("launches_by_path", {})["encodec_24k"] = counts[
+            row["name"]]
+        row["launches"] += counts[row["name"]]
 
     for sig, (toks, y) in zip(requests, answers):
         N = math.ceil(sig.shape[1] / 320)
@@ -348,8 +517,129 @@ def phase_main_path(torch, rows):
     phase_profile(torch, codec, sig_dev, rt_ms)
 
 
+def phase_dac_path(torch, rows):
+    from audiocodecs_tpu_torch.models.dac import (
+        DAC, dac_rvq_decode, dac_rvq_encode)
+
+    sr, K, seconds = 44100, 9, 10.0
+    codec = DAC(sr, sr, num_codebooks=K, device="cuda",
+                generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
+    cpu = DAC(sr, sr, num_codebooks=K, device="cpu", state_dict=state)
+    rng = np.random.default_rng(1)
+    T = int(sr * seconds)
+    requests = [rng.standard_normal((1, T)).astype(np.float32) * 0.1,
+                rng.standard_normal((1, T)).astype(np.float32) * 0.1,
+                rng.standard_normal((2, 100001)).astype(np.float32) * 0.1]
+    want_shapes = [((1, 861, K), (1, 440832)), ((1, 861, K), (1, 440832)),
+                   ((2, 195, K), (2, 99840))]
+
+    # the counted run: the DAC path only
+    reset_counts()
+    answers, per_call = [], []
+    for sig in requests:
+        before = read_counts()["dac_resunit"]
+        toks = codec.sig_to_toks(sig)
+        mid = read_counts()["dac_resunit"]
+        y = codec.toks_to_sig(toks)
+        per_call.append((mid - before, read_counts()["dac_resunit"] - mid))
+        answers.append((toks, y))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"DAC path launches over {len(requests)} roundtrips: "
+        f"{json.dumps(counts)}; dac_resunit (sig_to_toks, toks_to_sig) per "
+        f"request: {per_call}")
+    n = len(requests)
+    want = {"lstm_recurrence": 0, "seanet_resblock": 0,
+            "seanet_resblock_packed": 0, "dac_resunit": 6 * n}
+    if counts != want or any(c != (0, 6) for c in per_call):
+        fail(f"expected launches {want} and (0, 6) per request, got "
+             f"{counts}, {per_call}")
+    for row in rows:
+        row.setdefault("launches_by_path", {})["dac_44k"] = counts[
+            row["name"]]
+        row["launches"] += counts[row["name"]]
+
+    for sig, (toks, y), (ts, ys) in zip(requests, answers, want_shapes):
+        if tuple(toks.shape) != ts or tuple(y.shape) != ys:
+            fail(f"shapes: toks {tuple(toks.shape)}, sig {tuple(y.shape)} "
+                 f"for input {sig.shape}; want {ts}, {ys}")
+        if not bool(torch.isfinite(y).all()):
+            fail("non-finite waveform")
+
+    # parity against the plain versions on the CPU, same weights: the
+    # ragged request, then one 10 s request (3 s if the CPU would take over
+    # 120 s for it)
+    def parity(label, sig, toks, y):
+        t0 = time.perf_counter()
+        f_gpu = codec.sig_to_feats(sig).cpu()
+        f_cpu = cpu.sig_to_feats(sig)
+        with torch.inference_mode():
+            t_cpu = dac_rvq_encode(f_cpu, cpu.quantizer, K)
+        y_cpu = cpu.toks_to_sig(toks.cpu())
+        cpu_s = time.perf_counter() - t0
+        f_err = float((f_gpu - f_cpu).abs().max())
+        f_lim = 1e-4 * float(f_cpu.abs().max())
+        mism = int((toks.cpu() != t_cpu).sum())
+        match = 1.0 - mism / t_cpu.numel()
+        y_err = float((y.cpu() - y_cpu).abs().max())
+        y_lim = 1e-4 * float(y_cpu.abs().max())
+        log(f"DAC {label} {sig.shape}: feats max_abs_diff={f_err:.3e} "
+            f"(limit {f_lim:.3e}); token_match={match:.6f} ({mism} of "
+            f"{t_cpu.numel()} differ); decode max_abs_diff={y_err:.3e} "
+            f"(limit {y_lim:.3e}); cpu_seconds={cpu_s:.1f}")
+        if not f_err <= f_lim:
+            fail("DAC features disagree with the CPU path")
+        if not match >= 0.999:
+            fail(f"DAC token_match {match} < 0.999")
+        if not y_err <= y_lim:
+            fail("DAC decoded waveform disagrees with the CPU path")
+        return cpu_s
+
+    cpu_s = parity("request 2", requests[2], *answers[2])
+    est = cpu_s * T / requests[2].size
+    if est <= 120.0:
+        parity("request 0", requests[0], *answers[0])
+    else:
+        short = np.ascontiguousarray(requests[0][:, : 3 * sr])
+        log(f"DAC 10 s parity would take ~{est:.0f} s on the CPU: checking "
+            f"the first 3 s of request 0 instead")
+        toks = codec.sig_to_toks(short)
+        parity("request 0, first 3 s", short, toks, codec.toks_to_sig(toks))
+
+    # warm roundtrip time, stages, peak memory
+    sig_dev = torch.as_tensor(requests[0], device="cuda")
+    rt_ms = cuda_ms(torch, lambda: codec.roundtrip(sig_dev), reps=5)
+    with torch.inference_mode():
+        feats = codec._encode_feats(sig_dev, None)
+        toks = dac_rvq_encode(feats, codec.quantizer, K)
+        q = dac_rvq_decode(toks, codec.quantizer)
+        stages = {
+            "encoder_ms": cuda_ms(
+                torch, lambda: codec._encode_feats(sig_dev, None), reps=5),
+            "rvq_encode_ms": cuda_ms(
+                torch, lambda: dac_rvq_encode(feats, codec.quantizer, K),
+                reps=5),
+            "rvq_decode_ms": cuda_ms(
+                torch, lambda: dac_rvq_decode(toks, codec.quantizer), reps=5),
+            "decoder_ms": cuda_ms(
+                torch, lambda: codec._feats_to_sig(q, None), reps=5),
+        }
+    torch.cuda.reset_peak_memory_stats()
+    codec.roundtrip(sig_dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"DAC roundtrip B=1 x {seconds} s: {rt_ms:.3f} ms warm; "
+        f"rtf_per_stream={seconds / (rt_ms / 1e3):.3f}; "
+        f"peak_mem_bytes={peak}")
+    log(f"DAC stages: "
+        f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+    phase_profile(torch, codec, sig_dev, rt_ms)
+
+
 _KERNEL_GROUPS = (("lstm_recurrence", "lstm_recurrence_kernel"),
                   ("seanet_resblock", "seanet_resblock_kernel"),
+                  ("dac_resunit", "dac_resunit_kernel"),
                   ("conv (cuDNN)", "cudnn"), ("conv (cuDNN)", "conv"),
                   ("conv (cuDNN)", "xmma"), ("matmul (cuBLAS)", "gemm"),
                   ("elementwise", "elementwise"), ("reduce", "reduce"))
@@ -402,8 +692,10 @@ def main() -> None:
     t0 = time.perf_counter()
     name, card, peaks = phase_card(torch)
     phase_build()
-    rows = [phase_lstm(torch, peaks), phase_resblock(torch, peaks)]
+    rows = [phase_lstm(torch, peaks), phase_resblock(torch, peaks),
+            phase_packed(torch, peaks), phase_dac_resunit(torch, peaks)]
     phase_main_path(torch, rows)
+    phase_dac_path(torch, rows)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))
     log(f"card: {card}")

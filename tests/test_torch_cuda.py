@@ -7,13 +7,15 @@ runs on a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: kernel against plain version 1e-5 (absolute for the LSTM,
-relative to max|ref| for the block), the limits ``chip_smoke.py`` uses.
+relative to max(1, max|ref|) for the blocks and the DAC unit), the limits
+``chip_smoke.py`` uses.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from audiocodecs_tpu_torch.models.dac import DAC, DACModelConfig
 from audiocodecs_tpu_torch.models.encodec import Encodec, EncodecModelConfig
 from audiocodecs_tpu_torch.nn.layers import exact_fp32, pad1d
 from audiocodecs_tpu_torch.nn.lstm import init_lstm_params, lstm
@@ -21,8 +23,14 @@ from audiocodecs_tpu_torch.ops.lstm_recurrence import (
     lstm_recurrence,
     lstm_recurrence_reference,
 )
+from audiocodecs_tpu_torch.ops.dac_resunit import (
+    dac_resunit,
+    dac_resunit_reference,
+)
 from audiocodecs_tpu_torch.ops.seanet_resblock import (
     seanet_resblock,
+    seanet_resblock_packed,
+    seanet_resblock_packed_reference,
     seanet_resblock_reference,
 )
 
@@ -122,6 +130,95 @@ def test_small_encodec_roundtrip_launches_and_matches_cpu(dev):
     torch.cuda.synchronize()
     assert lstm_recurrence.launches - n_lstm == 4
     assert seanet_resblock.launches - n_block == 4
+    assert (toks.cpu() == cpu.sig_to_toks(sig)).float().mean() >= 0.999
+    y_cpu = cpu.toks_to_sig(toks.cpu())
+    assert float((y.cpu() - y_cpu).abs().max()) <= 1e-4 * float(
+        y_cpu.abs().max())
+
+
+def _close(got, want):
+    return float((got - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+
+
+def _unit_args(rng, C, dev):
+    return [_t(rng.standard_normal((C, C, 7)) * 0.05, dev),
+            _t(rng.standard_normal(C) * 0.1, dev),
+            _t(np.abs(rng.standard_normal(C)) + 0.5, dev),
+            _t(rng.standard_normal((C, C, 1)) * 0.05, dev),
+            _t(rng.standard_normal(C) * 0.1, dev),
+            _t(np.abs(rng.standard_normal(C)) + 0.5, dev)]
+
+
+@pytest.mark.parametrize("B,C,T,d", [(2, 96, 1000, 1), (2, 96, 1000, 3),
+                                     (2, 96, 1000, 9), (3, 96, 1001, 9),
+                                     (2, 8, 20, 9), (1, 192, 257, 3),
+                                     (1, 256, 130, 9), (1, 5, 64, 1)])
+def test_dac_resunit_kernel_matches_plain_version(dev, B, C, T, d):
+    """Every round count of the kernel (C <= 96, 192, 256), ragged T, and
+    T < 6d, where the padding covers the whole window."""
+    rng = np.random.default_rng(B + C + T + d)
+    x = _t(rng.standard_normal((B, C, T)), dev)
+    args = _unit_args(rng, C, dev)
+    before = dac_resunit.launches
+    with torch.inference_mode():
+        got = dac_resunit(x, *args, d)
+        want = dac_resunit_reference(x, *args, d)
+    torch.cuda.synchronize()
+    assert dac_resunit.launches == before + 1
+    assert _close(got, want)
+
+
+def test_dac_resunit_on_the_card_refuses_widths_the_kernel_does_not_take(dev):
+    rng = np.random.default_rng(0)
+    C = 384
+    x = torch.zeros(1, C, 16, device=dev)
+    before = dac_resunit.launches
+    with pytest.raises(ValueError, match="C <= 256"):
+        dac_resunit(x, *_unit_args(rng, C, dev), 1)
+    with pytest.raises(TypeError):
+        dac_resunit(x[:, :8].double(), *[a.double() for a in
+                                          _unit_args(rng, 8, dev)], 1)
+    assert dac_resunit.launches == before
+
+
+@pytest.mark.parametrize("C,T", [(32, 1001), (64, 77)])
+def test_packed_entry_matches_plain_version(dev, C, T):
+    rng = np.random.default_rng(C + T)
+    H = C // 2
+    x = _t(rng.standard_normal((2, T, C)), dev)
+    weights = [_t(rng.standard_normal(s) / np.sqrt(f), dev) for s, f in (
+        ((3, C, H), 3 * C), ((H,), 3 * C), ((H, C), H), ((C,), H),
+        ((C, C), C), ((C,), C))]
+    before = seanet_resblock_packed.launches
+    with torch.inference_mode():
+        got = seanet_resblock_packed(x, *weights)
+        want = seanet_resblock_packed_reference(x, *weights)
+    torch.cuda.synchronize()
+    assert seanet_resblock_packed.launches == before + 1
+    assert tuple(got.shape) == (2, T, C)
+    assert _close(got, want)
+
+
+def test_small_dac_roundtrip_launches_and_matches_cpu(dev):
+    """Decoder widths 32 → 16 → 8: six fused units a decode, none on the
+    encode side, against the same weights on the CPU."""
+    mc = DACModelConfig(encoder_hidden_size=8, downsampling_ratios=(2, 2),
+                        decoder_hidden_size=32, upsampling_ratios=(2, 2),
+                        hidden_size=16, n_codebooks=4, codebook_size=64,
+                        codebook_dim=8)
+    gpu = DAC(16000, num_codebooks=4, model_config=mc, device=dev,
+              generator=torch.Generator().manual_seed(0))
+    cpu = DAC(16000, num_codebooks=4, model_config=mc, device="cpu",
+              state_dict={k: v.cpu() for k, v in gpu.state_dict().items()})
+    sig = (np.random.default_rng(1).standard_normal((3, 4001)) * 0.3).astype(
+        np.float32)
+    before = dac_resunit.launches
+    toks = gpu.sig_to_toks(sig)
+    assert dac_resunit.launches == before
+    y = gpu.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    assert dac_resunit.launches - before == 6
     assert (toks.cpu() == cpu.sig_to_toks(sig)).float().mean() >= 0.999
     y_cpu = cpu.toks_to_sig(toks.cpu())
     assert float((y.cpu() - y_cpu).abs().max()) <= 1e-4 * float(

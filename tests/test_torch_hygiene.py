@@ -34,6 +34,8 @@ def _is_reference(name: str) -> bool:
 def test_module_list_covers_the_slice():
     mods = _port_modules()
     for m in ("audiocodecs_tpu_torch.models.encodec",
+              "audiocodecs_tpu_torch.models.dac",
+              "audiocodecs_tpu_torch.ops.dac_resunit",
               "audiocodecs_tpu_torch.ops.lstm_recurrence",
               "audiocodecs_tpu_torch.ops.seanet_resblock",
               "audiocodecs_tpu_torch.params"):
@@ -46,7 +48,7 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     code = (
         "import importlib, json, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
-        "import audiocodecs_tpu_torch as p; p.Encodec; p.CodecConfig\n"
+        "import audiocodecs_tpu_torch as p; p.Encodec; p.DAC; p.CodecConfig\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = {"PATH": os.environ.get("PATH", ""), "PYTHONPATH": str(REPO),
            "HOME": os.environ.get("HOME", str(REPO)),
@@ -57,6 +59,7 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "audiocodecs_tpu_torch.models.encodec" in loaded
+    assert "audiocodecs_tpu_torch.models.dac" in loaded
     assert not [m for m in loaded if _is_reference(m)]
 
 
@@ -79,11 +82,14 @@ def test_no_import_statement_names_jax_or_reference(path):
 
 def test_default_device_is_the_card(monkeypatch):
     from audiocodecs_tpu_torch.codec import resolve_device
+    from audiocodecs_tpu_torch.models.dac import DAC
     from audiocodecs_tpu_torch.models.encodec import Encodec
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Encodec(24000)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DAC(44100, 44100)
     with pytest.raises(RuntimeError):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,6 +1,9 @@
 """Port parity: the fused SEANet residual block's plain version and the
 port's ``_apply_resnet`` against the JAX package's Pallas kernel (interpret
-mode) and its XLA ``_apply_resnet`` (CPU, fp32, atol 2e-6).
+mode) and its XLA ``_apply_resnet`` (CPU, fp32, atol 2e-6). The packed
+entry point against the JAX package's packed Pallas kernel in interpret
+mode (atol 2e-5: that kernel's ELU is ``exp(x) - 1``, the port's
+``expm1``).
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
@@ -15,6 +18,9 @@ import jax.numpy as jnp
 from audiocodecs_tpu.nn.layers import pad1d as j_pad1d
 from audiocodecs_tpu.nn.seanet import SEANetConfig as JSEANetConfig
 from audiocodecs_tpu.nn.seanet import _apply_resnet as j_apply_resnet
+from audiocodecs_tpu.ops.seanet_block_packed import (
+    seanet_resblock_packed as j_seanet_resblock_packed,
+)
 from audiocodecs_tpu.ops.seanet_block_pallas import seanet_resblock_pallas
 from audiocodecs_tpu_torch.nn.layers import pad1d
 from audiocodecs_tpu_torch.nn.seanet import (
@@ -26,6 +32,8 @@ from audiocodecs_tpu_torch.nn.seanet import (
 )
 from audiocodecs_tpu_torch.ops.seanet_resblock import (
     seanet_resblock,
+    seanet_resblock_packed,
+    seanet_resblock_packed_reference,
     seanet_resblock_reference,
 )
 
@@ -162,3 +170,48 @@ def test_kernel_input_checks(rng):
                                      (C, C, 1), (C,))]
     with pytest.raises(ValueError, match="C <= 384"):
         _check(*wide)
+
+
+def _packed_args(p):
+    """The packed kernel's arguments: ``w1 [3, C, H]``, ``w2 [H, C]``,
+    ``ws [C, C]``."""
+    return (p["block"][0]["w"], p["block"][0]["b"], p["block"][1]["w"][0],
+            p["block"][1]["b"], p["shortcut"]["w"][0], p["shortcut"]["b"])
+
+
+@pytest.mark.parametrize("C,T,rows", [(32, 101, 8), (64, 63, 4),
+                                      (32, 7, 512)])
+def test_packed_entry_matches_jax_packed_kernel(rng, C, T, rows):
+    """T is not a multiple of the TPU kernel's P = 128 // C samples a row."""
+    H = C // 2
+    p = _jax_params(rng, C, H)
+    x = rng.standard_normal((2, T, C)).astype(np.float32)
+    want = j_seanet_resblock_packed(
+        jnp.asarray(x), *map(jnp.asarray, _packed_args(p)), tile_rows=rows,
+        interpret=True)
+    before = seanet_resblock_packed.launches
+    got = seanet_resblock_packed(torch.from_numpy(x),
+                                 *map(torch.from_numpy, _packed_args(p)))
+    assert seanet_resblock_packed.launches == before
+    assert tuple(got.shape) == (2, T, C)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    # the same block as the zero-pad XLA path
+    want_xla = j_apply_resnet(jnp.asarray(x), p,
+                              JSEANetConfig(causal=True, pad_mode="constant"),
+                              (1, 1))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_xla), atol=ATOL)
+
+
+def test_packed_entry_refuses_wide_blocks(rng):
+    """C = 128 leaves one sample a lane row; both packages refuse it."""
+    C, H = 128, 64
+    p = _jax_params(rng, C, H)
+    x = rng.standard_normal((1, 16, C)).astype(np.float32)
+    with pytest.raises(ValueError, match="C <= 64"):
+        j_seanet_resblock_packed(jnp.asarray(x),
+                                 *map(jnp.asarray, _packed_args(p)),
+                                 interpret=True)
+    targs = [torch.from_numpy(x), *map(torch.from_numpy, _packed_args(p))]
+    for fn in (seanet_resblock_packed, seanet_resblock_packed_reference):
+        with pytest.raises(ValueError, match="C <= 64"):
+            fn(*targs)
