@@ -53,6 +53,7 @@ from audiocodecs_tpu_torch.ops.dac_resunit import (
     MAX_CHANNELS,
     dac_resunit,
     dac_resunit_reference,
+    pack_resunit_weights,
     snake,
 )
 
@@ -107,7 +108,14 @@ def fused_resunit(role: str, channels: int) -> bool:
 
 
 class ResidualUnit(nn.Module):
-    """snake → dilated conv7 → snake → conv1, plus the input."""
+    """snake → dilated conv7 → snake → conv1, plus the input.
+
+    A fused unit keeps its conv weights in the kernel's layout
+    (:func:`..ops.dac_resunit.pack_resunit_weights`), built on its first
+    forward and again only when ``conv1.w`` or ``conv2.w`` changes: moves to
+    another device, or is written in place (``load_state_dict`` bumps the
+    tensor's version). The packed pair is no parameter or buffer, so the
+    state dict is unchanged."""
 
     def __init__(self, ch: int, dilation: int, fused: bool):
         super().__init__()
@@ -117,13 +125,26 @@ class ResidualUnit(nn.Module):
         self.conv2 = Conv1d(ch, ch, 1)
         self.dilation = dilation
         self.fused = fused
+        self._packed = None
+        self._packed_key = None
+
+    def packed_weights(self):
+        """The kernel's layout of (conv1.w, conv2.w), rebuilt only when
+        either weight's (device, data_ptr, version) changed."""
+        key = tuple((w.device, w.data_ptr(), w._version)
+                    for w in (self.conv1.w, self.conv2.w))
+        if key != self._packed_key:
+            self._packed = pack_resunit_weights(self.conv1.w, self.conv2.w)
+            self._packed_key = key
+        return self._packed
 
     def forward(self, x):
         if self.fused:
             # the transposed conv's trim leaves a strided view
             return dac_resunit(x.contiguous(), self.conv1.w, self.conv1.b,
                                self.alpha1, self.conv2.w, self.conv2.b,
-                               self.alpha2, self.dilation)
+                               self.alpha2, self.dilation,
+                               packed=self.packed_weights())
         return dac_resunit_reference(x, self.conv1.w, self.conv1.b,
                                      self.alpha1, self.conv2.w, self.conv2.b,
                                      self.alpha2, self.dilation)

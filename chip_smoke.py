@@ -18,15 +18,19 @@ it fails:
    narrow widths and a ragged shape, with timings;
 6. kernel 3, the fused DAC residual unit, against its plain version (which
    the model's unfused units run) at the DAC-44.1k decoder's six
-   (C, T, dilation) shapes, a ragged one and one shorter than its padding,
-   with timings;
+   (C, T, dilation) shapes, ragged ones (C and T off the kernel's chunk
+   and tile), the widest window and ones shorter than their padding, with
+   timings of the kernel on weights packed once (as the model calls it),
+   the time of one pack, and the kernel's registers, shared bytes and
+   blocks an SM;
 7. the EnCodec path as a small server: EnCodec-24 kHz, 8 codebooks, seeded
    random weights, three requests through ``sig_to_toks`` → ``toks_to_sig``
    with the kernel launches counted, parity against the same weights on the
    CPU, then the warm roundtrip time, peak memory and the device time by
    kernel over one roundtrip (torch.profiler);
 8. the DAC path the same way: DAC-44.1 kHz, 9 codebooks, two 10 s requests
-   and one B = 2 ragged request, six kernel-3 launches a decode.
+   and one B = 2 ragged request, six kernel-3 launches a decode, the fused
+   units' weights packed on the first decode only.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -55,7 +59,9 @@ PACKED_RAGGED = (3, 64, 1001)
 # the DAC-44.1k decoder's fused units for B = 1 x 10 s: (B, C, T, dilation)
 DAC_UNIT_SHAPES = [(1, 192, 220416, d) for d in (1, 3, 9)] + [
     (1, 96, 440832, d) for d in (1, 3, 9)]
-DAC_UNIT_EXTRA = [(3, 96, 1001, 9), (2, 8, 20, 9)]  # ragged; T < 6d
+# ragged; T < 6d; C and T off the chunk and the tile; the widest window
+DAC_UNIT_EXTRA = [(3, 96, 1001, 9), (2, 8, 20, 9), (1, 200, 4099, 9),
+                  (1, 256, 4097, 9)]
 
 
 def fail(msg: str) -> None:
@@ -347,7 +353,8 @@ def _unit_inputs(torch, gen, B, C, T, dev):
 
 def phase_dac_resunit(torch, peaks):
     from audiocodecs_tpu_torch.ops.dac_resunit import (
-        dac_resunit, dac_resunit_reference)
+        dac_resunit, dac_resunit_info, dac_resunit_reference,
+        pack_resunit_weights)
 
     gen = torch.Generator().manual_seed(4)
     dev = "cuda"
@@ -357,7 +364,8 @@ def phase_dac_resunit(torch, peaks):
     for B, C, T, d in DAC_UNIT_SHAPES + DAC_UNIT_EXTRA:
         x, weights = _unit_inputs(torch, gen, B, C, T, dev)
         with torch.inference_mode():
-            got = dac_resunit(x, *weights, d)
+            packed = pack_resunit_weights(weights[0], weights[3])
+            got = dac_resunit(x, *weights, d, packed=packed)
             want = dac_resunit_reference(x, *weights, d)
             torch.cuda.synchronize()
             scale = max(1.0, float(want.abs().max()))
@@ -371,23 +379,34 @@ def phase_dac_resunit(torch, peaks):
         if (B, C, T, d) in DAC_UNIT_EXTRA:
             continue
         with torch.inference_mode():
-            ms = cuda_ms(torch, lambda: dac_resunit(x, *weights, d))
+            ms = cuda_ms(torch,
+                         lambda: dac_resunit(x, *weights, d, packed=packed))
             plain_ms = cuda_ms(
                 torch, lambda: dac_resunit_reference(x, *weights, d))
+            pack_ms = cuda_ms(
+                torch, lambda: pack_resunit_weights(weights[0], weights[3]))
+        occ = dac_resunit_info(C, d)
         flops = 2.0 * B * T * 8 * C * C
         nbytes = 4.0 * (2 * B * C * T + 8 * C * C + 4 * C)
         b_ms, b_by = bound(flops, nbytes, peaks)
         share = flops / peaks[0] / (ms / 1e3)
         log(f"dac_resunit B={B} C={C} T={T} d={d}: kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} kernel/plain={ms / plain_ms:.3f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) fp32_share_of_peak={share:.3f}")
+            f"bound_ms={b_ms:.4f} ({b_by}) fp32_share_of_peak={share:.3f} "
+            f"pack_ms={pack_ms:.4f} regs={occ['regs']} "
+            f"smem_bytes={occ['smem_bytes']} "
+            f"blocks_per_sm={occ['blocks_per_sm']}")
         per_shape.append({"C": C, "T": T, "d": d, "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "fp32_share_of_peak": share})
+                          "fp32_share_of_peak": share, "pack_ms": pack_ms,
+                          **occ})
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["flops"] += flops
         tot["bytes"] += nbytes
+    budget = {f"C={C} d={d}": tuple(dac_resunit_info(C, d).values())
+              for C in (96, 192, 256) for d in (1, 3, 9)}
+    log(f"dac_resunit (regs, smem_bytes, blocks_per_sm): {budget}")
     b_ms, b_by = bound(tot["flops"], tot["bytes"], peaks)
     return {"name": "dac_resunit", "status": "ported", "route": "cuda",
             "source": "audiocodecs_tpu_torch/csrc/dac_resunit.cu",
@@ -395,7 +414,8 @@ def phase_dac_resunit(torch, peaks):
             "launches": 0, "max_abs_err": worst, "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "per_shape": per_shape,
-            "shape": "sum over the six fused units of one B=1 x 10 s decode"}
+            "shape": "sum over the six fused units of one B=1 x 10 s decode,"
+                     " weights packed once"}
 
 
 def _counters():
@@ -520,6 +540,7 @@ def phase_main_path(torch, rows):
 def phase_dac_path(torch, rows):
     from audiocodecs_tpu_torch.models.dac import (
         DAC, dac_rvq_decode, dac_rvq_encode)
+    from audiocodecs_tpu_torch.ops.dac_resunit import pack_resunit_weights
 
     sr, K, seconds = 44100, 9, 10.0
     codec = DAC(sr, sr, num_codebooks=K, device="cuda",
@@ -536,25 +557,29 @@ def phase_dac_path(torch, rows):
 
     # the counted run: the DAC path only
     reset_counts()
-    answers, per_call = [], []
+    answers, per_call, packs = [], [], []
     for sig in requests:
         before = read_counts()["dac_resunit"]
         toks = codec.sig_to_toks(sig)
         mid = read_counts()["dac_resunit"]
+        p0 = pack_resunit_weights.packs
         y = codec.toks_to_sig(toks)
         per_call.append((mid - before, read_counts()["dac_resunit"] - mid))
+        packs.append(pack_resunit_weights.packs - p0)
         answers.append((toks, y))
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"DAC path launches over {len(requests)} roundtrips: "
         f"{json.dumps(counts)}; dac_resunit (sig_to_toks, toks_to_sig) per "
-        f"request: {per_call}")
+        f"request: {per_call}; weight packs per toks_to_sig: {packs}")
     n = len(requests)
     want = {"lstm_recurrence": 0, "seanet_resblock": 0,
             "seanet_resblock_packed": 0, "dac_resunit": 6 * n}
     if counts != want or any(c != (0, 6) for c in per_call):
         fail(f"expected launches {want} and (0, 6) per request, got "
              f"{counts}, {per_call}")
+    if packs != [6] + [0] * (n - 1):
+        fail(f"expected the fused units to pack once, got {packs}")
     for row in rows:
         row.setdefault("launches_by_path", {})["dac_44k"] = counts[
             row["name"]]

@@ -24,8 +24,11 @@ from audiocodecs_tpu_torch.ops.lstm_recurrence import (
     lstm_recurrence_reference,
 )
 from audiocodecs_tpu_torch.ops.dac_resunit import (
+    _smem_bytes,
     dac_resunit,
+    dac_resunit_info,
     dac_resunit_reference,
+    pack_resunit_weights,
 )
 from audiocodecs_tpu_torch.ops.seanet_resblock import (
     seanet_resblock,
@@ -153,20 +156,38 @@ def _unit_args(rng, C, dev):
 @pytest.mark.parametrize("B,C,T,d", [(2, 96, 1000, 1), (2, 96, 1000, 3),
                                      (2, 96, 1000, 9), (3, 96, 1001, 9),
                                      (2, 8, 20, 9), (1, 192, 257, 3),
-                                     (1, 256, 130, 9), (1, 5, 64, 1)])
+                                     (1, 256, 130, 9), (1, 5, 64, 1),
+                                     (1, 200, 4099, 9), (1, 256, 4097, 9),
+                                     (2, 192, 300, 9)])
 def test_dac_resunit_kernel_matches_plain_version(dev, B, C, T, d):
-    """Every round count of the kernel (C <= 96, 192, 256), ragged T, and
-    T < 6d, where the padding covers the whole window."""
+    """Every tile of the kernel (C <= 96, 192, 256), C off the 8-channel
+    chunk, ragged T, the widest window, and T < 6d or barely over it, where
+    the padding covers most of the window; with the weights packed by the
+    caller and by the wrapper."""
     rng = np.random.default_rng(B + C + T + d)
     x = _t(rng.standard_normal((B, C, T)), dev)
     args = _unit_args(rng, C, dev)
     before = dac_resunit.launches
     with torch.inference_mode():
-        got = dac_resunit(x, *args, d)
+        packed = pack_resunit_weights(args[0], args[3])
+        got = dac_resunit(x, *args, d, packed=packed)
+        got_unpacked = dac_resunit(x, *args, d)
         want = dac_resunit_reference(x, *args, d)
     torch.cuda.synchronize()
-    assert dac_resunit.launches == before + 1
+    assert dac_resunit.launches == before + 2
     assert _close(got, want)
+    assert torch.equal(got, got_unpacked)
+
+
+@pytest.mark.parametrize("C", [96, 192, 256])
+def test_dac_resunit_occupancy_info(dev, C):
+    """Registers a thread, shared bytes a block and blocks an SM of the tile
+    the wrapper launches, at every dilation of the decoder."""
+    for d in (1, 3, 9):
+        info = dac_resunit_info(C, d)
+        assert info["smem_bytes"] == _smem_bytes(C, d)
+        assert 0 < info["regs"] <= 255
+        assert info["blocks_per_sm"] >= 1
 
 
 def test_dac_resunit_on_the_card_refuses_widths_the_kernel_does_not_take(dev):
@@ -223,3 +244,26 @@ def test_small_dac_roundtrip_launches_and_matches_cpu(dev):
     y_cpu = cpu.toks_to_sig(toks.cpu())
     assert float((y.cpu() - y_cpu).abs().max()) <= 1e-4 * float(
         y_cpu.abs().max())
+
+
+def test_dac_fused_units_pack_once_across_decodes(dev):
+    """The decoder's fused units hand the kernel their cached weight layout:
+    six packs on the first ``toks_to_sig``, none on the second, six launches
+    each."""
+    mc = DACModelConfig(encoder_hidden_size=8, downsampling_ratios=(2, 2),
+                        decoder_hidden_size=32, upsampling_ratios=(2, 2),
+                        hidden_size=16, n_codebooks=4, codebook_size=64,
+                        codebook_dim=8)
+    gpu = DAC(16000, num_codebooks=4, model_config=mc, device=dev,
+              generator=torch.Generator().manual_seed(0))
+    toks = gpu.sig_to_toks((np.random.default_rng(2).standard_normal(
+        (1, 2001)) * 0.3).astype(np.float32))
+    packs, launches = [], []
+    for _ in range(2):
+        p0, n0 = pack_resunit_weights.packs, dac_resunit.launches
+        gpu.toks_to_sig(toks)
+        packs.append(pack_resunit_weights.packs - p0)
+        launches.append(dac_resunit.launches - n0)
+    torch.cuda.synchronize()
+    assert packs == [6, 0]
+    assert launches == [6, 6]

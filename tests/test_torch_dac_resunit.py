@@ -1,7 +1,8 @@
 """Port parity: the fused DAC residual unit's plain version against the JAX
 package's XLA ``_residual_unit`` and its Pallas kernel in interpret mode
 (CPU, fp32, atol/rtol 2e-5, the JAX kernel test's limits), plus the
-wrapper's CPU dispatch and its input checks.
+wrapper's CPU dispatch, its input checks, the kernel's weight layout and
+the model unit's cache of it.
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
@@ -20,6 +21,7 @@ from audiocodecs_tpu_torch.ops.dac_resunit import (
     _check,
     dac_resunit,
     dac_resunit_reference,
+    pack_resunit_weights,
 )
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -127,3 +129,74 @@ def test_kernel_input_checks(rng):
                                      (C, C, 1), (C,), (C,))]
     with pytest.raises(ValueError, match="C <= 256"):
         _check(*wide, 1)
+
+
+@pytest.mark.parametrize("C,Kp,Cp", [(5, 8, 96), (96, 96, 96),
+                                     (192, 192, 192), (200, 200, 256)])
+def test_pack_resunit_weights_layout(rng, C, Kp, Cp):
+    """``w7p [Kp, 7, Cp]`` with ``w7p[c, k, o] = w7[o, c, k]``, ``w1p
+    [Kp, Cp]`` with ``w1p[m, o] = w1[o, m, 0]``, padded lanes zero."""
+    w7 = torch.from_numpy(rng.standard_normal((C, C, 7)).astype(np.float32))
+    w1 = torch.from_numpy(rng.standard_normal((C, C, 1)).astype(np.float32))
+    w7p, w1p = pack_resunit_weights(w7, w1)
+    assert w7p.shape == (Kp, 7, Cp) and w1p.shape == (Kp, Cp)
+    assert w7p.dtype == w1p.dtype == torch.float32
+    assert w7p.is_contiguous() and w1p.is_contiguous()
+    assert torch.equal(w7p[:C, :, :C], w7.permute(1, 2, 0))
+    assert torch.equal(w1p[:C, :C], w1[:, :, 0].T)
+    for pad in (w7p[C:], w7p[:, :, C:], w1p[C:], w1p[:, C:]):
+        assert not pad.any()
+
+
+def test_unit_packs_once_and_again_after_new_weights(rng):
+    """The fused unit builds the kernel's layout on its first forward, keeps
+    it across forwards, and rebuilds it when ``load_state_dict`` writes new
+    weights; the layout is no state-dict entry."""
+    C, d = 16, 3
+    unit = ResidualUnit(C, d, fused=True)
+    state = dict(zip(("conv1.w", "conv1.b", "alpha1", "conv2.w", "conv2.b",
+                      "alpha2"), _port_args(_unit_params(rng, C))))
+    unit.load_state_dict(state, strict=True)
+    x = _bct(rng.standard_normal((1, 40, C)).astype(np.float32))
+    before = pack_resunit_weights.packs
+    with torch.inference_mode():
+        unit(x)
+        first = unit.packed_weights()
+        unit(x)
+    assert pack_resunit_weights.packs == before + 1
+    assert unit.packed_weights() is first
+    assert set(unit.state_dict()) == set(state)
+
+    new = dict(zip(state, _port_args(_unit_params(rng, C))))
+    unit.load_state_dict(new, strict=True)
+    with torch.inference_mode():
+        unit(x)
+    assert pack_resunit_weights.packs == before + 2
+    w7p, w1p = unit.packed_weights()
+    want = pack_resunit_weights(new["conv1.w"], new["conv2.w"])
+    assert torch.equal(w7p, want[0]) and torch.equal(w1p, want[1])
+
+
+def test_wrapper_on_cpu_with_packed_pair_equals_plain_version(rng):
+    C, d = 12, 9
+    p = _unit_params(rng, C)
+    args = _port_args(p)
+    x = _bct(rng.standard_normal((2, 77, C)).astype(np.float32))
+    packed = pack_resunit_weights(args[0], args[3])
+    got = dac_resunit(x, *args, d, packed=packed)
+    torch.testing.assert_close(got, dac_resunit_reference(x, *args, d),
+                               rtol=0, atol=0)
+
+
+def test_kernel_input_checks_on_the_packed_pair(rng):
+    C = 8
+    args = [_bct(rng.standard_normal((1, 20, C)).astype(np.float32)),
+            *_port_args(_unit_params(rng, C))]
+    w7p, w1p = pack_resunit_weights(args[1], args[4])
+    _check(*args, 3, (w7p, w1p))
+    with pytest.raises(ValueError, match="packed w7"):
+        _check(*args, 3, (w7p[:, :, :64], w1p))
+    with pytest.raises(ValueError, match="packed w1"):
+        _check(*args, 3, (w7p, w1p.T))
+    with pytest.raises(TypeError):
+        _check(*args, 3, (w7p.double(), w1p))
