@@ -2,9 +2,11 @@
 
 The kernel (``csrc/lstm_recurrence.cu``) replaces the TPU kernel
 ``audiocodecs_tpu/ops/lstm_pallas.py::lstm_layer_pallas``: a persistent
-cooperative grid in which each block keeps its slice of ``w_hh`` in shared
-memory and the time loop runs inside the kernel, one grid barrier a step.
-The source's header states its bound and design.
+cooperative grid in which each block keeps its slice of ``w_hh`` on chip
+and the time loop runs inside the kernel. Blocks hand ``h_t`` to each other
+through an exchange of tagged ``{value, step}`` pairs in device memory,
+with no grid barrier inside the loop. The source's header states its bound
+and design.
 
 :func:`lstm_recurrence` launches the kernel for CUDA tensors and runs
 :func:`lstm_recurrence_reference` for CPU tensors; there is no other path.
@@ -18,22 +20,32 @@ import torch
 
 from audiocodecs_tpu_torch.ops import _build
 
-__all__ = ["lstm_recurrence", "lstm_recurrence_reference", "MAX_HIDDEN"]
+__all__ = ["handoff_us", "lstm_recurrence", "lstm_recurrence_info",
+           "lstm_recurrence_reference", "MAX_HIDDEN"]
 
 MAX_HIDDEN = 1024  # the kernel keeps a [H, 4U] slice of w_hh per SM
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _lib_cache: list = []
+# (device index, H) -> (rows a launch takes, exchange bytes a row)
+_plans: dict = {}
 
 
 def _lib():
     if not _lib_cache:
         lib = _build.load("lstm_recurrence")
-        lib.lstm_recurrence_f32.argtypes = [_P] * 7 + [ctypes.c_int] * 4 + [_P]
-        lib.lstm_recurrence_f32.restype = ctypes.c_int
-        lib.lstm_recurrence_max_batch.argtypes = [ctypes.c_int]
-        lib.lstm_recurrence_max_batch.restype = ctypes.c_int
-        lib.lstm_recurrence_error_string.argtypes = [ctypes.c_int]
+        lib.lstm_recurrence_f32.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+        lib.lstm_recurrence_f32.restype = _I
+        lib.lstm_recurrence_max_batch.argtypes = [_I]
+        lib.lstm_recurrence_max_batch.restype = _I
+        lib.lstm_recurrence_exchange_row_bytes.argtypes = [_I]
+        lib.lstm_recurrence_exchange_row_bytes.restype = ctypes.c_long
+        lib.lstm_recurrence_info.argtypes = [_I] * 2 + [ctypes.POINTER(_I)] * 5
+        lib.lstm_recurrence_info.restype = _I
+        lib.lstm_handoff_probe.argtypes = [_P, _I, _P]
+        lib.lstm_handoff_probe.restype = _I
+        lib.lstm_recurrence_error_string.argtypes = [_I]
         lib.lstm_recurrence_error_string.restype = ctypes.c_char_p
         _lib_cache.append(lib)
     return _lib_cache[0]
@@ -90,6 +102,18 @@ def _check(gates_x, w_hh, h0, c0):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _plan(lib, dev: torch.device, H: int):
+    """Rows one launch takes and exchange bytes a row at H on ``dev``
+    (the current device), asked of the library once."""
+    key = (dev.index, H)
+    if key not in _plans:
+        rows = lib.lstm_recurrence_max_batch(H)
+        if rows < 1:
+            raise RuntimeError(f"lstm_recurrence: no launch fits H={H}")
+        _plans[key] = rows, lib.lstm_recurrence_exchange_row_bytes(H)
+    return _plans[key]
+
+
 def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
                     h0: torch.Tensor, c0: torch.Tensor):
     """Run one layer's recurrence: the CUDA kernel for CUDA tensors, the
@@ -104,23 +128,28 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
     _check(gates_x, w_hh, h0, c0)
     T, B, _ = gates_x.shape
     H = w_hh.shape[0]
-    ys = torch.empty((T, B, H), device=gates_x.device, dtype=torch.float32)
-    h_t = torch.empty((B, H), device=gates_x.device, dtype=torch.float32)
+    dev = gates_x.device
+    ys = torch.empty((T, B, H), device=dev, dtype=torch.float32)
+    h_t = torch.empty((B, H), device=dev, dtype=torch.float32)
     c_t = torch.empty_like(h_t)
     lib = _lib()
     f32 = 4  # bytes
-    with torch.cuda.device(gates_x.device):
-        stream = torch.cuda.current_stream(gates_x.device).cuda_stream
-        rows = lib.lstm_recurrence_max_batch(H)
-        if rows < 1:
-            raise RuntimeError(f"lstm_recurrence: no launch fits H={H}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rows, row_bytes = _plan(lib, dev, H)
+        # the exchange, reused by every launch, each of which clears it
+        # first; a single step exchanges nothing
+        xchg = None
+        if T > 1:
+            xchg = torch.empty(min(rows, B) * row_bytes, device=dev,
+                               dtype=torch.uint8).data_ptr()
         for b0 in range(0, B, rows):
             nb = min(rows, B - b0)
             err = lib.lstm_recurrence_f32(
                 gates_x.data_ptr() + f32 * b0 * 4 * H, w_hh.data_ptr(),
                 h0.data_ptr() + f32 * b0 * H, c0.data_ptr() + f32 * b0 * H,
                 ys.data_ptr() + f32 * b0 * H, h_t.data_ptr() + f32 * b0 * H,
-                c_t.data_ptr() + f32 * b0 * H, T, nb, B, H, stream)
+                c_t.data_ptr() + f32 * b0 * H, xchg, T, nb, B, H, stream)
             if err:
                 raise RuntimeError(
                     "lstm_recurrence kernel launch failed: "
@@ -130,3 +159,42 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
 
 
 lstm_recurrence.launches = 0  # kernel launches in this process
+
+
+def lstm_recurrence_info(H: int, B: int) -> dict:
+    """The kernel a launch of B rows at width H runs, on the current card:
+    units a block, registers and local (spill) bytes a thread, shared bytes
+    a block and resident blocks an SM (CUDA's attribute and occupancy
+    queries), and the most rows one launch takes."""
+    lib = _lib()
+    out = [_I() for _ in range(5)]
+    err = lib.lstm_recurrence_info(H, B, *[ctypes.byref(v) for v in out])
+    if err:
+        raise RuntimeError("lstm_recurrence_info failed: "
+                           + lib.lstm_recurrence_error_string(err).decode())
+    regs, local, smem, blocks, u = (v.value for v in out)
+    return {"units": u, "regs": regs, "local_bytes": local,
+            "smem_bytes": smem, "blocks_per_sm": blocks,
+            "max_batch": lib.lstm_recurrence_max_batch(H)}
+
+
+def handoff_us(iters: int = 20000) -> float:
+    """One hand-off of a tagged pair from one SM to another through L2, as
+    the kernel makes it every step, in microseconds on the current card:
+    two blocks pass a pair back and forth ``iters`` times (CUDA events).
+    T of these is the recurrence's latency floor."""
+    lib = _lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for n in (100, iters):  # the first run is a warm-up
+        pair = torch.zeros(2, device="cuda", dtype=torch.int64)
+        start.record()
+        err = lib.lstm_handoff_probe(pair.data_ptr(), n, stream)
+        end.record()
+        if err:
+            raise RuntimeError(
+                "lstm_handoff_probe failed: "
+                + lib.lstm_recurrence_error_string(err).decode())
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / (2 * iters)

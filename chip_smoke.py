@@ -7,10 +7,17 @@ of JAX or of ``audiocodecs_tpu``. Phases, each of which exits non-zero when
 it fails:
 
 1. card: name and power limit (``nvidia-smi``);
-2. build: every kernel of the main path, one ``nvcc`` each, all at once;
+2. build: every kernel of the main path, one ``nvcc`` each, all at once,
+   and beside it ``nvcc -Xptxas -v`` on the LSTM kernel (registers and
+   spills of each of its instances);
 3. kernel 1, the LSTM recurrence, against its plain version at the main
-   path's shape (T=750, B=8, H=512), a ragged one and a batch split over
-   two launches, with timings;
+   path's shape (T=750, B=8, H=512), a ragged one, a batch split over
+   several launches, H=1024 and one step (T=1), and two pairs of launches
+   back to back; timings at B=8 and B=1 (per step) at the main shape,
+   H=1024 and T=1 (``time_lstm``: a call, the kernel's own device time,
+   and at T=1 calls queued back to back), with the kernel's registers,
+   spill and shared bytes; and one inter-SM hand-off, the latency floor
+   of a step;
 4. kernel 2, the fused SEANet residual block, against its plain version at
    the main path's four (C, T) shapes (B=8) and a ragged one, with timings;
 5. the packed SEANet block entry point (channel-last, zero causal pad),
@@ -49,8 +56,11 @@ import numpy as np
 
 # Published peaks (NVIDIA data sheets): fp32 on CUDA cores and HBM rate.
 _PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
-# main path, ragged, and a batch split over two launches
-LSTM_SHAPES = [(750, 8, 512), (257, 3, 512), (40, 100, 512)]
+# main path, ragged, a batch split over several launches, SpeechTokenizer's
+# decoder width (the kernel's widest) and one step (lstm_cell_step)
+LSTM_SHAPES = [(750, 8, 512), (257, 3, 512), (40, 100, 512), (750, 8, 1024),
+               (1, 8, 512)]
+LSTM_TIMED = [(750, 8, 512), (750, 8, 1024), (1, 8, 512)]
 RESBLOCK_SHAPES = [(8, 32, 240000), (8, 64, 120000), (8, 128, 30000),
                    (8, 256, 6000)]
 RESBLOCK_RAGGED = (3, 64, 1001)
@@ -111,82 +121,234 @@ def phase_card(torch):
 def phase_build():
     from audiocodecs_tpu_torch.ops import _build
 
+    # ptxas's report on the LSTM kernels (registers, spills), beside the build
+    cubin = _build.BUILD_DIR / "lstm_recurrence.cubin"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ptxas = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS[:4], "-cubin",
+         "-Xptxas", "-v", "-o", str(cubin),
+         str(_build.CSRC / "lstm_recurrence.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         secs = _build.build_all()
     except RuntimeError as e:
+        ptxas.kill()
         fail(f"kernel build: {e}")
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} s")
+    out, _ = ptxas.communicate(timeout=600)
+    if ptxas.returncode != 0:
+        fail(f"nvcc -Xptxas -v failed:\n{out}")
+    for line in ptxas_report(out):
+        log(line)
+
+
+def ptxas_report(out: str) -> list:
+    """One line per kernel of ``nvcc -Xptxas -v``: its template arguments
+    (units a block, k rows a thread), registers and spill bytes."""
+    import re
+
+    lines, name = [], None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            t = re.search(r"(lstm_(?:recurrence|handoff_probe)_kernel)"
+                          r"(ILi(\d+)ELi(\d+)E)?", m.group(1))
+            name = t and t.group(1)
+            if t and t.group(2):
+                name += " U={} KP={}".format(*t.group(3, 4))
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            lines.append(f"ptxas {name}: {regs.group(1) if regs else '?'} "
+                         f"registers; {spill}")
+            name = None
+    return lines
+
+
+def _lstm_inputs(torch, gen, T, B, H, dev):
+    s = 1.0 / math.sqrt(H)
+    gx = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(dev)
+    w_hh = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) * s).to(dev)
+    h0 = (torch.randn(B, H, generator=gen) * 0.1).to(dev)
+    c0 = (torch.randn(B, H, generator=gen) * 0.1).to(dev)
+    return gx, w_hh, h0, c0
+
+
+def _lstm_err(got, want) -> float:
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def time_lstm(torch, ops, T, B, H) -> dict:
+    """``ops.lstm_recurrence`` (``ops``: the ``lstm_recurrence`` module of
+    the checkout under test) at (T, B, H) and at B = 1, on inputs seeded by
+    the shape alone, so that two checkouts timed in turns see the same
+    work. Each is first held against ``ops.lstm_recurrence_reference``
+    (limit 1e-5 absolute). Then: ms a call (CUDA events around the call, so
+    the host's launch path counts), the kernel's own device time a launch
+    (torch.profiler, the host left out), and at T = 1 ms a call over 50
+    calls queued back to back."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiocodecs_tpu_torch.nn.layers import exact_fp32
+
+    out = {"T": T, "B": B, "H": H, "max_abs_err": 0.0}
+    for pre, b in (("", B), ("b1_", 1)):
+        gen = torch.Generator().manual_seed(T * 100003 + b * 1009 + H)
+        args = _lstm_inputs(torch, gen, T, b, H, "cuda")
+
+        def call():
+            return ops.lstm_recurrence(*args)
+
+        with torch.inference_mode(), exact_fp32():
+            err = _lstm_err(call(), ops.lstm_recurrence_reference(*args))
+            if not err <= 1e-5:
+                fail(f"lstm_recurrence disagrees with its plain version at "
+                     f"T={T} B={b} H={H}: {err}")
+            ms = cuda_ms(torch, call)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    call()
+                torch.cuda.synchronize()
+            dev_us = [_device_us(e) / e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and "lstm_recurrence_kernel" in e.key]
+            out.update({f"{pre}ms": ms, f"{pre}per_step_us": ms / T * 1e3,
+                        f"{pre}device_us": dev_us[0] if dev_us else None})
+            if T == 1:
+                def queued():
+                    for _ in range(50):
+                        call()
+                out[f"{pre}queued_ms"] = cuda_ms(torch, queued, reps=5) / 50
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+    return out
+
+
+def _lstm_times(e: dict) -> str:
+    def one(pre):
+        s = (f"kernel_ms={e[pre + 'ms']:.4f} "
+             f"per_step_us={e[pre + 'per_step_us']:.3f} device_us="
+             + ("not measured" if e[pre + "device_us"] is None
+                else f"{e[pre + 'device_us']:.2f}"))
+        if pre + "queued_ms" in e:
+            s += f" queued_ms={e[pre + 'queued_ms']:.4f}"
+        return s
+    return f"{one('')}; at B=1: {one('b1_')}"
 
 
 def phase_lstm(torch, peaks):
     from audiocodecs_tpu_torch.nn.layers import exact_fp32
-    from audiocodecs_tpu_torch.nn.lstm import _layer
+    from audiocodecs_tpu_torch.ops import lstm_recurrence as ops
     from audiocodecs_tpu_torch.ops.lstm_recurrence import (
-        lstm_recurrence, lstm_recurrence_reference)
+        handoff_us, lstm_recurrence, lstm_recurrence_info,
+        lstm_recurrence_reference)
 
     gen = torch.Generator().manual_seed(1)
     dev = "cuda"
-    worst, row = 0.0, None
-    for T, B, H in LSTM_SHAPES:
-        s = 1.0 / math.sqrt(H)
-        gx = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(dev)
-        w_ih = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) * s).to(dev)
-        w_hh = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) * s).to(dev)
-        b = ((torch.rand(4 * H, generator=gen) * 2 - 1) * s).to(dev)
-        h0 = (torch.randn(B, H, generator=gen) * 0.1).to(dev)
-        c0 = (torch.randn(B, H, generator=gen) * 0.1).to(dev)
+    worst, per_shape = 0.0, []
+
+    def check(label, args):
+        nonlocal worst
         with torch.inference_mode(), exact_fp32():
-            got = lstm_recurrence(gx, w_hh, h0, c0)
-            want = lstm_recurrence_reference(gx, w_hh, h0, c0)
+            got = lstm_recurrence(*args)
+            want = lstm_recurrence_reference(*args)
             torch.cuda.synchronize()
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        log(f"lstm_recurrence T={T} B={B} H={H}: max_abs_err={err:.3e}")
+        err = _lstm_err(got, want)
+        log(f"lstm_recurrence {label}: max_abs_err={err:.3e}")
         if not err <= 1e-5:
-            fail(f"lstm_recurrence disagrees with its plain version: {err}")
+            fail(f"lstm_recurrence disagrees with its plain version at "
+                 f"{label}: {err}")
         worst = max(worst, err)
-        if (T, B, H) != LSTM_SHAPES[0]:
-            continue
+
+    for T, B, H in LSTM_SHAPES:
+        args = _lstm_inputs(torch, gen, T, B, H, dev)
+        check(f"T={T} B={B} H={H}", args)
+        if (T, B, H) == LSTM_SHAPES[0]:
+            main_args = args
+
+    for T, B, H in LSTM_TIMED:
+        entry = time_lstm(torch, ops, T, B, H)
+        worst = max(worst, entry["max_abs_err"])
+        info = lstm_recurrence_info(H, B)
+        entry.update(info)
+        log(f"lstm_recurrence T={T} B={B} H={H}: {_lstm_times(entry)}; "
+            f"{json.dumps(info)}")
+        per_shape.append(entry)
+    main = per_shape[0]
+    row = _lstm_main_row(torch, gen, peaks, main_args, main["ms"],
+                         main["b1_ms"])
+
+    # back to back on one stream, different inputs, the exchange's memory
+    # reused: at T = 2 a tag left by the first launch is the one the second
+    # waits for at its last step, so only the kernel's clear keeps it right
+    for T, B, H in ((2, 8, 512), LSTM_SHAPES[0]):
+        pair = [_lstm_inputs(torch, gen, T, B, H, dev) for _ in range(2)]
         with torch.inference_mode(), exact_fp32():
-            ms = cuda_ms(torch, lambda: lstm_recurrence(gx, w_hh, h0, c0))
-            plain_ms = cuda_ms(
-                torch, lambda: lstm_recurrence_reference(gx, w_hh, h0, c0))
-            x = (torch.randn(T, B, H, generator=gen) * 0.5).to(dev)
-            p = {"w_ih": w_ih, "w_hh": w_hh, "b": b}
-            layer_ms = cuda_ms(
-                torch, lambda: _layer(x.transpose(0, 1), p, h0, c0))
-            ref = torch.nn.LSTM(H, H, 1).to(dev)
-            ref.weight_ih_l0.copy_(w_ih.T)
-            ref.weight_hh_l0.copy_(w_hh.T)
-            ref.bias_ih_l0.copy_(b)
-            ref.bias_hh_l0.zero_()
-            lib_ms = cuda_ms(torch, lambda: ref(x, (h0[None], c0[None])))
-            lib_err = float((ref(x, (h0[None], c0[None]))[0]
-                             - _layer(x.transpose(0, 1), p, h0, c0)[0]
-                             .transpose(0, 1)).abs().max())
-            # the same grid with the least work a step: barrier + L2 floor
-            g1, h1, c1 = gx[:, :1].contiguous(), h0[:1].contiguous(), \
-                c0[:1].contiguous()
-            floor_ms = cuda_ms(torch, lambda: lstm_recurrence(g1, w_hh, h1, c1))
-        flops = 2.0 * T * B * H * 4 * H
-        nbytes = 4.0 * (T * B * 4 * H + H * 4 * H + T * B * H + 4 * B * H)
-        b_ms, b_by = bound(flops, nbytes, peaks)
-        log(f"lstm_recurrence T={T} B={B} H={H}: kernel_ms={ms:.4f} "
-            f"per_step_us={ms / T * 1e3:.3f} plain_ms={plain_ms:.4f} "
-            f"port_layer_ms={layer_ms:.4f} library_ms(nn.LSTM)={lib_ms:.4f} "
-            f"library_vs_port_max_abs={lib_err:.3e} bound_ms={b_ms:.4f} "
-            f"({b_by}); at B=1: kernel_ms={floor_ms:.4f} "
-            f"per_step_us={floor_ms / T * 1e3:.3f}")
-        row = {"name": "lstm_recurrence", "status": "ported",
-               "route": "cuda",
-               "source": "audiocodecs_tpu_torch/csrc/lstm_recurrence.cu",
-               "replaces": "audiocodecs_tpu/ops/lstm_pallas.py:195",
-               "launches": 0, "max_abs_err": worst, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": lib_ms, "port_layer_ms": layer_ms,
-               "b1_ms": floor_ms,
-               "shape": {"T": T, "B": B, "H": H}}
-    row["max_abs_err"] = worst
+            got = [lstm_recurrence(*a) for a in pair]
+            want = [lstm_recurrence_reference(*a) for a in pair]
+            torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            err = _lstm_err(g, w)
+            log(f"lstm_recurrence back-to-back T={T} B={B} H={H} launch "
+                f"{i + 1}: max_abs_err={err:.3e}")
+            if not err <= 1e-5:
+                fail(f"lstm_recurrence back-to-back launch {i + 1} "
+                     f"disagrees with its plain version: {err}")
+            worst = max(worst, err)
+
+    hand = handoff_us()
+    T = LSTM_SHAPES[0][0]
+    log(f"lstm_recurrence hand-off: {hand:.4f} us one way between two SMs; "
+        f"latency floor T x hand-off = {T * hand / 1e3:.4f} ms at T={T}")
+    row.update(max_abs_err=worst, per_shape=per_shape, handoff_us=hand,
+               latency_floor_ms=T * hand / 1e3)
     return row
+
+
+def _lstm_main_row(torch, gen, peaks, args, ms, ms1):
+    """The kernel line's entry at the main shape: plain version, the port's
+    layer, nn.LSTM and the bound."""
+    from audiocodecs_tpu_torch.nn.layers import exact_fp32
+    from audiocodecs_tpu_torch.nn.lstm import _layer
+    from audiocodecs_tpu_torch.ops.lstm_recurrence import (
+        lstm_recurrence_reference)
+
+    gx, w_hh, h0, c0 = args
+    T, B, H4 = gx.shape
+    H = H4 // 4
+    s = 1.0 / math.sqrt(H)
+    w_ih = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) * s).to("cuda")
+    b = ((torch.rand(4 * H, generator=gen) * 2 - 1) * s).to("cuda")
+    with torch.inference_mode(), exact_fp32():
+        plain_ms = cuda_ms(
+            torch, lambda: lstm_recurrence_reference(gx, w_hh, h0, c0))
+        x = (torch.randn(T, B, H, generator=gen) * 0.5).to("cuda")
+        p = {"w_ih": w_ih, "w_hh": w_hh, "b": b}
+        layer_ms = cuda_ms(torch, lambda: _layer(x.transpose(0, 1), p, h0, c0))
+        ref = torch.nn.LSTM(H, H, 1).to("cuda")
+        ref.weight_ih_l0.copy_(w_ih.T)
+        ref.weight_hh_l0.copy_(w_hh.T)
+        ref.bias_ih_l0.copy_(b)
+        ref.bias_hh_l0.zero_()
+        lib_ms = cuda_ms(torch, lambda: ref(x, (h0[None], c0[None])))
+        lib_err = float((ref(x, (h0[None], c0[None]))[0]
+                         - _layer(x.transpose(0, 1), p, h0, c0)[0]
+                         .transpose(0, 1)).abs().max())
+    flops = 2.0 * T * B * H * 4 * H
+    nbytes = 4.0 * (T * B * 4 * H + H * 4 * H + T * B * H + 4 * B * H)
+    b_ms, b_by = bound(flops, nbytes, peaks)
+    log(f"lstm_recurrence T={T} B={B} H={H}: kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} port_layer_ms={layer_ms:.4f} "
+        f"library_ms(nn.LSTM)={lib_ms:.4f} library_vs_port_max_abs="
+        f"{lib_err:.3e} bound_ms={b_ms:.4f} ({b_by})")
+    return {"name": "lstm_recurrence", "status": "ported", "route": "cuda",
+            "source": "audiocodecs_tpu_torch/csrc/lstm_recurrence.cu",
+            "replaces": "audiocodecs_tpu/ops/lstm_pallas.py:195",
+            "launches": 0, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "port_layer_ms": layer_ms, "b1_ms": ms1,
+            "shape": {"T": T, "B": B, "H": H}}
 
 
 def _resblock_inputs(torch, gen, B, C, T, dev):
@@ -670,6 +832,12 @@ _KERNEL_GROUPS = (("lstm_recurrence", "lstm_recurrence_kernel"),
                   ("elementwise", "elementwise"), ("reduce", "reduce"))
 
 
+def _device_us(evt) -> float:
+    """Device time of a profiler event, under either attribute name."""
+    us = getattr(evt, "device_time_total", None)
+    return evt.cuda_time_total if us is None else us
+
+
 def phase_profile(torch, codec, sig_dev, rt_ms):
     """Device time of one warm roundtrip by kernel (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -683,10 +851,7 @@ def phase_profile(torch, codec, sig_dev, rt_ms):
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
-        us = getattr(evt, "device_time_total", None)
-        if us is None:
-            us = evt.cuda_time_total
-        kernels.append((us / 1e3, evt.count, evt.key))
+        kernels.append((_device_us(evt) / 1e3, evt.count, evt.key))
     busy = sum(k[0] for k in kernels)
     if busy <= 0:
         log("profile: the profiler saw no device time (not measured)")

@@ -20,7 +20,9 @@ from audiocodecs_tpu_torch.models.encodec import Encodec, EncodecModelConfig
 from audiocodecs_tpu_torch.nn.layers import exact_fp32, pad1d
 from audiocodecs_tpu_torch.nn.lstm import init_lstm_params, lstm
 from audiocodecs_tpu_torch.ops.lstm_recurrence import (
+    handoff_us,
     lstm_recurrence,
+    lstm_recurrence_info,
     lstm_recurrence_reference,
 )
 from audiocodecs_tpu_torch.ops.dac_resunit import (
@@ -69,6 +71,80 @@ def test_lstm_kernel_matches_plain_version(dev, T, B, H):
     assert lstm_recurrence.launches > before
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-5
+
+
+def _lstm_args(rng, T, B, H, dev):
+    return [_t(rng.standard_normal((T, B, 4 * H)), dev),
+            _t(rng.uniform(-1, 1, (H, 4 * H)) / np.sqrt(H), dev),
+            _t(rng.standard_normal((B, H)) * 0.5, dev),
+            _t(rng.standard_normal((B, H)) * 0.5, dev)]
+
+
+def _lstm_close(got, want):
+    return all(float((g - w).abs().max()) <= 1e-5 for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("H", [32, 512, 1024])
+def test_lstm_one_step_from_a_nonzero_state(dev, H):
+    """T = 1, the ``lstm_cell_step`` path: no exchange at all."""
+    args = _lstm_args(np.random.default_rng(H), 1, 5, H, dev)
+    with torch.inference_mode(), exact_fp32():
+        got = lstm_recurrence(*args)
+        want = lstm_recurrence_reference(*args)
+    torch.cuda.synchronize()
+    assert float(args[2].abs().max()) > 0 and float(args[3].abs().max()) > 0
+    assert _lstm_close(got, want)
+
+
+def test_lstm_batch_split_over_two_launches(dev):
+    H = 512
+    rows = lstm_recurrence_info(H, 1)["max_batch"]
+    args = _lstm_args(np.random.default_rng(0), 7, rows + 1, H, dev)
+    before = lstm_recurrence.launches
+    with torch.inference_mode(), exact_fp32():
+        got = lstm_recurrence(*args)
+        want = lstm_recurrence_reference(*args)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches == before + 2
+    assert _lstm_close(got, want)
+
+
+@pytest.mark.parametrize("shapes", [[(2, 8, 512), (2, 8, 512)],
+                                    [(40, 8, 512), (40, 8, 512)],
+                                    [(30, 8, 512), (30, 3, 512)],
+                                    [(5, 16, 256), (30, 2, 256)],
+                                    [(1, 8, 512), (2, 8, 512)]])
+def test_lstm_back_to_back_launches_see_no_stale_exchange(dev, shapes):
+    """Launches queued one after the other on one stream reuse the
+    exchange's memory (the caching allocator hands the freed block back).
+    At T = 2 the first launch leaves the very tag the second waits for; a
+    launch after one of another B finds pairs at other offsets."""
+    rng = np.random.default_rng(sum(shapes[0]) + shapes[1][1])
+    runs = [_lstm_args(rng, T, B, H, dev) for T, B, H in shapes]
+    with torch.inference_mode(), exact_fp32():
+        got = [lstm_recurrence(*a) for a in runs]
+        want = [lstm_recurrence_reference(*a) for a in runs]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _lstm_close(g, w)
+
+
+@pytest.mark.parametrize("H", [32, 512, 1024])
+def test_lstm_kernel_info(dev, H):
+    """Units a block by the rule, no spills, one block an SM fits, and
+    every launch shape up to ``max_batch`` rows fits the card."""
+    info = lstm_recurrence_info(H, 8)
+    assert info["units"] in (1, 2, 4, 8) and H // info["units"] <= 132
+    assert 0 < info["regs"] <= 255
+    assert info["local_bytes"] == 0
+    assert info["blocks_per_sm"] >= 1
+    assert info["max_batch"] >= 8
+    assert lstm_recurrence_info(H, info["max_batch"])["blocks_per_sm"] >= 1
+
+
+def test_lstm_handoff_probe(dev):
+    us = handoff_us(2000)
+    assert 0.0 < us < 10.0
 
 
 @pytest.mark.parametrize("C,T,pad_mode", [(32, 1001, "reflect"),

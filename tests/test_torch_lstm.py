@@ -73,6 +73,19 @@ def test_wrapper_on_cpu_runs_plain_version_without_launching(rng):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("T,B,H", [(1, 1, 32), (1, 5, 64), (2, 3, 32),
+                                   (7, 2, 64), (12, 4, 32), (3, 9, 96)])
+def test_wrapper_matches_pallas_interpret(rng, T, B, H):
+    """The entry point the models call, at one step (``lstm_cell_step``),
+    two steps (one exchange) and a few, against the Pallas kernel."""
+    gx, w_hh, h0, c0 = _inputs(rng, T, B, H, True)
+    want = lstm_layer_pallas(*map(jnp.asarray, (gx, w_hh, h0, c0)), chunk=4,
+                             interpret=True)
+    got = lstm_recurrence(*_torch(gx, w_hh, h0, c0))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
 def test_kernel_input_checks(rng):
     """What the kernel does not take raises before any launch."""
     from audiocodecs_tpu_torch.ops.lstm_recurrence import _check
