@@ -32,7 +32,10 @@ from audiocodecs_tpu_torch.nn.layers import (
     pad1d,
 )
 from audiocodecs_tpu_torch.nn.lstm import LSTM, init_lstm_params
-from audiocodecs_tpu_torch.ops.seanet_resblock import seanet_resblock
+from audiocodecs_tpu_torch.ops.seanet_resblock import (
+    pack_resblock_weights,
+    seanet_resblock,
+)
 
 __all__ = ["SEANetConfig", "SEANet", "seanet_encoder_plan",
            "seanet_decoder_plan", "init_seanet_params"]
@@ -117,6 +120,15 @@ def seanet_decoder_plan(cfg: SEANetConfig):
 
 
 class ResBlock(nn.Module):
+    """ELU → conv(k_res) → ELU → conv(1), plus a conv or identity shortcut.
+
+    A block that the fused kernel takes keeps its conv weights in the
+    kernel's layout (:func:`..ops.seanet_resblock.pack_resblock_weights`),
+    built on its first forward on the card and again only when a conv
+    weight changes: moves to another device, or is written in place
+    (``load_state_dict`` bumps the tensor's version). The packed weights
+    are no parameter or buffer, so the state dict is unchanged."""
+
     def __init__(self, ch: int, cfg: SEANetConfig):
         super().__init__()
         hidden = ch // cfg.compress
@@ -126,6 +138,18 @@ class ResBlock(nn.Module):
                    ch if bi == len(ks) - 1 else hidden, k)
             for bi, k in enumerate(ks))
         self.shortcut = Conv1d(ch, ch, 1) if cfg.use_conv_shortcut else None
+        self._packed = None
+        self._packed_key = None
+
+    def packed_weights(self):
+        """The kernel's layout of (block.0.w, block.1.w, shortcut.w),
+        rebuilt only when a weight's (device, data_ptr, version) changed."""
+        ws = (self.block[0].w, self.block[1].w, self.shortcut.w)
+        key = tuple((w.device, w.data_ptr(), w._version) for w in ws)
+        if key != self._packed_key:
+            self._packed = pack_resblock_weights(*ws)
+            self._packed_key = key
+        return self._packed
 
 
 def _fused_eligible(p: ResBlock, cfg: SEANetConfig, dilations) -> bool:
@@ -155,7 +179,10 @@ def _apply_resnet(x, p: ResBlock, cfg: SEANetConfig, dilations):
     # the two causal samples before t=0, padded as the k3 conv would pad
     halo = pad1d(x[..., :3], 2, 0, mode=cfg.pad_mode)[..., :2].contiguous()
     c1, c2, s = p.block[0], p.block[1], p.shortcut
-    return seanet_resblock(x, halo, c1.w, c1.b, c2.w, c2.b, s.w, s.b)
+    # the CPU path runs the plain version, which takes no packed weights
+    packed = p.packed_weights() if x.device.type == "cuda" else None
+    return seanet_resblock(x, halo, c1.w, c1.b, c2.w, c2.b, s.w, s.b,
+                           packed=packed)
 
 
 def _apply_convtr(x, p: ConvTranspose1d, cfg: SEANetConfig, kernel: int,

@@ -138,18 +138,21 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rows, row_bytes = _plan(lib, dev, H)
         # the exchange, reused by every launch, each of which clears it
-        # first; a single step exchanges nothing
-        xchg = None
+        # first; a single step exchanges nothing. The tensor stays bound
+        # until every launch is enqueued, so the caching allocator cannot
+        # hand its block to another allocation before the kernels run.
+        xchg = xchg_ptr = None
         if T > 1:
             xchg = torch.empty(min(rows, B) * row_bytes, device=dev,
-                               dtype=torch.uint8).data_ptr()
+                               dtype=torch.uint8)
+            xchg_ptr = xchg.data_ptr()
         for b0 in range(0, B, rows):
             nb = min(rows, B - b0)
             err = lib.lstm_recurrence_f32(
                 gates_x.data_ptr() + f32 * b0 * 4 * H, w_hh.data_ptr(),
                 h0.data_ptr() + f32 * b0 * H, c0.data_ptr() + f32 * b0 * H,
                 ys.data_ptr() + f32 * b0 * H, h_t.data_ptr() + f32 * b0 * H,
-                c_t.data_ptr() + f32 * b0 * H, xchg, T, nb, B, H, stream)
+                c_t.data_ptr() + f32 * b0 * H, xchg_ptr, T, nb, B, H, stream)
             if err:
                 raise RuntimeError(
                     "lstm_recurrence kernel launch failed: "

@@ -19,7 +19,10 @@ it fails:
    spill and shared bytes; and one inter-SM hand-off, the latency floor
    of a step;
 4. kernel 2, the fused SEANet residual block, against its plain version at
-   the main path's four (C, T) shapes (B=8) and a ragged one, with timings;
+   the main path's four (C, T) shapes (B=8), a ragged one and its widest
+   tile (C=384), with timings of the kernel on weights packed once (as the
+   model calls it), the time of one pack, the model's unfused cuDNN path,
+   and the kernel's registers, spills, shared bytes and blocks an SM;
 5. the packed SEANet block entry point (channel-last, zero causal pad),
    which launches kernel 2, against its plain version at EnCodec's two
    narrow widths and a ragged shape, with timings;
@@ -32,8 +35,8 @@ it fails:
    blocks an SM;
 7. the EnCodec path as a small server: EnCodec-24 kHz, 8 codebooks, seeded
    random weights, three requests through ``sig_to_toks`` → ``toks_to_sig``
-   with the kernel launches counted, parity against the same weights on the
-   CPU, then the warm roundtrip time, peak memory and the device time by
+   with the kernel launches and kernel 2's weight packs counted, parity
+   against the same weights on the CPU, then the warm roundtrip time, peak memory and the device time by
    kernel over one roundtrip (torch.profiler);
 8. the DAC path the same way: DAC-44.1 kHz, 9 codebooks, two 10 s requests
    and one B = 2 ragged request, six kernel-3 launches a decode, the fused
@@ -63,7 +66,8 @@ LSTM_SHAPES = [(750, 8, 512), (257, 3, 512), (40, 100, 512), (750, 8, 1024),
 LSTM_TIMED = [(750, 8, 512), (750, 8, 1024), (1, 8, 512)]
 RESBLOCK_SHAPES = [(8, 32, 240000), (8, 64, 120000), (8, 128, 30000),
                    (8, 256, 6000)]
-RESBLOCK_RAGGED = (3, 64, 1001)
+# ragged (T off the 4-sample vectors) and the widest tile
+RESBLOCK_EXTRA = [(3, 64, 1001), (2, 384, 4096)]
 PACKED_SHAPES = [(8, 32, 240000), (8, 64, 120000)]  # (B, C, T)
 PACKED_RAGGED = (3, 64, 1001)
 # the DAC-44.1k decoder's fused units for B = 1 x 10 s: (B, C, T, dilation)
@@ -369,7 +373,8 @@ def phase_resblock(torch, peaks):
     from audiocodecs_tpu_torch.nn.seanet import (
         ResBlock, SEANetConfig, _resnet_plain)
     from audiocodecs_tpu_torch.ops.seanet_resblock import (
-        seanet_resblock, seanet_resblock_reference)
+        pack_resblock_weights, seanet_resblock, seanet_resblock_info,
+        seanet_resblock_reference)
 
     gen = torch.Generator().manual_seed(2)
     dev = "cuda"
@@ -377,23 +382,26 @@ def phase_resblock(torch, peaks):
     worst = 0.0
     tot = {"ms": 0.0, "plain_ms": 0.0, "cudnn_path_ms": 0.0, "flops": 0.0,
            "bytes": 0.0}
-    for B, C, T in RESBLOCK_SHAPES + [RESBLOCK_RAGGED]:
+    per_shape = []
+    for B, C, T in RESBLOCK_SHAPES + RESBLOCK_EXTRA:
         x, (w1, b1, w2, b2, ws, bs) = _resblock_inputs(torch, gen, B, C, T,
                                                        dev)
         with torch.inference_mode(), exact_fp32():
             halo = pad1d(x[..., :3], 2, 0, mode="reflect")[..., :2].contiguous()
             args = (x, halo, w1, b1, w2, b2, ws, bs)
-            got = seanet_resblock(*args)
+            packed = pack_resblock_weights(w1, w2, ws)
+            got = seanet_resblock(*args, packed=packed)
             want = seanet_resblock_reference(*args)
             torch.cuda.synchronize()
             scale = max(1.0, float(want.abs().max()))
             err = float((got - want).abs().max())
+        del got, want
         log(f"seanet_resblock B={B} C={C} T={T}: max_abs_err={err:.3e} "
             f"(limit {1e-5 * scale:.3e})")
         if not err <= 1e-5 * scale:
             fail(f"seanet_resblock disagrees with its plain version: {err}")
         worst = max(worst, err)
-        if (B, C, T) == RESBLOCK_RAGGED:
+        if (B, C, T) in RESBLOCK_EXTRA:
             continue
         blk = ResBlock(C, cfg).to(dev)
         with torch.inference_mode(), exact_fp32():
@@ -401,19 +409,26 @@ def phase_resblock(torch, peaks):
                                       ((w1, b1), (w2, b2), (ws, bs))):
                 conv.w.copy_(wt)
                 conv.b.copy_(bt)
-            ms = cuda_ms(torch, lambda: seanet_resblock(*args))
+            ms = cuda_ms(torch, lambda: seanet_resblock(*args, packed=packed))
             plain_ms = cuda_ms(torch, lambda: seanet_resblock_reference(*args))
             cudnn_ms = cuda_ms(
                 torch, lambda: _resnet_plain(x, blk, cfg, (1, 1)))
+            pack_ms = cuda_ms(torch, lambda: pack_resblock_weights(w1, w2, ws))
+        info = seanet_resblock_info(C, C // 2)
         Hc = C // 2
         flops = 2.0 * B * T * (3 * C * Hc + Hc * C + C * C)
         nbytes = 4.0 * (2 * B * C * T + 2 * B * C
                         + 3 * C * Hc + Hc * C + C * C + Hc + 2 * C)
         b_ms, b_by = bound(flops, nbytes, peaks)
+        share = flops / peaks[0] / (ms / 1e3)
         log(f"seanet_resblock B={B} C={C} T={T}: kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} cudnn_path_ms={cudnn_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) "
-            f"fp32_share_of_peak={flops / peaks[0] / (ms / 1e3):.3f}")
+            f"bound_ms={b_ms:.4f} ({b_by}) fp32_share_of_peak={share:.3f} "
+            f"pack_ms={pack_ms:.4f} {json.dumps(info)}")
+        per_shape.append({"C": C, "T": T, "ms": ms, "plain_ms": plain_ms,
+                          "cudnn_path_ms": cudnn_ms, "bound_ms": b_ms,
+                          "fp32_share_of_peak": share, "pack_ms": pack_ms,
+                          **info})
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["cudnn_path_ms"] += cudnn_ms
@@ -427,7 +442,9 @@ def phase_resblock(torch, peaks):
             "launches": 0, "max_abs_err": worst, "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "cudnn_path_ms": tot["cudnn_path_ms"],
-            "shape": "sum over the four main-path (C, T) shapes at B=8"}
+            "per_shape": per_shape,
+            "shape": "sum over the four main-path (C, T) shapes at B=8, "
+                     "weights packed once"}
 
 
 def phase_packed(torch, peaks):
@@ -601,6 +618,8 @@ def read_counts() -> dict:
 
 def phase_main_path(torch, rows):
     from audiocodecs_tpu_torch.models.encodec import Encodec
+    from audiocodecs_tpu_torch.ops.seanet_resblock import (
+        pack_resblock_weights)
     from audiocodecs_tpu_torch.quant.rvq import rvq_decode, rvq_encode
 
     sr, B, seconds = 24000, 8, 10.0
@@ -616,19 +635,24 @@ def phase_main_path(torch, rows):
 
     # the counted run: the EnCodec path only
     reset_counts()
-    answers = []
+    answers, packs = [], []
     for sig in requests:
+        p0 = pack_resblock_weights.packs
         toks = codec.sig_to_toks(sig)
         answers.append((toks, codec.toks_to_sig(toks)))
+        packs.append(pack_resblock_weights.packs - p0)
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"EnCodec path launches over {len(requests)} roundtrips: "
-        f"{json.dumps(counts)}")
+        f"{json.dumps(counts)}; seanet_resblock weight packs per roundtrip: "
+        f"{packs}")
     n = len(requests)
     want = {"lstm_recurrence": 4 * n, "seanet_resblock": 8 * n,
             "seanet_resblock_packed": 0, "dac_resunit": 0}
     if counts != want:
         fail(f"expected launches {want}, got {counts}")
+    if packs != [8] + [0] * (n - 1):
+        fail(f"expected the fused blocks to pack once, got {packs}")
     for row in rows:
         row.setdefault("launches_by_path", {})["encodec_24k"] = counts[
             row["name"]]

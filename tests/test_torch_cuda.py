@@ -33,7 +33,10 @@ from audiocodecs_tpu_torch.ops.dac_resunit import (
     pack_resunit_weights,
 )
 from audiocodecs_tpu_torch.ops.seanet_resblock import (
+    _smem_bytes as _resblock_smem_bytes,
+    pack_resblock_weights,
     seanet_resblock,
+    seanet_resblock_info,
     seanet_resblock_packed,
     seanet_resblock_packed_reference,
     seanet_resblock_reference,
@@ -147,26 +150,47 @@ def test_lstm_handoff_probe(dev):
     assert 0.0 < us < 10.0
 
 
-@pytest.mark.parametrize("C,T,pad_mode", [(32, 1001, "reflect"),
-                                          (256, 300, "reflect"),
-                                          (8, 2, "reflect"),
-                                          (64, 129, "constant")])
-def test_resblock_kernel_matches_plain_version(dev, C, T, pad_mode):
-    rng = np.random.default_rng(C + T)
+@pytest.mark.parametrize("B,C,T,pad_mode", [
+    (2, 32, 1001, "reflect"), (2, 256, 300, "reflect"), (1, 8, 2, "reflect"),
+    (2, 64, 129, "constant"), (2, 32, 1024, "reflect"),
+    (2, 64, 1001, "reflect"), (2, 128, 1001, "constant"),
+    (2, 256, 1024, "constant"), (2, 384, 1001, "reflect"),
+    (1, 384, 64, "constant"), (1, 32, 1, "reflect"), (1, 32, 1, "constant"),
+    (1, 128, 2, "reflect"), (1, 256, 2, "constant"), (3, 16, 77, "reflect"),
+    (1, 200, 333, "reflect")])
+def test_resblock_kernel_matches_plain_version(dev, B, C, T, pad_mode):
+    """Every tile of the kernel (C = 32, 64, 128, 256, 384), widths off
+    them, ragged and unaligned T (rows not 16-byte aligned), T = 1 and 2,
+    B = 1; with the weights packed by the caller and by the wrapper."""
+    rng = np.random.default_rng(B + C + T)
     Hc = C // 2
-    x = _t(rng.standard_normal((2, C, T)), dev)
+    x = _t(rng.standard_normal((B, C, T)), dev)
     halo = pad1d(x[..., :3], 2, 0, mode=pad_mode)[..., :2].contiguous()
     weights = [_t(rng.standard_normal(s) / np.sqrt(f), dev) for s, f in (
         ((Hc, C, 3), 3 * C), ((Hc,), 3 * C), ((C, Hc, 1), Hc), ((C,), Hc),
         ((C, C, 1), C), ((C,), C))]
     before = seanet_resblock.launches
     with torch.inference_mode():
-        got = seanet_resblock(x, halo, *weights)
+        packed = pack_resblock_weights(weights[0], weights[2], weights[4])
+        got = seanet_resblock(x, halo, *weights, packed=packed)
+        got_unpacked = seanet_resblock(x, halo, *weights)
         want = seanet_resblock_reference(x, halo, *weights)
     torch.cuda.synchronize()
-    assert seanet_resblock.launches == before + 1
+    assert seanet_resblock.launches == before + 2
     assert float((got - want).abs().max()) <= 1e-5 * max(
         1.0, float(want.abs().max()))
+    assert torch.equal(got, got_unpacked)
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 256, 384])
+def test_resblock_kernel_info(dev, C):
+    """Registers, spills, shared bytes and blocks an SM of the tile the
+    wrapper launches: no spills, and the wrapper's shared-memory count."""
+    info = seanet_resblock_info(C, C // 2)
+    assert info["local_bytes"] == 0
+    assert info["smem_bytes"] == _resblock_smem_bytes(C, C // 2)
+    assert 0 < info["regs"] <= 255
+    assert info["blocks_per_sm"] >= 1 and info["tile"] % 64 == 0
 
 
 @pytest.mark.parametrize("H", [48, 1056])
@@ -213,6 +237,27 @@ def test_small_encodec_roundtrip_launches_and_matches_cpu(dev):
     y_cpu = cpu.toks_to_sig(toks.cpu())
     assert float((y.cpu() - y_cpu).abs().max()) <= 1e-4 * float(
         y_cpu.abs().max())
+
+
+def test_encodec_blocks_pack_once_across_roundtrips(dev):
+    """The fused blocks hand the kernel their cached weight layout: four
+    packs on the first roundtrip (two blocks a side), none on the second."""
+    mc = EncodecModelConfig(num_filters=8, hidden_size=16,
+                            upsampling_ratios=(4, 2), codebook_size=64,
+                            codebook_dim=16, num_quantizers=4)
+    gpu = Encodec(24000, num_codebooks=4, model_config=mc, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    sig = (np.random.default_rng(2).standard_normal((2, 2001)) * 0.3).astype(
+        np.float32)
+    packs, launches = [], []
+    for _ in range(2):
+        p0, n0 = pack_resblock_weights.packs, seanet_resblock.launches
+        gpu.toks_to_sig(gpu.sig_to_toks(sig))
+        packs.append(pack_resblock_weights.packs - p0)
+        launches.append(seanet_resblock.launches - n0)
+    torch.cuda.synchronize()
+    assert packs == [4, 0]
+    assert launches == [4, 4]
 
 
 def _close(got, want):
@@ -279,7 +324,7 @@ def test_dac_resunit_on_the_card_refuses_widths_the_kernel_does_not_take(dev):
     assert dac_resunit.launches == before
 
 
-@pytest.mark.parametrize("C,T", [(32, 1001), (64, 77)])
+@pytest.mark.parametrize("C,T", [(32, 1001), (64, 77), (64, 1024)])
 def test_packed_entry_matches_plain_version(dev, C, T):
     rng = np.random.default_rng(C + T)
     H = C // 2

@@ -31,6 +31,8 @@ from audiocodecs_tpu_torch.nn.seanet import (
     _resnet_plain,
 )
 from audiocodecs_tpu_torch.ops.seanet_resblock import (
+    _layout,
+    pack_resblock_weights,
     seanet_resblock,
     seanet_resblock_packed,
     seanet_resblock_packed_reference,
@@ -145,6 +147,72 @@ def test_wrapper_on_cpu_runs_plain_version_without_launching(rng):
                                    rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("C,H", [(32, 16), (64, 32), (128, 64), (256, 128),
+                                 (384, 192), (8, 4), (200, 100), (24, 30)])
+def test_pack_layout_round_trips_with_zero_padding(rng, C, H):
+    """Every tile of the kernel, and widths off its chunk and tile."""
+    w1 = torch.from_numpy(rng.standard_normal((H, C, 3)).astype(np.float32))
+    w2 = torch.from_numpy(rng.standard_normal((C, H, 1)).astype(np.float32))
+    ws = torch.from_numpy(rng.standard_normal((C, C, 1)).astype(np.float32))
+    before = pack_resblock_weights.packs
+    w1p, w2p, wsp = pack_resblock_weights(w1, w2, ws)
+    assert pack_resblock_weights.packs == before + 1
+    Kp, Khp, M1p, Cp = _layout(C, H)
+    assert (Kp, Khp) == (-(-C // 8) * 8, -(-H // 8) * 8)
+    assert M1p >= H and Cp >= C
+    assert tuple(w1p.shape) == (Kp, 3, M1p)
+    assert tuple(w2p.shape) == (Khp, Cp) and tuple(wsp.shape) == (Kp, Cp)
+    assert all(t.is_contiguous() and t.dtype == torch.float32
+               for t in (w1p, w2p, wsp))
+    assert torch.equal(w1p[:C, :, :H].permute(2, 0, 1), w1)
+    assert torch.equal(w2p[:H, :C].T[..., None], w2)
+    assert torch.equal(wsp[:C, :C].T[..., None], ws)
+    for t, (rows, cols) in ((w1p, (C, H)), (w2p, (H, C)), (wsp, (C, C))):
+        pad = torch.ones_like(t, dtype=torch.bool)
+        pad[:rows, ..., :cols] = False
+        assert torch.count_nonzero(t[pad]) == 0
+
+
+def test_wrapper_with_packed_weights_on_cpu_runs_plain_version(rng):
+    C, H = 32, 16
+    blk = _port_block(_jax_params(rng, C, H), C, SEANetConfig())
+    x = _bct(rng.standard_normal((2, 45, C)).astype(np.float32))
+    args = _kernel_args(x, blk, "reflect")
+    packed = pack_resblock_weights(args[2], args[4], args[6])
+    before = seanet_resblock.launches
+    got = seanet_resblock(*args, packed=packed)
+    assert seanet_resblock.launches == before
+    torch.testing.assert_close(got, seanet_resblock_reference(*args),
+                               rtol=0, atol=0)
+
+
+def test_resblock_packs_once_per_weight_version(rng):
+    """The cached layout is rebuilt only when a conv weight changes:
+    ``load_state_dict`` writes in place and bumps the versions."""
+    C, H = 32, 16
+    cfg = SEANetConfig()
+    blk = _port_block(_jax_params(rng, C, H), C, cfg)
+    n0 = pack_resblock_weights.packs
+    first = blk.packed_weights()
+    assert blk.packed_weights() is first
+    assert pack_resblock_weights.packs == n0 + 1
+    assert set(blk.state_dict()) == {"block.0.w", "block.0.b", "block.1.w",
+                                     "block.1.b", "shortcut.w", "shortcut.b"}
+    other = _port_block(_jax_params(rng, C, H), C, cfg)
+    blk.load_state_dict(other.state_dict())
+    again = blk.packed_weights()
+    assert pack_resblock_weights.packs == n0 + 2
+    assert torch.equal(again[0], other.packed_weights()[0])
+    assert not torch.equal(again[0], first[0])
+    assert blk.packed_weights() is again
+    # the CPU path of the model runs the plain version and packs nothing
+    x = _bct(rng.standard_normal((1, 20, C)).astype(np.float32))
+    n1 = pack_resblock_weights.packs
+    with torch.no_grad():
+        _apply_resnet(x, blk, cfg, (1, 1))
+    assert pack_resblock_weights.packs == n1
+
+
 def test_kernel_input_checks(rng):
     """What the kernel does not take raises before any launch."""
     from audiocodecs_tpu_torch.ops.seanet_resblock import _check
@@ -164,6 +232,13 @@ def test_kernel_input_checks(rng):
         _check(*strided)
     with pytest.raises(ValueError):
         seanet_resblock(*[a.to("meta") for a in args])
+    packed = list(pack_resblock_weights(args[2], args[4], args[6]))
+    _check(*args, packed)
+    with pytest.raises(ValueError):
+        _check(*args, [packed[0][:, :, :8]] + packed[1:])
+    shifted = torch.zeros(packed[1].numel() + 1)[1:].view_as(packed[1])
+    with pytest.raises(ValueError, match="aligned"):
+        _check(*args, [packed[0], shifted, packed[2]])
     C = 512  # wider than the kernel's widest tile
     wide = [torch.zeros(s) for s in ((1, C, 4), (1, C, 2), (C // 2, C, 3),
                                      (C // 2,), (C, C // 2, 1), (C,),
