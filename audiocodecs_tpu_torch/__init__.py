@@ -10,7 +10,8 @@ Importing the package is light: the codec classes load on first access.
 """
 
 __all__ = ["Codec", "CodecConfig", "DAC", "DACModelConfig", "Encodec",
-           "EncodecModelConfig"]
+           "EncodecModelConfig", "Mimi", "MimiModelConfig", "SpeechTokenizer",
+           "SpeechTokenizerModelConfig"]
 
 _LAZY = {
     "Codec": "audiocodecs_tpu_torch.codec",
@@ -19,6 +20,10 @@ _LAZY = {
     "DACModelConfig": "audiocodecs_tpu_torch.models.dac",
     "Encodec": "audiocodecs_tpu_torch.models.encodec",
     "EncodecModelConfig": "audiocodecs_tpu_torch.models.encodec",
+    "Mimi": "audiocodecs_tpu_torch.models.mimi",
+    "MimiModelConfig": "audiocodecs_tpu_torch.models.mimi",
+    "SpeechTokenizer": "audiocodecs_tpu_torch.models.speechtokenizer",
+    "SpeechTokenizerModelConfig": "audiocodecs_tpu_torch.models.speechtokenizer",
 }
 
 

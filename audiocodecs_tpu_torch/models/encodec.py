@@ -6,9 +6,17 @@ decode → SEANet decoder. ``num_codebooks`` selects the first K RVQ stages.
 The two LSTMs and the eight residual blocks run the package's CUDA kernels
 on the card.
 
+Streaming (:meth:`Encodec.encode_chunk`, :meth:`Encodec.decode_chunk`) runs
+chunks of whole frames with carried conv and LSTM state: each conv is a
+library call over the chunk and its left context, and each LSTM layer one
+recurrence kernel launch over the chunk's frames. Batch mode reflect-pads
+the signal's start and streaming starts from zero context, so the first
+frames' tokens may differ from batch mode; with ``pad_mode="constant"`` the
+two agree exactly.
+
 Not ported yet, and refused rather than run wrong: the 48 kHz chunked and
-loudness-normalized path (``chunk_length_s``/``normalize``), the Vocos
-decoder (``use_vocos``) and streaming ``encode_chunk``/``decode_chunk``.
+loudness-normalized path (``chunk_length_s``/``normalize``) and the Vocos
+decoder (``use_vocos``).
 """
 
 from __future__ import annotations
@@ -23,12 +31,15 @@ from torch import nn
 from audiocodecs_tpu_torch.codec import (
     Codec,
     CodecConfig,
+    _serving,
     prune_params_for_mode,
 )
 from audiocodecs_tpu_torch.nn.seanet import (
     SEANet,
     SEANetConfig,
+    apply_plan_streaming,
     init_seanet_params,
+    init_stream_state,
     seanet_decoder_plan,
     seanet_encoder_plan,
 )
@@ -175,11 +186,44 @@ class Encodec(Codec):
         """``[K, C, H]`` codebook embeddings of the used stages."""
         return self.codebooks[: self.config.num_codebooks]
 
-    def encode_chunk(self, chunk, state):
-        raise NotImplementedError("streaming encode is not ported yet")
+    # Streaming (chunked-causal) API, causal configs only ----------------- #
 
+    @property
+    def frame_size(self) -> int:
+        """Samples a token frame (the chunk granularity)."""
+        return self.model_config.hop_length
+
+    def init_streaming_state(self, batch: int) -> dict:
+        """Zero state for chunked encode and decode, on the codec's device."""
+        state = {}
+        if hasattr(self, "encoder"):
+            state["encoder"] = init_stream_state(self.encoder, batch)
+        if hasattr(self, "decoder"):
+            state["decoder"] = init_stream_state(self.decoder, batch)
+        return state
+
+    @_serving
+    def encode_chunk(self, chunk, state):
+        """One chunk ``[B, frame_size·m]`` at the model's rate → (tokens
+        ``[B, m, K]``, new state)."""
+        chunk = self._tensor(chunk, torch.float32)
+        new_state = dict(state)
+        x, new_state["encoder"] = apply_plan_streaming(
+            chunk[:, None, :], self.encoder, state["encoder"])
+        toks = rvq_encode(x.transpose(1, 2), self.codebooks,
+                          self.config.num_codebooks)
+        return toks, new_state
+
+    @_serving
     def decode_chunk(self, toks, state):
-        raise NotImplementedError("streaming decode is not ported yet")
+        """Token frames ``[B, m, K]`` → (waveform ``[B, frame_size·m]``, new
+        state)."""
+        toks = self._tensor(toks, torch.int64)
+        new_state = dict(state)
+        y, new_state["decoder"] = apply_plan_streaming(
+            rvq_decode(toks, self.codebooks).transpose(1, 2), self.decoder,
+            state["decoder"])
+        return y[:, 0], new_state
 
 
 def init_encodec_params(generator: torch.Generator,

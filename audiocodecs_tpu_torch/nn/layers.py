@@ -85,24 +85,28 @@ def unit_norm(x: torch.Tensor, dim: int = -1,
 
 
 class Conv1d(nn.Module):
-    """Weights only: ``w`` [Cout, Cin, K], ``b`` [Cout]. The weight bridge
-    converts the reference's ``[K, Cin, Cout]`` for modules of this class."""
+    """Weights only: ``w`` [Cout, Cin, K], ``b`` [Cout] (``b`` is None with
+    ``bias=False``). The weight bridge converts the reference's
+    ``[K, Cin, Cout]`` for modules of this class."""
 
-    def __init__(self, cin: int, cout: int, k: int):
+    def __init__(self, cin: int, cout: int, k: int, bias: bool = True):
         super().__init__()
         self.w = nn.Parameter(torch.empty(cout, cin, k))
-        self.b = nn.Parameter(torch.empty(cout))
+        self.b = nn.Parameter(torch.empty(cout)) if bias else None
 
 
 class ConvTranspose1d(nn.Module):
-    """Weights only: ``w`` [Cin, Cout, K] (PyTorch's layout), ``b`` [Cout].
-    The weight bridge unflips the reference's pre-flipped ``[K, Cin, Cout]``
-    for modules of this class."""
+    """Weights only: ``w`` [Cin, Cout/groups, K] (PyTorch's layout), ``b``
+    [Cout] (None with ``bias=False``). The weight bridge unflips and
+    regroups the reference's pre-flipped ``[K, Cin/groups, Cout]`` for
+    modules of this class."""
 
-    def __init__(self, cin: int, cout: int, k: int):
+    def __init__(self, cin: int, cout: int, k: int, groups: int = 1,
+                 bias: bool = True):
         super().__init__()
-        self.w = nn.Parameter(torch.empty(cin, cout, k))
-        self.b = nn.Parameter(torch.empty(cout))
+        self.groups = groups
+        self.w = nn.Parameter(torch.empty(cin, cout // groups, k))
+        self.b = nn.Parameter(torch.empty(cout)) if bias else None
 
 
 def conv1d(x, w, b=None, *, stride: int = 1, dilation: int = 1,

@@ -8,7 +8,8 @@ CPU tensors. On the card a width the kernel does not take (``H % 32 != 0``
 or ``H > 1024``) raises rather than running the plain loop.
 
 Params per layer: ``{"w_ih": [Cin, 4H], "w_hh": [H, 4H], "b": [4H]}`` with
-the two PyTorch biases summed, as in the reference package.
+the two PyTorch biases summed, as in the reference package. A bidirectional
+layer holds one such dict per direction (``{"fwd": …, "bwd": …}``).
 """
 
 from __future__ import annotations
@@ -19,19 +20,25 @@ from torch import nn
 from audiocodecs_tpu_torch.nn.layers import exact_fp32
 from audiocodecs_tpu_torch.ops.lstm_recurrence import lstm_recurrence
 
-__all__ = ["LSTM", "LSTMLayer", "init_lstm_params", "lstm", "lstm_cell_step"]
+__all__ = ["BiLSTM", "LSTM", "LSTMLayer", "bilstm", "init_bilstm_params",
+           "init_lstm_params", "lstm", "lstm_cell_step"]
 
 
 def _layer(x: torch.Tensor, p, h0=None, c0=None):
     """One LSTM layer. ``x``: [B, T, Cin] → ([B, T, H], (h_T, c_T))."""
-    B = x.shape[0]
+    B, T, cin = x.shape
     H = p["w_hh"].shape[0]
+    # one [T·B, Cin] x [Cin, 4H] product: torch.matmul folds a 3-D operand
+    # into one GEMM only if its leading dims are contiguous or an operand
+    # requires grad, and otherwise runs a batched product, several times
+    # slower on the card
     with exact_fp32():
-        gates_x = torch.matmul(x.transpose(0, 1), p["w_ih"]) + p["b"]
+        gates_x = torch.matmul(x.transpose(0, 1).reshape(T * B, cin),
+                               p["w_ih"]) + p["b"]
     h = x.new_zeros((B, H)) if h0 is None else h0.contiguous()
     c = x.new_zeros((B, H)) if c0 is None else c0.contiguous()
-    ys, h, c = lstm_recurrence(gates_x.contiguous(), p["w_hh"].contiguous(),
-                               h, c)
+    ys, h, c = lstm_recurrence(gates_x.view(T, B, 4 * H),
+                               p["w_hh"].contiguous(), h, c)
     return ys.transpose(0, 1), (h, c)
 
 
@@ -55,6 +62,24 @@ def lstm(x: torch.Tensor, params, state=None):
     return x, new_state
 
 
+def bilstm(x: torch.Tensor, params) -> torch.Tensor:
+    """Bidirectional stacked LSTM. ``x``: [B, T, C] → [B, T, 2H].
+
+    ``params``: per-layer ``{"fwd": {...}, "bwd": {...}}`` (PyTorch's
+    ``bidirectional=True`` layout: layer l > 0 reads 2H inputs). The
+    backward direction runs on ``x`` flipped in time and its output is
+    flipped back. The two directions run one after the other on the
+    caller's stream: each recurrence kernel is a cooperative launch whose
+    blocks wait on each other, so two on separate streams could share the
+    card's SMs and stall each other.
+    """
+    for p in params:
+        fwd, _ = _layer(x, p["fwd"])
+        bwd, _ = _layer(torch.flip(x, dims=(1,)), p["bwd"])
+        x = torch.cat([fwd, torch.flip(bwd, dims=(1,))], dim=-1)
+    return x
+
+
 class LSTMLayer(nn.Module):
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
@@ -76,6 +101,42 @@ class LSTM(nn.ModuleList):
 
     def forward(self, x: torch.Tensor, state=None):
         return lstm(x, [layer.params() for layer in self], state)
+
+
+class BiLSTMLayer(nn.Module):
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.fwd = LSTMLayer(input_size, hidden_size)
+        self.bwd = LSTMLayer(input_size, hidden_size)
+
+    def params(self) -> dict:
+        return {"fwd": self.fwd.params(), "bwd": self.bwd.params()}
+
+
+class BiLSTM(nn.ModuleList):
+    """A stack of :class:`BiLSTMLayer` (state-dict keys ``<i>.fwd.w_ih`` …);
+    ``forward``: [B, T, C] → [B, T, 2H]."""
+
+    def __init__(self, num_layers: int, input_size: int, hidden_size: int):
+        super().__init__(
+            BiLSTMLayer(input_size if li == 0 else 2 * hidden_size,
+                        hidden_size)
+            for li in range(num_layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return bilstm(x, [layer.params() for layer in self])
+
+
+def init_bilstm_params(generator: torch.Generator, num_layers: int,
+                       input_size: int, hidden_size: int) -> list:
+    """Per-layer ``{"fwd": …, "bwd": …}`` params in
+    :func:`init_lstm_params`'s distribution."""
+    return [
+        {d: init_lstm_params(generator, 1,
+                             input_size if li == 0 else 2 * hidden_size,
+                             hidden_size)[0]
+         for d in ("fwd", "bwd")}
+        for li in range(num_layers)]
 
 
 def init_lstm_params(generator: torch.Generator, num_layers: int,

@@ -10,9 +10,17 @@ The residual blocks that the fused kernel covers (causal, dilations (1, 1),
 k3 then 1×1 conv, conv shortcut: all of EnCodec's) go to
 :func:`..ops.seanet_resblock.seanet_resblock` on every device — it launches
 the CUDA kernel for CUDA tensors and runs its plain version for CPU
-tensors. Other blocks take the general path (:func:`_resnet_plain`).
+tensors. Other blocks take the general path (:func:`_resnet_plain`): the
+non-causal, reflect-padded blocks of SpeechTokenizer and Mimi's blocks
+without a conv shortcut run cuDNN, as the reference runs them on XLA.
 
-Streaming execution and the bidirectional LSTM are not ported yet.
+The ``"bilstm"`` kind (SpeechTokenizer's encoder) is a bidirectional LSTM
+whose output, 2H wide, is added to the input duplicated over channels.
+
+Streaming (:func:`init_stream_state`, :func:`apply_plan_streaming`) runs
+each conv of a causal plan over one chunk with its carried left context
+(:mod:`..nn.streaming`), residual blocks conv by conv as the reference does,
+and carries the LSTM's ``(h, c)``.
 """
 
 from __future__ import annotations
@@ -31,14 +39,26 @@ from audiocodecs_tpu_torch.nn.layers import (
     elu,
     pad1d,
 )
-from audiocodecs_tpu_torch.nn.lstm import LSTM, init_lstm_params
+from audiocodecs_tpu_torch.nn.lstm import (
+    LSTM,
+    BiLSTM,
+    init_bilstm_params,
+    init_lstm_params,
+)
+from audiocodecs_tpu_torch.nn.streaming import (
+    conv_stream,
+    convtr_stream,
+    init_conv_state,
+    init_convtr_state,
+)
 from audiocodecs_tpu_torch.ops.seanet_resblock import (
     pack_resblock_weights,
     seanet_resblock,
 )
 
-__all__ = ["SEANetConfig", "SEANet", "seanet_encoder_plan",
-           "seanet_decoder_plan", "init_seanet_params"]
+__all__ = ["SEANetConfig", "SEANet", "apply_plan_streaming",
+           "init_seanet_params", "init_stream_state", "seanet_decoder_plan",
+           "seanet_encoder_plan"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +78,9 @@ class SEANetConfig:
     pad_mode: str = "reflect"
     use_conv_shortcut: bool = True
     trim_right_ratio: float = 1.0
+    # SpeechTokenizer's bidirectional encoder LSTM: output doubles to 2H and
+    # the residual skip duplicates the input (y + cat(x, x))
+    lstm_bidirectional: bool = False
 
     @property
     def hop_length(self) -> int:
@@ -85,7 +108,11 @@ def seanet_encoder_plan(cfg: SEANetConfig):
         scale *= 2
     last_in = scale * cfg.num_filters
     if cfg.num_lstm_layers > 0:
-        plan.append(("lstm", i, last_in)); i += 1
+        if cfg.lstm_bidirectional:
+            plan.append(("bilstm", i, last_in)); i += 1
+            last_in *= 2
+        else:
+            plan.append(("lstm", i, last_in)); i += 1
     plan.append(("elu", i)); i += 1
     plan.append(("conv", i, last_in, cfg.hidden_size,
                  cfg.last_kernel_size, 1, 1)); i += 1
@@ -218,6 +245,9 @@ class SEANet(nn.Module):
             elif kind == "lstm":
                 dim = spec[2]
                 self.add_module(idx, LSTM(cfg.num_lstm_layers, dim, dim))
+            elif kind == "bilstm":
+                dim = spec[2]
+                self.add_module(idx, BiLSTM(cfg.num_lstm_layers, dim, dim))
             elif kind != "elu":
                 raise NotImplementedError(f"plan kind {kind!r} is not ported")
 
@@ -241,7 +271,96 @@ class SEANet(nn.Module):
                 # residual LSTM in fp32 over [B, T, C]
                 y, _ = getattr(self, idx)(x.transpose(1, 2))
                 x = x + y.transpose(1, 2)
+            elif kind == "bilstm":
+                y = getattr(self, idx)(x.transpose(1, 2))
+                x = torch.cat([x, x], dim=1) + y.transpose(1, 2)
         return x
+
+
+# ----------------------------------------------------------------------- #
+# Streaming (chunked-causal) execution with carried conv/LSTM state
+# ----------------------------------------------------------------------- #
+
+
+def init_stream_state(model: SEANet, batch: int) -> dict:
+    """Zero state for streaming ``model``'s plan, on its device.
+
+    Only valid for causal configs: the state replaces the left padding, so
+    batch and streaming execution agree exactly with zero ("constant")
+    padding; reflect-padded stacks differ at stream start."""
+    cfg = model.cfg
+    if not cfg.causal:
+        raise ValueError("streaming requires a causal SEANet config")
+    dev = next(model.parameters()).device
+    state = {}
+    for spec in model.plan:
+        kind, idx = spec[0], str(spec[1])
+        if kind == "conv":
+            _, _, cin, _cout, k, stride, dil = spec
+            state[idx] = init_conv_state(batch, k, stride, cin, dil, dev)
+        elif kind == "convtr":
+            _, _, _cin, cout, k, stride = spec
+            state[idx] = init_convtr_state(batch, k, stride, cout, dev)
+        elif kind == "resnet":
+            _, _, ch, dilations = spec
+            blk = getattr(model, idx)
+            s = {"block": [
+                init_conv_state(batch, conv.w.shape[-1], 1, conv.w.shape[1],
+                                dil, dev)
+                for conv, dil in zip(blk.block, dilations)]}
+            if blk.shortcut is not None:
+                s["shortcut"] = init_conv_state(batch, 1, 1, ch, device=dev)
+            state[idx] = s
+        elif kind == "lstm":
+            dim = spec[2]
+            state[idx] = [(torch.zeros(batch, dim, device=dev),
+                           torch.zeros(batch, dim, device=dev))
+                          for _ in range(cfg.num_lstm_layers)]
+        elif kind != "elu":
+            # e.g. "bilstm": its backward direction needs the whole signal
+            raise NotImplementedError(
+                f"streaming has no state/kernel for plan kind {kind!r}")
+    return state
+
+
+def apply_plan_streaming(x: torch.Tensor, model: SEANet, state: dict):
+    """One chunk ``[B, C, L]`` through ``model``'s plan with carried state →
+    (y, new state)."""
+    new_state = dict(state)
+    for spec in model.plan:
+        kind, idx = spec[0], str(spec[1])
+        if kind == "elu":
+            x = elu(x)
+        elif kind == "conv":
+            _, _, _cin, _cout, _k, stride, dil = spec
+            p = getattr(model, idx)
+            x, new_state[idx] = conv_stream(x, state[idx], p.w, p.b,
+                                            stride=stride, dilation=dil)
+        elif kind == "convtr":
+            _, _, _cin, _cout, _k, stride = spec
+            p = getattr(model, idx)
+            x, new_state[idx] = convtr_stream(x, state[idx], p.w, p.b,
+                                              stride=stride, groups=p.groups)
+        elif kind == "resnet":
+            _, _, _ch, dilations = spec
+            p, s = getattr(model, idx), state[idx]
+            h, block = x, []
+            for conv, cs, dil in zip(p.block, s["block"], dilations):
+                h, ns = conv_stream(elu(h), cs, conv.w, conv.b, dilation=dil)
+                block.append(ns)
+            new_state[idx] = {"block": block}
+            if p.shortcut is not None:
+                x, new_state[idx]["shortcut"] = conv_stream(
+                    x, s["shortcut"], p.shortcut.w, p.shortcut.b)
+            x = x + h
+        elif kind == "lstm":
+            y, new_state[idx] = getattr(model, idx)(x.transpose(1, 2),
+                                                    state[idx])
+            x = x + y.transpose(1, 2)
+        else:
+            raise NotImplementedError(
+                f"streaming has no kernel for plan kind {kind!r}")
+    return x, new_state
 
 
 # ----------------------------------------------------------------------- #
@@ -291,4 +410,11 @@ def init_seanet_params(generator: torch.Generator, cfg: SEANetConfig,
             layers = init_lstm_params(generator, cfg.num_lstm_layers, dim, dim)
             for li, p in enumerate(layers):
                 put(f"{idx}.{li}", p)
+        elif kind == "bilstm":
+            dim = spec[2]
+            layers = init_bilstm_params(generator, cfg.num_lstm_layers, dim,
+                                        dim)
+            for li, p in enumerate(layers):
+                for d in ("fwd", "bwd"):
+                    put(f"{idx}.{li}.{d}", p[d])
     return flat

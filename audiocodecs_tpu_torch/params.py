@@ -8,12 +8,18 @@ Nothing here imports JAX: the tree is plain dicts, lists and arrays.
 Layouts (reference → port):
 
 * conv ``w [K, Cin, Cout]`` → ``[Cout, Cin, K]``;
-* transposed-conv ``w [K, Cin, Cout]``, stored pre-flipped so that it runs as
-  a plain dilated conv → ``flip(w, 0).permute(1, 2, 0)`` = ``[Cin, Cout, K]``,
-  PyTorch's ``ConvTranspose1d`` layout;
+* transposed-conv ``w [K, Cin/G, Cout]`` with G groups, stored pre-flipped
+  so that it runs as a plain dilated conv → ``[Cin, Cout/G, K]``, PyTorch's
+  ``ConvTranspose1d`` layout: flipped in time, and input channel
+  ``g·Cin/G + i`` to output ``g·Cout/G + j`` moved from ``[:, i, g·Cout/G +
+  j]`` to ``[g·Cin/G + i, j, :]`` (for G = 1, ``flip(w, 0).permute(1, 2,
+  0)``);
 * LSTM ``w_ih [Cin, 4H]``, ``w_hh [H, 4H]``, summed ``b [4H]``: unchanged
-  (gate order i, f, g, o);
-* codebooks ``[K, C, H]`` and biases: unchanged.
+  (gate order i, f, g, o), in each direction of a bidirectional layer too
+  (``<layer>.fwd.w_ih`` …);
+* transformer linears ``w [in, out]`` (the port multiplies ``x @ w`` too),
+  norm gains and biases, LayerScale vectors: unchanged;
+* codebooks ``[K, C, H]``, quantizer projections and biases: unchanged.
 """
 
 from __future__ import annotations
@@ -43,7 +49,10 @@ def flatten_tree(tree, prefix: str = "") -> dict:
 
 def _to_port_layout(owner: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
     if leaf == "w" and isinstance(owner, ConvTranspose1d):
-        return np.flip(a, 0).transpose(1, 2, 0)
+        k, cin_g, cout = a.shape
+        g = owner.groups
+        a = np.flip(a, 0).reshape(k, cin_g, g, cout // g)
+        return a.transpose(2, 1, 3, 0).reshape(g * cin_g, cout // g, k)
     if leaf == "w" and isinstance(owner, Conv1d):
         return a.transpose(2, 1, 0)
     return a

@@ -12,12 +12,15 @@ it fails:
    spills of each of its instances);
 3. kernel 1, the LSTM recurrence, against its plain version at the main
    path's shape (T=750, B=8, H=512), a ragged one, a batch split over
-   several launches, H=1024 and one step (T=1), and two pairs of launches
-   back to back; timings at B=8 and B=1 (per step) at the main shape,
-   H=1024 and T=1 (``time_lstm``: a call, the kernel's own device time,
-   and at T=1 calls queued back to back), with the kernel's registers,
-   spill and shared bytes; and one inter-SM hand-off, the latency floor
-   of a step;
+   several launches, H=1024, one step (T=1), SpeechTokenizer's 10 s LSTMs
+   (T=500, H=1024, B=8 and 1) and one EnCodec streaming chunk (T=6, B=8),
+   and two pairs of launches back to back; timings at B=8 and B=1 (per
+   step) at the main shape, H=1024, T=1, T=500 and T=6 (``time_lstm``: a
+   call, the kernel's own device time, and at T=1 calls queued back to
+   back) with each one's bound, the kernel's registers, spill and shared
+   bytes; ``nn.LSTM`` beside the port's bidirectional layer (T=500, B=8,
+   H=1024) and beside one streaming chunk's call; and one inter-SM
+   hand-off, the latency floor of a step;
 4. kernel 2, the fused SEANet residual block, against its plain version at
    the main path's four (C, T) shapes (B=8), a ragged one and its widest
    tile (C=384), with timings of the kernel on weights packed once (as the
@@ -40,7 +43,18 @@ it fails:
    kernel over one roundtrip (torch.profiler);
 8. the DAC path the same way: DAC-44.1 kHz, 9 codebooks, two 10 s requests
    and one B = 2 ragged request, six kernel-3 launches a decode, the fused
-   units' weights packed on the first decode only.
+   units' weights packed on the first decode only;
+9. SpeechTokenizer-16 kHz the same way: two B = 8 x 10 s requests and one
+   B = 1 ragged one, six kernel-1 launches a roundtrip (the encoder's
+   bidirectional LSTM, 2 layers x 2 directions, and the decoder's 2
+   layers), parity on the ragged request and two rows of the first;
+10. EnCodec-24 kHz streaming: B = 8 x 10 s in 125 chunks of 6 frames
+   (80 ms) through ``encode_chunk`` then ``decode_chunk``, four kernel-1
+   launches a chunk, against the CPU path's stream on two rows, with the
+   median and p90 chunk time and the streaming RTF;
+11. Mimi-24 kHz, 8 codebooks: the batch path as in 9 (no kernel launches),
+   then the first request streamed in one-frame chunks (80 ms) against the
+   card's batch path, with the chunk times.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -59,11 +73,14 @@ import numpy as np
 
 # Published peaks (NVIDIA data sheets): fp32 on CUDA cores and HBM rate.
 _PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
-# main path, ragged, a batch split over several launches, SpeechTokenizer's
-# decoder width (the kernel's widest) and one step (lstm_cell_step)
+# main path, ragged, a batch split over several launches, the kernel's
+# widest H, one step (lstm_cell_step); SpeechTokenizer's 10 s LSTMs at B = 8
+# and B = 1, and one 80 ms chunk of EnCodec streaming
 LSTM_SHAPES = [(750, 8, 512), (257, 3, 512), (40, 100, 512), (750, 8, 1024),
-               (1, 8, 512)]
-LSTM_TIMED = [(750, 8, 512), (750, 8, 1024), (1, 8, 512)]
+               (1, 8, 512), (500, 8, 1024), (500, 1, 1024), (6, 8, 512)]
+# each also timed at B = 1
+LSTM_TIMED = [(750, 8, 512), (750, 8, 1024), (1, 8, 512), (500, 8, 1024),
+              (6, 8, 512)]
 RESBLOCK_SHAPES = [(8, 32, 240000), (8, 64, 120000), (8, 128, 30000),
                    (8, 256, 6000)]
 # ragged (T off the 4-sample vectors) and the widest tile
@@ -276,12 +293,16 @@ def phase_lstm(torch, peaks):
         worst = max(worst, entry["max_abs_err"])
         info = lstm_recurrence_info(H, B)
         entry.update(info)
+        entry["bound_ms"], entry["bound_by"] = _lstm_bound(T, B, H, peaks)
+        entry["b1_bound_ms"] = _lstm_bound(T, 1, H, peaks)[0]
         log(f"lstm_recurrence T={T} B={B} H={H}: {_lstm_times(entry)}; "
-            f"{json.dumps(info)}")
+            f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']}), at "
+            f"B=1 {entry['b1_bound_ms']:.4f}; {json.dumps(info)}")
         per_shape.append(entry)
     main = per_shape[0]
     row = _lstm_main_row(torch, gen, peaks, main_args, main["ms"],
                          main["b1_ms"])
+    row.update(_lstm_library(torch, gen))
 
     # back to back on one stream, different inputs, the exchange's memory
     # reused: at T = 2 a tag left by the first launch is the one the second
@@ -308,6 +329,86 @@ def phase_lstm(torch, peaks):
     row.update(max_abs_err=worst, per_shape=per_shape, handoff_us=hand,
                latency_floor_ms=T * hand / 1e3)
     return row
+
+
+def _lstm_bound(T, B, H, peaks):
+    """Least time for one layer's recurrence: its products over the fp32
+    peak, or its bytes (gx, w_hh, ys, h0, c0, h_T, c_T once) over HBM."""
+    flops = 2.0 * T * B * H * 4 * H
+    nbytes = 4.0 * (T * B * 4 * H + H * 4 * H + T * B * H + 4 * B * H)
+    return bound(flops, nbytes, peaks)
+
+
+def _lstm_library(torch, gen) -> dict:
+    """``nn.LSTM`` (cuDNN, TF32 off) beside the port at the slice's shapes:
+    one bidirectional layer of SpeechTokenizer's encoder (T=500, B=8,
+    H=1024) against the port's (two input projections, two flips, two
+    kernel launches), and one 80 ms chunk of EnCodec streaming (T=6, B=8,
+    H=512) against one kernel call and the port's layer."""
+    from audiocodecs_tpu_torch.nn.layers import exact_fp32
+    from audiocodecs_tpu_torch.nn.lstm import _layer, bilstm, init_lstm_params
+    from audiocodecs_tpu_torch.ops.lstm_recurrence import lstm_recurrence
+
+    def cuda_params(cin, H):
+        p = init_lstm_params(gen, 1, cin, H)[0]
+        p["b"] = (torch.rand(4 * H, generator=gen) * 2 - 1) / math.sqrt(H)
+        return {k: v.to("cuda") for k, v in p.items()}
+
+    def load(ref, p, suffix):
+        for name, t in (("weight_ih", p["w_ih"].T), ("weight_hh", p["w_hh"].T),
+                        ("bias_ih", p["b"])):
+            getattr(ref, f"{name}_l0{suffix}").copy_(t)
+        getattr(ref, f"bias_hh_l0{suffix}").zero_()
+
+    out = {}
+    T, B, H = 500, 8, 1024
+    layer = {"fwd": cuda_params(H, H), "bwd": cuda_params(H, H)}
+    # as SEANet hands it over: a [B, C, T] tensor seen as [B, T, C]
+    x = (torch.randn(B, H, T, generator=gen) * 0.5).to("cuda").transpose(1, 2)
+    xc = x.contiguous()
+    ref = torch.nn.LSTM(H, H, 1, batch_first=True, bidirectional=True).to(
+        "cuda")
+    with torch.inference_mode(), exact_fp32():
+        load(ref, layer["fwd"], "")
+        load(ref, layer["bwd"], "_reverse")
+        port_ms = cuda_ms(torch, lambda: bilstm(x, [layer]), reps=5)
+        # a contiguous [B, T, C] input takes another GEMM path
+        port_contig_ms = cuda_ms(torch, lambda: bilstm(xc, [layer]), reps=5)
+        lib_ms = cuda_ms(torch, lambda: ref(x), reps=5)
+        err = float((ref(x)[0] - bilstm(x, [layer])).abs().max())
+    log(f"bilstm layer T={T} B={B} H={H}: port_ms={port_ms:.4f} "
+        f"(contiguous [B, T, C] input {port_contig_ms:.4f}) "
+        f"library_ms(nn.LSTM bidirectional)={lib_ms:.4f} "
+        f"library_vs_port_max_abs={err:.3e}")
+    with torch.inference_mode():
+        phase_profile(torch, lambda: bilstm(x, [layer]), port_ms,
+                      "bilstm layer", top=6)
+        phase_profile(torch, lambda: bilstm(xc, [layer]), port_contig_ms,
+                      "bilstm layer, contiguous input", top=3)
+    out["bilstm_layer"] = {"T": T, "B": B, "H": H, "port_ms": port_ms,
+                           "port_contiguous_input_ms": port_contig_ms,
+                           "library_ms": lib_ms, "library_vs_port": err}
+
+    T, B, H = 6, 8, 512
+    p = cuda_params(H, H)
+    x = (torch.randn(B, T, H, generator=gen) * 0.5).to("cuda")
+    h0 = c0 = torch.zeros(B, H, device="cuda")
+    ref = torch.nn.LSTM(H, H, 1, batch_first=True).to("cuda")
+    with torch.inference_mode(), exact_fp32():
+        load(ref, p, "")
+        gx = (torch.matmul(x.transpose(0, 1), p["w_ih"]) + p["b"]).contiguous()
+        call_ms = cuda_ms(
+            torch, lambda: lstm_recurrence(gx, p["w_hh"], h0, c0))
+        layer_ms = cuda_ms(torch, lambda: _layer(x, p))
+        lib_ms = cuda_ms(torch, lambda: ref(x))
+        err = float((ref(x)[0] - _layer(x, p)[0]).abs().max())
+    log(f"lstm stream chunk T={T} B={B} H={H}: kernel_call_ms={call_ms:.4f} "
+        f"port_layer_ms={layer_ms:.4f} library_ms(nn.LSTM)={lib_ms:.4f} "
+        f"library_vs_port_max_abs={err:.3e}")
+    out["stream_chunk"] = {"T": T, "B": B, "H": H, "kernel_call_ms": call_ms,
+                           "port_layer_ms": layer_ms, "library_ms": lib_ms,
+                           "library_vs_port": err}
+    return out
 
 
 def _lstm_main_row(torch, gen, peaks, args, ms, ms1):
@@ -339,9 +440,7 @@ def _lstm_main_row(torch, gen, peaks, args, ms, ms1):
         lib_err = float((ref(x, (h0[None], c0[None]))[0]
                          - _layer(x.transpose(0, 1), p, h0, c0)[0]
                          .transpose(0, 1)).abs().max())
-    flops = 2.0 * T * B * H * 4 * H
-    nbytes = 4.0 * (T * B * 4 * H + H * 4 * H + T * B * H + 4 * B * H)
-    b_ms, b_by = bound(flops, nbytes, peaks)
+    b_ms, b_by = _lstm_bound(T, B, H, peaks)
     log(f"lstm_recurrence T={T} B={B} H={H}: kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} port_layer_ms={layer_ms:.4f} "
         f"library_ms(nn.LSTM)={lib_ms:.4f} library_vs_port_max_abs="
@@ -720,7 +819,7 @@ def phase_main_path(torch, rows):
         f"rtf_per_stream={per_stream:.3f} rtf_aggregate={per_stream * B:.3f};"
         f" peak_mem_bytes={peak}")
     log(f"stages: {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
-    phase_profile(torch, codec, sig_dev, rt_ms)
+    phase_profile(torch, lambda: codec.roundtrip(sig_dev), rt_ms)
 
 
 def phase_dac_path(torch, rows):
@@ -845,15 +944,297 @@ def phase_dac_path(torch, rows):
         f"peak_mem_bytes={peak}")
     log(f"DAC stages: "
         f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}")
-    phase_profile(torch, codec, sig_dev, rt_ms)
+    phase_profile(torch, lambda: codec.roundtrip(sig_dev), rt_ms)
+
+
+def _add_launches(rows, path: str, counts: dict) -> None:
+    for row in rows:
+        row.setdefault("launches_by_path", {})[path] = counts[row["name"]]
+        row["launches"] += counts[row["name"]]
+
+
+def _parity(label, codec, cpu, sig, toks, y, n_rows=None):
+    """The card's features, tokens and decode of ``sig`` (its first
+    ``n_rows`` rows) against the CPU path on the same weights: features
+    within 1e-4 · max|feats|, token_match ≥ 0.999, the decode of the same
+    tokens within 1e-4 · max|sig|."""
+    rows = slice(0, n_rows)
+    t0 = time.perf_counter()
+    f_gpu = codec.sig_to_feats(sig)[rows].cpu()
+    sig = np.ascontiguousarray(sig[rows])
+    f_cpu = cpu.sig_to_feats(sig)
+    t_cpu = cpu.sig_to_toks(sig)
+    toks, y = toks[rows].cpu(), y[rows].cpu()
+    y_cpu = cpu.toks_to_sig(toks)
+    cpu_s = time.perf_counter() - t0
+    f_err = float((f_gpu - f_cpu).abs().max())
+    f_lim = 1e-4 * float(f_cpu.abs().max())
+    mism = int((toks != t_cpu).sum())
+    match = 1.0 - mism / t_cpu.numel()
+    y_err = float((y - y_cpu).abs().max())
+    y_lim = 1e-4 * float(y_cpu.abs().max())
+    log(f"{label} {sig.shape}: feats max_abs_diff={f_err:.3e} (limit "
+        f"{f_lim:.3e}); token_match={match:.6f} ({mism} of {t_cpu.numel()} "
+        f"differ); decode max_abs_diff={y_err:.3e} (limit {y_lim:.3e}); "
+        f"cpu_seconds={cpu_s:.1f}")
+    if not f_err <= f_lim:
+        fail(f"{label}: features disagree with the CPU path")
+    if not match >= 0.999:
+        fail(f"{label}: token_match {match} < 0.999")
+    if not y_err <= y_lim:
+        fail(f"{label}: decoded waveform disagrees with the CPU path")
+
+
+def _batch_path(torch, rows, path, codec, cpu, requests, per_roundtrip,
+                shapes, quant):
+    """A codec as a small server: the requests through ``sig_to_toks`` →
+    ``toks_to_sig`` with every kernel's launches counted (``per_roundtrip``
+    each), the shapes (``shapes(sig_shape)`` → (toks, sig)) and finite
+    output checked, parity against the CPU path on the last request and on
+    two rows of the first, then the warm roundtrip of the first request
+    timed: ms, RTF per stream and in aggregate, peak memory, stages
+    (``quant`` = (tokens of features, features of tokens, waveform of
+    features)) and the device time by kernel."""
+    reset_counts()
+    answers = []
+    for sig in requests:
+        toks = codec.sig_to_toks(sig)
+        answers.append((toks, codec.toks_to_sig(toks)))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n = len(requests)
+    log(f"{path} launches over {n} roundtrips: {json.dumps(counts)}")
+    want = {k: v * n for k, v in per_roundtrip.items()}
+    if counts != want:
+        fail(f"{path}: expected launches {want}, got {counts}")
+    _add_launches(rows, path, counts)
+    for sig, (toks, y) in zip(requests, answers):
+        ts, ys = shapes(sig.shape)
+        if tuple(toks.shape) != ts or tuple(y.shape) != ys:
+            fail(f"{path} shapes: toks {tuple(toks.shape)}, sig "
+                 f"{tuple(y.shape)} for input {sig.shape}; want {ts}, {ys}")
+        if not bool(torch.isfinite(y).all()):
+            fail(f"{path}: non-finite waveform")
+    _parity(f"{path} request {n - 1}", codec, cpu, requests[-1],
+            *answers[-1])
+    _parity(f"{path} request 0, rows 0-1", codec, cpu, requests[0],
+            *answers[0], n_rows=2)
+
+    sig = requests[0]
+    B, seconds = sig.shape[0], sig.shape[1] / codec.sample_rate
+    sig_dev = torch.as_tensor(sig, device="cuda")
+    rt_ms = cuda_ms(torch, lambda: codec.roundtrip(sig_dev), reps=5)
+    to_toks, to_q, to_sig = quant
+    with torch.inference_mode():
+        feats = codec._sig_to_feats(sig_dev, None)
+        toks = to_toks(feats)
+        q = to_q(toks)
+        stages = {
+            "encoder_ms": cuda_ms(
+                torch, lambda: codec._sig_to_feats(sig_dev, None), reps=5),
+            "rvq_encode_ms": cuda_ms(torch, lambda: to_toks(feats), reps=5),
+            "rvq_decode_ms": cuda_ms(torch, lambda: to_q(toks), reps=5),
+            "decoder_ms": cuda_ms(torch, lambda: to_sig(q), reps=5),
+        }
+    torch.cuda.reset_peak_memory_stats()
+    codec.roundtrip(sig_dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    per_stream = seconds / (rt_ms / 1e3)
+    log(f"{path} roundtrip B={B} x {seconds} s: {rt_ms:.3f} ms warm; "
+        f"rtf_per_stream={per_stream:.3f} rtf_aggregate={per_stream * B:.3f};"
+        f" peak_mem_bytes={peak}")
+    log(f"{path} stages: "
+        f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+    phase_profile(torch, lambda: codec.roundtrip(sig_dev), rt_ms)
+
+
+def phase_speechtokenizer(torch, rows):
+    from audiocodecs_tpu_torch.models.speechtokenizer import SpeechTokenizer
+    from audiocodecs_tpu_torch.quant.rvq import rvq_decode, rvq_encode
+
+    sr, K, hop = 16000, 8, 320
+    codec = SpeechTokenizer(sr, sr, num_codebooks=K, device="cuda",
+                            generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
+    cpu = SpeechTokenizer(sr, sr, num_codebooks=K, device="cpu",
+                          state_dict=state)
+    rng = np.random.default_rng(5)
+    requests = [rng.standard_normal((8, 10 * sr)).astype(np.float32) * 0.1,
+                rng.standard_normal((8, 10 * sr)).astype(np.float32) * 0.1,
+                rng.standard_normal((1, 80001)).astype(np.float32) * 0.1]
+
+    def shapes(shape):
+        N = math.ceil(shape[1] / hop)
+        return (shape[0], N, K), (shape[0], N * hop)
+
+    # 2 encoder BiLSTM layers x 2 directions + 2 decoder LSTM layers
+    _batch_path(torch, rows, "speechtokenizer_16k", codec, cpu, requests,
+                {"lstm_recurrence": 6, "seanet_resblock": 0,
+                 "seanet_resblock_packed": 0, "dac_resunit": 0}, shapes,
+                (lambda f: rvq_encode(f, codec.codebooks, K),
+                 lambda t: rvq_decode(t, codec.codebooks),
+                 lambda q: codec._feats_to_sig(q, None)))
+
+
+def _stream(torch, codec, sig, frames: int, toks_in=None):
+    """``sig`` [B, T] through ``encode_chunk`` then ``decode_chunk`` in
+    chunks of ``frames`` token frames (the decoder takes ``toks_in``'s
+    chunk if given, else the encoder's), synced after each chunk on the
+    card → (tokens, waveform, ms a chunk by the host's clock)."""
+    step = codec.frame_size * frames
+    enc = codec.init_streaming_state(sig.shape[0])
+    dec = codec.init_streaming_state(sig.shape[0])
+    on_card = codec.device.type == "cuda"
+    toks, wav, ms = [], [], []
+    for i, pos in enumerate(range(0, sig.shape[1], step)):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t, enc = codec.encode_chunk(sig[:, pos:pos + step], enc)
+        w, dec = codec.decode_chunk(
+            t if toks_in is None else toks_in[:, i * frames:(i + 1) * frames],
+            dec)
+        if on_card:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(t)
+        wav.append(w)
+    return torch.cat(toks, 1), torch.cat(wav, 1), ms
+
+
+def _stream_times(torch, path, codec, sig_dev, frames, seconds):
+    """A second, warm pass of the stream: median and p90 ms a chunk
+    (encode + decode, synced each chunk) and the RTF a stream; then the
+    device time by kernel over the first 10 chunks of a third pass."""
+    _, _, ms = _stream(torch, codec, sig_dev, frames)
+    srt = sorted(ms)
+    p90 = srt[min(len(srt) - 1, math.ceil(0.9 * len(srt)) - 1)]
+    chunk_s = codec.frame_size * frames / codec.sample_rate
+    log(f"{path} stream B={sig_dev.shape[0]} x {seconds} s in {len(ms)} "
+        f"chunks of {chunk_s * 1e3:.0f} ms: chunk_ms median="
+        f"{statistics.median(ms):.3f} p90={p90:.3f} max={srt[-1]:.3f}; "
+        f"rtf_per_stream={seconds / (sum(ms) / 1e3):.3f}")
+    n = codec.frame_size * frames * 10
+    phase_profile(torch,
+                  lambda: _stream(torch, codec, sig_dev[:, :n], frames),
+                  statistics.median(ms) * 10, "10 chunks (10 x median)",
+                  top=8)
+
+
+def phase_encodec_stream(torch, rows):
+    from audiocodecs_tpu_torch.models.encodec import Encodec
+
+    sr, K, frames, seconds = 24000, 8, 6, 10.0
+    codec = Encodec(sr, sr, num_codebooks=K, device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
+    cpu = Encodec(sr, sr, num_codebooks=K, device="cpu", state_dict=state)
+    sig = np.random.default_rng(6).standard_normal(
+        (8, int(sr * seconds))).astype(np.float32) * 0.1
+    sig_dev = torch.as_tensor(sig, device="cuda")
+    n_chunks = sig.shape[1] // (codec.frame_size * frames)
+
+    path = "encodec_24k_stream"
+    reset_counts()
+    toks, wav, _ = _stream(torch, codec, sig_dev, frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"{path} launches over {n_chunks} chunks: {json.dumps(counts)}")
+    # 2 encoder + 2 decoder LSTM layers, one launch each a chunk
+    want = {"lstm_recurrence": 4 * n_chunks, "seanet_resblock": 0,
+            "seanet_resblock_packed": 0, "dac_resunit": 0}
+    if counts != want:
+        fail(f"{path}: expected launches {want}, got {counts}")
+    _add_launches(rows, path, counts)
+    if tuple(toks.shape) != (sig.shape[0], sig.shape[1] // codec.frame_size,
+                             K) or tuple(wav.shape) != sig.shape:
+        fail(f"{path} shapes: toks {tuple(toks.shape)}, sig "
+             f"{tuple(wav.shape)}")
+    if not bool(torch.isfinite(wav).all()):
+        fail(f"{path}: non-finite waveform")
+
+    # the CPU path's stream on two rows, its decoder fed the card's tokens
+    t0 = time.perf_counter()
+    t_cpu, y_cpu, _ = _stream(torch, cpu, np.ascontiguousarray(sig[:2]),
+                              frames, toks_in=toks[:2].cpu())
+    mism = int((toks[:2].cpu() != t_cpu).sum())
+    match = 1.0 - mism / t_cpu.numel()
+    y_err = float((wav[:2].cpu() - y_cpu).abs().max())
+    y_lim = 1e-4 * float(y_cpu.abs().max())
+    log(f"{path} rows 0-1 against the CPU stream: token_match={match:.6f} "
+        f"({mism} of {t_cpu.numel()} differ); decode max_abs_diff="
+        f"{y_err:.3e} (limit {y_lim:.3e}); cpu_seconds="
+        f"{time.perf_counter() - t0:.1f}")
+    if not match >= 0.999:
+        fail(f"{path}: token_match {match} < 0.999")
+    if not y_err <= y_lim:
+        fail(f"{path}: decoded waveform disagrees with the CPU path")
+    _stream_times(torch, path, codec, sig_dev, frames, seconds)
+
+
+def phase_mimi(torch, rows):
+    from audiocodecs_tpu_torch.models.mimi import Mimi
+
+    sr, K, seconds = 24000, 8, 10.0
+    codec = Mimi(sr, sr, num_codebooks=K, device="cuda",
+                 generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
+    cpu = Mimi(sr, sr, num_codebooks=K, device="cpu", state_dict=state)
+    rng = np.random.default_rng(7)
+    T = int(sr * seconds)
+    requests = [rng.standard_normal((8, T)).astype(np.float32) * 0.1,
+                rng.standard_normal((8, T)).astype(np.float32) * 0.1,
+                rng.standard_normal((1, 79201)).astype(np.float32) * 0.1]
+    hop, stride = 960, codec.model_config.downsample_stride
+
+    def shapes(shape):
+        N = math.ceil(math.ceil(shape[1] / hop) / stride)
+        return (shape[0], N, K), (shape[0], N * hop * stride)
+
+    path = "mimi_24k"
+    none = {"lstm_recurrence": 0, "seanet_resblock": 0,
+            "seanet_resblock_packed": 0, "dac_resunit": 0}
+    _batch_path(torch, rows, path, codec, cpu, requests, none, shapes,
+                (codec._encode, codec._decode, codec._decode_tower))
+
+    # streaming, one 80 ms frame a chunk, against the card's batch path
+    sig_dev = torch.as_tensor(requests[0], device="cuda")
+    reset_counts()
+    toks, wav, _ = _stream(torch, codec, sig_dev, 1)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"{path} stream launches: {json.dumps(counts)}")
+    if counts != none:
+        fail(f"{path} stream: expected no launches, got {counts}")
+    batch = codec.sig_to_toks(sig_dev)
+    if tuple(toks.shape) != tuple(batch.shape) or tuple(wav.shape) != (
+            8, T):
+        fail(f"{path} stream shapes: toks {tuple(toks.shape)}, sig "
+             f"{tuple(wav.shape)}")
+    mism = int((toks != batch).sum())
+    match = 1.0 - mism / batch.numel()
+    y_batch = codec.toks_to_sig(toks)
+    y_err = float((wav - y_batch).abs().max())
+    y_lim = 1e-4 * float(y_batch.abs().max())
+    log(f"{path} stream against batch on the card: token_match={match:.6f} "
+        f"({mism} of {batch.numel()} differ); waveform max_abs_diff="
+        f"{y_err:.3e} (limit {y_lim:.3e})")
+    if not match >= 0.999:
+        fail(f"{path} stream: token_match {match} < 0.999")
+    if not y_err <= y_lim:
+        fail(f"{path} stream: waveform disagrees with batch decode")
+    _stream_times(torch, path, codec, sig_dev, 1, seconds)
 
 
 _KERNEL_GROUPS = (("lstm_recurrence", "lstm_recurrence_kernel"),
                   ("seanet_resblock", "seanet_resblock_kernel"),
                   ("dac_resunit", "dac_resunit_kernel"),
                   ("conv (cuDNN)", "cudnn"), ("conv (cuDNN)", "conv"),
-                  ("conv (cuDNN)", "xmma"), ("matmul (cuBLAS)", "gemm"),
-                  ("elementwise", "elementwise"), ("reduce", "reduce"))
+                  ("matmul (cuBLAS)", "xmma_gemm"), ("conv (cuDNN)", "xmma"),
+                  ("matmul (cuBLAS)", "gemm"), ("padding", "pad1d"),
+                  ("softmax", "softmax"), ("elementwise", "elementwise"),
+                  ("reduce", "reduce"))
 
 
 def _device_us(evt) -> float:
@@ -862,14 +1243,15 @@ def _device_us(evt) -> float:
     return evt.cuda_time_total if us is None else us
 
 
-def phase_profile(torch, codec, sig_dev, rt_ms):
-    """Device time of one warm roundtrip by kernel (torch.profiler)."""
+def phase_profile(torch, fn, wall_ms, what="roundtrip", top=12):
+    """Device time of one run of ``fn`` by kernel (torch.profiler), beside
+    its wall time ``wall_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        codec.roundtrip(sig_dev)
+        fn()
         torch.cuda.synchronize()
     kernels = []
     for evt in prof.key_averages():
@@ -885,11 +1267,11 @@ def phase_profile(torch, codec, sig_dev, rt_ms):
         g = next((g for g, pat in _KERNEL_GROUPS if pat in key.lower()),
                  "other")
         groups[g] = groups.get(g, 0.0) + ms
-    log(f"profile: device busy {busy:.3f} ms of a {rt_ms:.3f} ms roundtrip "
-        f"(idle share {max(0.0, 1 - busy / rt_ms):.3f}); by group (ms): "
+    log(f"profile: device busy {busy:.3f} ms of a {wall_ms:.3f} ms {what} "
+        f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}); by group (ms): "
         + json.dumps({g: round(v, 3) for g, v in
                       sorted(groups.items(), key=lambda kv: -kv[1])}))
-    for ms, count, key in sorted(kernels, reverse=True)[:12]:
+    for ms, count, key in sorted(kernels, reverse=True)[:top]:
         log(f"  {ms:9.3f} ms  x{count:<4d} {key[:100]}")
 
 
@@ -910,6 +1292,9 @@ def main() -> None:
             phase_packed(torch, peaks), phase_dac_resunit(torch, peaks)]
     phase_main_path(torch, rows)
     phase_dac_path(torch, rows)
+    phase_speechtokenizer(torch, rows)
+    phase_encodec_stream(torch, rows)
+    phase_mimi(torch, rows)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))
     log(f"card: {card}")

@@ -17,8 +17,18 @@ import torch
 
 from audiocodecs_tpu_torch.models.dac import DAC, DACModelConfig
 from audiocodecs_tpu_torch.models.encodec import Encodec, EncodecModelConfig
+from audiocodecs_tpu_torch.models.mimi import Mimi, MimiModelConfig
+from audiocodecs_tpu_torch.models.speechtokenizer import (
+    SpeechTokenizer,
+    SpeechTokenizerModelConfig,
+)
 from audiocodecs_tpu_torch.nn.layers import exact_fp32, pad1d
-from audiocodecs_tpu_torch.nn.lstm import init_lstm_params, lstm
+from audiocodecs_tpu_torch.nn.lstm import (
+    bilstm,
+    init_bilstm_params,
+    init_lstm_params,
+    lstm,
+)
 from audiocodecs_tpu_torch.ops.lstm_recurrence import (
     handoff_us,
     lstm_recurrence,
@@ -388,3 +398,128 @@ def test_dac_fused_units_pack_once_across_decodes(dev):
     torch.cuda.synchronize()
     assert packs == [6, 0]
     assert launches == [6, 6]
+
+
+def _launches():
+    return (lstm_recurrence.launches, seanet_resblock.launches,
+            seanet_resblock_packed.launches, dac_resunit.launches)
+
+
+def _delta(before):
+    return tuple(a - b for a, b in zip(_launches(), before))
+
+
+def _decode_close(got, want):
+    return float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+def test_bilstm_at_h1024_matches_cpu(dev):
+    """SpeechTokenizer's encoder BiLSTM width: two layers (the second reads
+    2H = 2048), four recurrence launches, against the same weights on the
+    CPU's plain loop."""
+    params = init_bilstm_params(torch.Generator().manual_seed(0), 2, 1024,
+                                1024)
+    x = torch.randn(2, 50, 1024, generator=torch.Generator().manual_seed(1))
+    gpu = [{d: {k: v.to(dev) for k, v in p[d].items()} for d in p}
+           for p in params]
+    before = _launches()
+    with torch.inference_mode():
+        got = bilstm(x.to(dev), gpu)
+        want = bilstm(x, params)
+    torch.cuda.synchronize()
+    assert _delta(before) == (4, 0, 0, 0)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+def test_small_speechtokenizer_launches_and_matches_cpu(dev):
+    """Encoder BiLSTM (4 launches) and decoder LSTM (2) at H = 32; the
+    non-causal blocks run cuDNN, not the fused block kernel."""
+    mc = SpeechTokenizerModelConfig(num_filters=8, hidden_size=32,
+                                    upsampling_ratios=(4, 2), codebook_size=32,
+                                    codebook_dim=32, num_quantizers=4)
+    gpu = SpeechTokenizer(16000, num_codebooks=4, model_config=mc, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    cpu = SpeechTokenizer(16000, num_codebooks=4, model_config=mc,
+                          device="cpu", state_dict={
+                              k: v.cpu() for k, v in gpu.state_dict().items()})
+    sig = (np.random.default_rng(1).standard_normal((3, 4001)) * 0.3).astype(
+        np.float32)
+    before = _launches()
+    toks = gpu.sig_to_toks(sig)
+    y = gpu.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    assert _delta(before) == (6, 0, 0, 0)
+    assert (toks.cpu() == cpu.sig_to_toks(sig)).float().mean() >= 0.999
+    assert _decode_close(y, cpu.toks_to_sig(toks.cpu()))
+
+
+_MIMI_SMALL = dict(sampling_rate=512, num_filters=8, hidden_size=32,
+                   upsampling_ratios=(4, 2), num_hidden_layers=2,
+                   num_attention_heads=2, num_key_value_heads=2, head_dim=16,
+                   intermediate_size=64, sliding_window=6, codebook_size=32,
+                   codebook_dim=16, num_quantizers=4, frame_rate=32.0,
+                   encodec_frame_rate=64.0, upsample_groups=32)
+
+
+def test_small_mimi_launches_nothing_and_matches_cpu(dev):
+    mc = MimiModelConfig(**_MIMI_SMALL)
+    gpu = Mimi(512, 512, num_codebooks=4, model_config=mc, device=dev,
+               generator=torch.Generator().manual_seed(0))
+    cpu = Mimi(512, 512, num_codebooks=4, model_config=mc, device="cpu",
+               state_dict={k: v.cpu() for k, v in gpu.state_dict().items()})
+    sig = (np.random.default_rng(1).standard_normal((3, 16 * 40)) * 0.3
+           ).astype(np.float32)
+    before = _launches()
+    toks = gpu.sig_to_toks(sig)
+    y = gpu.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    assert _delta(before) == (0, 0, 0, 0)
+    assert (toks.cpu() == cpu.sig_to_toks(sig)).float().mean() >= 0.999
+    assert _decode_close(y, cpu.toks_to_sig(toks.cpu()))
+
+
+def _stream(codec, sig, plan):
+    frame = codec.frame_size
+    enc = codec.init_streaming_state(sig.shape[0])
+    dec = codec.init_streaming_state(sig.shape[0])
+    toks, wav, pos = [], [], 0
+    for m in plan:
+        t, enc = codec.encode_chunk(sig[:, pos * frame:(pos + m) * frame], enc)
+        w, dec = codec.decode_chunk(t, dec)
+        toks.append(t)
+        wav.append(w)
+        pos += m
+    return torch.cat(toks, 1), torch.cat(wav, 1)
+
+
+@pytest.mark.parametrize("family", ["encodec", "mimi"])
+def test_chunked_equals_batch_on_the_card(dev, family):
+    """Zero-padded causal stacks: chunk by chunk on the card against one
+    batch call on the card. EnCodec's LSTMs (H = 32) launch the recurrence
+    kernel at T = chunk frames, 4 launches a chunk; Mimi launches none."""
+    if family == "encodec":
+        codec = Encodec(800, 800, num_codebooks=4, device=dev,
+                        generator=torch.Generator().manual_seed(1),
+                        model_config=EncodecModelConfig(
+                            sampling_rate=800, num_filters=8, hidden_size=16,
+                            upsampling_ratios=(4, 2), codebook_size=32,
+                            codebook_dim=16, num_quantizers=4,
+                            pad_mode="constant"))
+        per_chunk = (4, 0, 0, 0)
+    else:
+        codec = Mimi(512, 512, num_codebooks=4, device=dev,
+                     model_config=MimiModelConfig(**_MIMI_SMALL),
+                     generator=torch.Generator().manual_seed(3))
+        per_chunk = (0, 0, 0, 0)
+    plan = [1, 3, 2, 2, 4]
+    sig = (np.random.default_rng(4).standard_normal(
+        (2, codec.frame_size * sum(plan))) * 0.3).astype(np.float32)
+    before = _launches()
+    toks, wav = _stream(codec, sig, plan)
+    torch.cuda.synchronize()
+    assert _delta(before) == tuple(n * len(plan) for n in per_chunk)
+    batch = codec.sig_to_toks(sig)
+    assert (toks == batch).float().mean() >= 0.999
+    want = codec.toks_to_sig(toks).cpu()
+    assert _decode_close(wav, want)

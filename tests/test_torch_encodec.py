@@ -199,9 +199,6 @@ def test_unported_paths_refuse():
         Encodec(48000, 48000, device="cpu", model_config=EncodecModelConfig(
             sampling_rate=48000, chunk_length_s=1.0, overlap=0.01,
             normalize=True, **SMALL))
-    _, tc = _pair(seed=6)
-    with pytest.raises(NotImplementedError):
-        tc.encode_chunk(np.zeros((1, 8), np.float32), None)
 
 
 def test_full_width_features_and_tokens(rng):

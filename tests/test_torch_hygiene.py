@@ -35,6 +35,10 @@ def test_module_list_covers_the_slice():
     mods = _port_modules()
     for m in ("audiocodecs_tpu_torch.models.encodec",
               "audiocodecs_tpu_torch.models.dac",
+              "audiocodecs_tpu_torch.models.mimi",
+              "audiocodecs_tpu_torch.models.speechtokenizer",
+              "audiocodecs_tpu_torch.nn.streaming",
+              "audiocodecs_tpu_torch.nn.transformer",
               "audiocodecs_tpu_torch.ops.dac_resunit",
               "audiocodecs_tpu_torch.ops.lstm_recurrence",
               "audiocodecs_tpu_torch.ops.seanet_resblock",
@@ -49,6 +53,7 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
         "import importlib, json, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
         "import audiocodecs_tpu_torch as p; p.Encodec; p.DAC; p.CodecConfig\n"
+        "p.Mimi; p.SpeechTokenizer\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = {"PATH": os.environ.get("PATH", ""), "PYTHONPATH": str(REPO),
            "HOME": os.environ.get("HOME", str(REPO)),
@@ -60,6 +65,7 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "audiocodecs_tpu_torch.models.encodec" in loaded
     assert "audiocodecs_tpu_torch.models.dac" in loaded
+    assert "audiocodecs_tpu_torch.models.mimi" in loaded
     assert not [m for m in loaded if _is_reference(m)]
 
 
@@ -84,12 +90,18 @@ def test_default_device_is_the_card(monkeypatch):
     from audiocodecs_tpu_torch.codec import resolve_device
     from audiocodecs_tpu_torch.models.dac import DAC
     from audiocodecs_tpu_torch.models.encodec import Encodec
+    from audiocodecs_tpu_torch.models.mimi import Mimi
+    from audiocodecs_tpu_torch.models.speechtokenizer import SpeechTokenizer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Encodec(24000)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DAC(44100, 44100)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SpeechTokenizer(16000)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Mimi(24000)
     with pytest.raises(RuntimeError):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
