@@ -10,8 +10,10 @@ Importing the package is light: the codec classes load on first access.
 """
 
 __all__ = ["Codec", "CodecConfig", "DAC", "DACModelConfig", "Encodec",
-           "EncodecModelConfig", "Mimi", "MimiModelConfig", "SpeechTokenizer",
-           "SpeechTokenizerModelConfig"]
+           "EncodecModelConfig", "Mimi", "MimiModelConfig", "PAST",
+           "SEANetRVQCodec", "SEANetRVQConfig", "SpeechTokenizer",
+           "SpeechTokenizerModelConfig", "WavTokenizer",
+           "WavTokenizerModelConfig"]
 
 _LAZY = {
     "Codec": "audiocodecs_tpu_torch.codec",
@@ -22,8 +24,13 @@ _LAZY = {
     "EncodecModelConfig": "audiocodecs_tpu_torch.models.encodec",
     "Mimi": "audiocodecs_tpu_torch.models.mimi",
     "MimiModelConfig": "audiocodecs_tpu_torch.models.mimi",
+    "PAST": "audiocodecs_tpu_torch.models.past",
+    "SEANetRVQCodec": "audiocodecs_tpu_torch.models.seanet_rvq",
+    "SEANetRVQConfig": "audiocodecs_tpu_torch.models.seanet_rvq",
     "SpeechTokenizer": "audiocodecs_tpu_torch.models.speechtokenizer",
     "SpeechTokenizerModelConfig": "audiocodecs_tpu_torch.models.speechtokenizer",
+    "WavTokenizer": "audiocodecs_tpu_torch.models.wavtokenizer",
+    "WavTokenizerModelConfig": "audiocodecs_tpu_torch.models.wavtokenizer",
 }
 
 

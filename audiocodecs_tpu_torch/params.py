@@ -7,7 +7,12 @@ Nothing here imports JAX: the tree is plain dicts, lists and arrays.
 
 Layouts (reference → port):
 
-* conv ``w [K, Cin, Cout]`` → ``[Cout, Cin, K]``;
+* conv ``w [K, Cin, Cout]`` → ``[Cout, Cin, K]``, for every
+  :class:`~audiocodecs_tpu_torch.nn.layers.Conv1d`: the SEANet stacks, the
+  Vocos head's embed ``[7, Cin, dim]`` → ``[dim, Cin, 7]`` and depthwise
+  ``dwconv`` ``[7, 1, dim]`` → ``[dim, 1, 7]`` (groups = dim), and the
+  SEANet-RVQ projectors ``in_proj`` ``[1, H, D]`` → ``[D, H, 1]`` and
+  ``out_proj`` ``[1, D, H]`` → ``[H, D, 1]``;
 * transposed-conv ``w [K, Cin/G, Cout]`` with G groups, stored pre-flipped
   so that it runs as a plain dilated conv → ``[Cin, Cout/G, K]``, PyTorch's
   ``ConvTranspose1d`` layout: flipped in time, and input channel
@@ -17,8 +22,11 @@ Layouts (reference → port):
 * LSTM ``w_ih [Cin, 4H]``, ``w_hh [H, 4H]``, summed ``b [4H]``: unchanged
   (gate order i, f, g, o), in each direction of a bidirectional layer too
   (``<layer>.fwd.w_ih`` …);
-* transformer linears ``w [in, out]`` (the port multiplies ``x @ w`` too),
-  norm gains and biases, LayerScale vectors: unchanged;
+* transformer and Vocos linears ``w [in, out]`` (``pw1``, ``pw2``,
+  ``head``: the port multiplies ``x @ w`` too), norm gains and biases,
+  LayerScale vectors and the Vocos ``gamma``, AdaLN tables ``scale``/
+  ``shift [n, dim]`` and continuous AdaLN ``scale_w``/``shift_w
+  [cond_dim, dim]`` with their biases: unchanged;
 * codebooks ``[K, C, H]``, quantizer projections and biases: unchanged.
 """
 

@@ -13,14 +13,16 @@ it fails:
 3. kernel 1, the LSTM recurrence, against its plain version at the main
    path's shape (T=750, B=8, H=512), a ragged one, a batch split over
    several launches, H=1024, one step (T=1), SpeechTokenizer's 10 s LSTMs
-   (T=500, H=1024, B=8 and 1) and one EnCodec streaming chunk (T=6, B=8),
-   and two pairs of launches back to back; timings at B=8 and B=1 (per
-   step) at the main shape, H=1024, T=1, T=500 and T=6 (``time_lstm``: a
-   call, the kernel's own device time, and at T=1 calls queued back to
-   back) with each one's bound, the kernel's registers, spill and shared
-   bytes; ``nn.LSTM`` beside the port's bidirectional layer (T=500, B=8,
-   H=1024) and beside one streaming chunk's call; and one inter-SM
-   hand-off, the latency floor of a step;
+   (T=500, H=1024, B=8 and 1), one EnCodec streaming chunk (T=6, B=8)
+   and EnCodec-48k's layer over 88 windows (T=150, B=88, three launches,
+   and its launch shapes B=32 and 24), and two pairs of launches back to
+   back; timings at B and at B=1 (per step) at the main shape, H=1024,
+   T=1, T=500, T=6 and T=150 (B=32, 24) (``time_lstm``: a call, the
+   kernel's own device time, and at T=1 calls queued back to back) with
+   each one's bound, the kernel's registers, spill and shared bytes;
+   ``nn.LSTM`` beside the port's bidirectional layer (T=500, B=8, H=1024),
+   beside one streaming chunk's call and beside the 48k layer (B=32, 24,
+   88); and one inter-SM hand-off, the latency floor of a step;
 4. kernel 2, the fused SEANet residual block, against its plain version at
    the main path's four (C, T) shapes (B=8), a ragged one and its widest
    tile (C=384), with timings of the kernel on weights packed once (as the
@@ -54,7 +56,19 @@ it fails:
    median and p90 chunk time and the streaming RTF;
 11. Mimi-24 kHz, 8 codebooks: the batch path as in 9 (no kernel launches),
    then the first request streamed in one-frame chunks (80 ms) against the
-   card's batch path, with the chunk times.
+   card's batch path, with the chunk times;
+12. WavTokenizer-24 kHz as in 9 (B = 8 x 10 s): two kernel-1 and four
+   kernel-2 launches a roundtrip (the encoder), the Vocos head (768 wide,
+   12 blocks) on library calls, profiled alone too;
+13. EnCodec-24 kHz with the Vocos head (K = 8, bandwidth id 2) the same
+   way: two kernel-1 and four kernel-2 launches a roundtrip;
+14. EnCodec-48 kHz chunked (1 s windows, 1 % overlap, normalized,
+   non-causal): B = 8 x 10 s is 88 windows, twelve kernel-1 launches a
+   roundtrip (32 rows a launch), no kernel 2; parity on a B = 1 x 2.97 s
+   request (3 windows);
+15. PAST-16 kHz as in 9: four kernel-1 and eight kernel-2 launches a
+   roundtrip, then the first request streamed in 80 ms chunks (4 frames)
+   as in 10.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -75,12 +89,14 @@ import numpy as np
 _PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
 # main path, ragged, a batch split over several launches, the kernel's
 # widest H, one step (lstm_cell_step); SpeechTokenizer's 10 s LSTMs at B = 8
-# and B = 1, and one 80 ms chunk of EnCodec streaming
+# and B = 1, one 80 ms chunk of EnCodec streaming; EnCodec-48k's 88 windows
+# of 150 frames (launches of 32, 32 and 24 rows)
 LSTM_SHAPES = [(750, 8, 512), (257, 3, 512), (40, 100, 512), (750, 8, 1024),
-               (1, 8, 512), (500, 8, 1024), (500, 1, 1024), (6, 8, 512)]
+               (1, 8, 512), (500, 8, 1024), (500, 1, 1024), (6, 8, 512),
+               (150, 32, 512), (150, 24, 512), (150, 88, 512)]
 # each also timed at B = 1
 LSTM_TIMED = [(750, 8, 512), (750, 8, 1024), (1, 8, 512), (500, 8, 1024),
-              (6, 8, 512)]
+              (6, 8, 512), (150, 32, 512), (150, 24, 512)]
 RESBLOCK_SHAPES = [(8, 32, 240000), (8, 64, 120000), (8, 128, 30000),
                    (8, 256, 6000)]
 # ragged (T off the 4-sample vectors) and the widest tile
@@ -340,14 +356,17 @@ def _lstm_bound(T, B, H, peaks):
 
 
 def _lstm_library(torch, gen) -> dict:
-    """``nn.LSTM`` (cuDNN, TF32 off) beside the port at the slice's shapes:
+    """``nn.LSTM`` (cuDNN, TF32 off) beside the port at the slices' shapes:
     one bidirectional layer of SpeechTokenizer's encoder (T=500, B=8,
     H=1024) against the port's (two input projections, two flips, two
-    kernel launches), and one 80 ms chunk of EnCodec streaming (T=6, B=8,
-    H=512) against one kernel call and the port's layer."""
+    kernel launches); one 80 ms chunk of EnCodec streaming (T=6, B=8,
+    H=512) and EnCodec-48k's layer (T=150, H=512, B=88 and the 32 and 24
+    rows of its launches) against the kernel call, its plain version and
+    the port's layer."""
     from audiocodecs_tpu_torch.nn.layers import exact_fp32
     from audiocodecs_tpu_torch.nn.lstm import _layer, bilstm, init_lstm_params
-    from audiocodecs_tpu_torch.ops.lstm_recurrence import lstm_recurrence
+    from audiocodecs_tpu_torch.ops.lstm_recurrence import (
+        lstm_recurrence, lstm_recurrence_reference)
 
     def cuda_params(cin, H):
         p = init_lstm_params(gen, 1, cin, H)[0]
@@ -408,6 +427,35 @@ def _lstm_library(torch, gen) -> dict:
     out["stream_chunk"] = {"T": T, "B": B, "H": H, "kernel_call_ms": call_ms,
                            "port_layer_ms": layer_ms, "library_ms": lib_ms,
                            "library_vs_port": err}
+
+    # EnCodec-48k's LSTM layer over 88 windows of 150 frames, and its two
+    # launch shapes (the wrapper runs 88 rows as 32 + 32 + 24)
+    T, H = 150, 512
+    p = cuda_params(H, H)
+    ref = torch.nn.LSTM(H, H, 1, batch_first=True).to("cuda")
+    out["chunked_48k"] = []
+    with torch.inference_mode(), exact_fp32():
+        load(ref, p, "")
+        for B in (32, 24, 88):
+            x = (torch.randn(B, T, H, generator=gen) * 0.5).to("cuda")
+            h0 = c0 = torch.zeros(B, H, device="cuda")
+            gx = (torch.matmul(x.transpose(0, 1), p["w_ih"])
+                  + p["b"]).contiguous()
+            call_ms = cuda_ms(
+                torch, lambda: lstm_recurrence(gx, p["w_hh"], h0, c0))
+            plain_ms = cuda_ms(torch, lambda: lstm_recurrence_reference(
+                gx, p["w_hh"], h0, c0), reps=3)
+            layer_ms = cuda_ms(torch, lambda: _layer(x, p))
+            lib_ms = cuda_ms(torch, lambda: ref(x))
+            err = float((ref(x)[0] - _layer(x, p)[0]).abs().max())
+            log(f"lstm 48k layer T={T} B={B} H={H}: kernel_call_ms="
+                f"{call_ms:.4f} plain_ms={plain_ms:.4f} port_layer_ms="
+                f"{layer_ms:.4f} library_ms(nn.LSTM)={lib_ms:.4f} "
+                f"library_vs_port_max_abs={err:.3e}")
+            out["chunked_48k"].append(
+                {"T": T, "B": B, "H": H, "kernel_call_ms": call_ms,
+                 "plain_ms": plain_ms, "port_layer_ms": layer_ms,
+                 "library_ms": lib_ms, "library_vs_port": err})
     return out
 
 
@@ -715,6 +763,25 @@ def read_counts() -> dict:
     return {name: f.launches for name, f in _counters().items()}
 
 
+def _server_pair(torch, cls, *args, **kwargs):
+    """The codec on the card with seeded random weights, and the same
+    weights on the CPU."""
+    codec = cls(*args, device="cuda",
+                generator=torch.Generator().manual_seed(0), **kwargs)
+    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
+    return codec, cls(*args, device="cpu", state_dict=state, **kwargs)
+
+
+def _noise(rng, shapes):
+    return [rng.standard_normal(shape).astype(np.float32) * 0.1
+            for shape in shapes]
+
+
+def _launch_table(lstm, resblock):
+    return {"lstm_recurrence": lstm, "seanet_resblock": resblock,
+            "seanet_resblock_packed": 0, "dac_resunit": 0}
+
+
 def phase_main_path(torch, rows):
     from audiocodecs_tpu_torch.models.encodec import Encodec
     from audiocodecs_tpu_torch.ops.seanet_resblock import (
@@ -723,14 +790,8 @@ def phase_main_path(torch, rows):
 
     sr, B, seconds = 24000, 8, 10.0
     T = int(sr * seconds)
-    codec = Encodec(sr, sr, num_codebooks=8, device="cuda",
-                    generator=torch.Generator().manual_seed(0))
-    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
-    cpu = Encodec(sr, sr, num_codebooks=8, device="cpu", state_dict=state)
-    rng = np.random.default_rng(0)
-    requests = [rng.standard_normal((B, T)).astype(np.float32) * 0.1,
-                rng.standard_normal((B, T)).astype(np.float32) * 0.1,
-                rng.standard_normal((1, 79201)).astype(np.float32) * 0.1]
+    codec, cpu = _server_pair(torch, Encodec, sr, sr, num_codebooks=8)
+    requests = _noise(np.random.default_rng(0), [(B, T), (B, T), (1, 79201)])
 
     # the counted run: the EnCodec path only
     reset_counts()
@@ -746,16 +807,12 @@ def phase_main_path(torch, rows):
         f"{json.dumps(counts)}; seanet_resblock weight packs per roundtrip: "
         f"{packs}")
     n = len(requests)
-    want = {"lstm_recurrence": 4 * n, "seanet_resblock": 8 * n,
-            "seanet_resblock_packed": 0, "dac_resunit": 0}
+    want = _launch_table(4 * n, 8 * n)
     if counts != want:
         fail(f"expected launches {want}, got {counts}")
     if packs != [8] + [0] * (n - 1):
         fail(f"expected the fused blocks to pack once, got {packs}")
-    for row in rows:
-        row.setdefault("launches_by_path", {})["encodec_24k"] = counts[
-            row["name"]]
-        row["launches"] += counts[row["name"]]
+    _add_launches(rows, "encodec_24k", counts)
 
     for sig, (toks, y) in zip(requests, answers):
         N = math.ceil(sig.shape[1] / 320)
@@ -828,15 +885,9 @@ def phase_dac_path(torch, rows):
     from audiocodecs_tpu_torch.ops.dac_resunit import pack_resunit_weights
 
     sr, K, seconds = 44100, 9, 10.0
-    codec = DAC(sr, sr, num_codebooks=K, device="cuda",
-                generator=torch.Generator().manual_seed(0))
-    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
-    cpu = DAC(sr, sr, num_codebooks=K, device="cpu", state_dict=state)
-    rng = np.random.default_rng(1)
+    codec, cpu = _server_pair(torch, DAC, sr, sr, num_codebooks=K)
     T = int(sr * seconds)
-    requests = [rng.standard_normal((1, T)).astype(np.float32) * 0.1,
-                rng.standard_normal((1, T)).astype(np.float32) * 0.1,
-                rng.standard_normal((2, 100001)).astype(np.float32) * 0.1]
+    requests = _noise(np.random.default_rng(1), [(1, T), (1, T), (2, 100001)])
     want_shapes = [((1, 861, K), (1, 440832)), ((1, 861, K), (1, 440832)),
                    ((2, 195, K), (2, 99840))]
 
@@ -865,10 +916,7 @@ def phase_dac_path(torch, rows):
              f"{counts}, {per_call}")
     if packs != [6] + [0] * (n - 1):
         fail(f"expected the fused units to pack once, got {packs}")
-    for row in rows:
-        row.setdefault("launches_by_path", {})["dac_44k"] = counts[
-            row["name"]]
-        row["launches"] += counts[row["name"]]
+    _add_launches(rows, "dac_44k", counts)
 
     for sig, (toks, y), (ts, ys) in zip(requests, answers, want_shapes):
         if tuple(toks.shape) != ts or tuple(y.shape) != ys:
@@ -986,15 +1034,18 @@ def _parity(label, codec, cpu, sig, toks, y, n_rows=None):
 
 
 def _batch_path(torch, rows, path, codec, cpu, requests, per_roundtrip,
-                shapes, quant):
+                shapes, quant, parity_rows=2, profile_decode=None):
     """A codec as a small server: the requests through ``sig_to_toks`` →
     ``toks_to_sig`` with every kernel's launches counted (``per_roundtrip``
-    each), the shapes (``shapes(sig_shape)`` → (toks, sig)) and finite
-    output checked, parity against the CPU path on the last request and on
-    two rows of the first, then the warm roundtrip of the first request
-    timed: ms, RTF per stream and in aggregate, peak memory, stages
-    (``quant`` = (tokens of features, features of tokens, waveform of
-    features)) and the device time by kernel."""
+    each, or ``per_roundtrip(sig_shape)`` where it depends on the request),
+    the shapes (``shapes(sig_shape)`` → (toks, sig)) and finite output
+    checked, parity against the CPU path on the last request and on the
+    first ``parity_rows`` rows of the first (none if ``None``), then the warm
+    roundtrip of the first request timed: ms, RTF per stream and in
+    aggregate, peak memory, stages (``quant`` = (tokens of features,
+    features of tokens, waveform of features), or ``None``) and the device
+    time by kernel, also of the decode from features alone when
+    ``profile_decode`` names it."""
     reset_counts()
     answers = []
     for sig in requests:
@@ -1004,7 +1055,9 @@ def _batch_path(torch, rows, path, codec, cpu, requests, per_roundtrip,
     counts = read_counts()
     n = len(requests)
     log(f"{path} launches over {n} roundtrips: {json.dumps(counts)}")
-    want = {k: v * n for k, v in per_roundtrip.items()}
+    each = [per_roundtrip(sig.shape) if callable(per_roundtrip)
+            else per_roundtrip for sig in requests]
+    want = {k: sum(e[k] for e in each) for k in each[0]}
     if counts != want:
         fail(f"{path}: expected launches {want}, got {counts}")
     _add_launches(rows, path, counts)
@@ -1017,25 +1070,29 @@ def _batch_path(torch, rows, path, codec, cpu, requests, per_roundtrip,
             fail(f"{path}: non-finite waveform")
     _parity(f"{path} request {n - 1}", codec, cpu, requests[-1],
             *answers[-1])
-    _parity(f"{path} request 0, rows 0-1", codec, cpu, requests[0],
-            *answers[0], n_rows=2)
+    if parity_rows is not None:
+        _parity(f"{path} request 0, rows 0-{parity_rows - 1}", codec, cpu,
+                requests[0], *answers[0], n_rows=parity_rows)
 
     sig = requests[0]
     B, seconds = sig.shape[0], sig.shape[1] / codec.sample_rate
     sig_dev = torch.as_tensor(sig, device="cuda")
     rt_ms = cuda_ms(torch, lambda: codec.roundtrip(sig_dev), reps=5)
-    to_toks, to_q, to_sig = quant
-    with torch.inference_mode():
-        feats = codec._sig_to_feats(sig_dev, None)
-        toks = to_toks(feats)
-        q = to_q(toks)
-        stages = {
-            "encoder_ms": cuda_ms(
-                torch, lambda: codec._sig_to_feats(sig_dev, None), reps=5),
-            "rvq_encode_ms": cuda_ms(torch, lambda: to_toks(feats), reps=5),
-            "rvq_decode_ms": cuda_ms(torch, lambda: to_q(toks), reps=5),
-            "decoder_ms": cuda_ms(torch, lambda: to_sig(q), reps=5),
-        }
+    if quant is not None:
+        to_toks, to_q, to_sig = quant
+        with torch.inference_mode():
+            feats = codec._sig_to_feats(sig_dev, None)
+            toks = to_toks(feats)
+            q = to_q(toks)
+            stages = {
+                "encoder_ms": cuda_ms(
+                    torch, lambda: codec._sig_to_feats(sig_dev, None),
+                    reps=5),
+                "rvq_encode_ms": cuda_ms(torch, lambda: to_toks(feats),
+                                         reps=5),
+                "rvq_decode_ms": cuda_ms(torch, lambda: to_q(toks), reps=5),
+                "decoder_ms": cuda_ms(torch, lambda: to_sig(q), reps=5),
+            }
     torch.cuda.reset_peak_memory_stats()
     codec.roundtrip(sig_dev)
     torch.cuda.synchronize()
@@ -1044,9 +1101,14 @@ def _batch_path(torch, rows, path, codec, cpu, requests, per_roundtrip,
     log(f"{path} roundtrip B={B} x {seconds} s: {rt_ms:.3f} ms warm; "
         f"rtf_per_stream={per_stream:.3f} rtf_aggregate={per_stream * B:.3f};"
         f" peak_mem_bytes={peak}")
-    log(f"{path} stages: "
-        f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+    if quant is not None:
+        log(f"{path} stages: "
+            f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}")
     phase_profile(torch, lambda: codec.roundtrip(sig_dev), rt_ms)
+    if profile_decode is not None:
+        with torch.inference_mode():
+            phase_profile(torch, lambda: to_sig(q), stages["decoder_ms"],
+                          profile_decode)
 
 
 def phase_speechtokenizer(torch, rows):
@@ -1054,15 +1116,9 @@ def phase_speechtokenizer(torch, rows):
     from audiocodecs_tpu_torch.quant.rvq import rvq_decode, rvq_encode
 
     sr, K, hop = 16000, 8, 320
-    codec = SpeechTokenizer(sr, sr, num_codebooks=K, device="cuda",
-                            generator=torch.Generator().manual_seed(0))
-    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
-    cpu = SpeechTokenizer(sr, sr, num_codebooks=K, device="cpu",
-                          state_dict=state)
-    rng = np.random.default_rng(5)
-    requests = [rng.standard_normal((8, 10 * sr)).astype(np.float32) * 0.1,
-                rng.standard_normal((8, 10 * sr)).astype(np.float32) * 0.1,
-                rng.standard_normal((1, 80001)).astype(np.float32) * 0.1]
+    codec, cpu = _server_pair(torch, SpeechTokenizer, sr, sr, num_codebooks=K)
+    requests = _noise(np.random.default_rng(5),
+                      [(8, 10 * sr), (8, 10 * sr), (1, 80001)])
 
     def shapes(shape):
         N = math.ceil(shape[1] / hop)
@@ -1070,8 +1126,7 @@ def phase_speechtokenizer(torch, rows):
 
     # 2 encoder BiLSTM layers x 2 directions + 2 decoder LSTM layers
     _batch_path(torch, rows, "speechtokenizer_16k", codec, cpu, requests,
-                {"lstm_recurrence": 6, "seanet_resblock": 0,
-                 "seanet_resblock_packed": 0, "dac_resunit": 0}, shapes,
+                _launch_table(6, 0), shapes,
                 (lambda f: rvq_encode(f, codec.codebooks, K),
                  lambda t: rvq_decode(t, codec.codebooks),
                  lambda q: codec._feats_to_sig(q, None)))
@@ -1122,28 +1177,21 @@ def _stream_times(torch, path, codec, sig_dev, frames, seconds):
                   top=8)
 
 
-def phase_encodec_stream(torch, rows):
-    from audiocodecs_tpu_torch.models.encodec import Encodec
-
-    sr, K, frames, seconds = 24000, 8, 6, 10.0
-    codec = Encodec(sr, sr, num_codebooks=K, device="cuda",
-                    generator=torch.Generator().manual_seed(0))
-    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
-    cpu = Encodec(sr, sr, num_codebooks=K, device="cpu", state_dict=state)
-    sig = np.random.default_rng(6).standard_normal(
-        (8, int(sr * seconds))).astype(np.float32) * 0.1
+def _stream_path(torch, rows, path, codec, cpu, sig, frames, seconds):
+    """``sig`` [B, T] through ``encode_chunk`` then ``decode_chunk`` in
+    chunks of ``frames`` token frames, four kernel-1 launches a chunk (2
+    encoder + 2 decoder LSTM layers) and no other, against the CPU path's
+    stream on two rows (its decoder fed the card's tokens); then the chunk
+    times (``_stream_times``)."""
     sig_dev = torch.as_tensor(sig, device="cuda")
     n_chunks = sig.shape[1] // (codec.frame_size * frames)
-
-    path = "encodec_24k_stream"
+    K = codec.config.num_codebooks
     reset_counts()
     toks, wav, _ = _stream(torch, codec, sig_dev, frames)
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"{path} launches over {n_chunks} chunks: {json.dumps(counts)}")
-    # 2 encoder + 2 decoder LSTM layers, one launch each a chunk
-    want = {"lstm_recurrence": 4 * n_chunks, "seanet_resblock": 0,
-            "seanet_resblock_packed": 0, "dac_resunit": 0}
+    want = _launch_table(4 * n_chunks, 0)
     if counts != want:
         fail(f"{path}: expected launches {want}, got {counts}")
     _add_launches(rows, path, counts)
@@ -1154,7 +1202,6 @@ def phase_encodec_stream(torch, rows):
     if not bool(torch.isfinite(wav).all()):
         fail(f"{path}: non-finite waveform")
 
-    # the CPU path's stream on two rows, its decoder fed the card's tokens
     t0 = time.perf_counter()
     t_cpu, y_cpu, _ = _stream(torch, cpu, np.ascontiguousarray(sig[:2]),
                               frames, toks_in=toks[:2].cpu())
@@ -1173,19 +1220,23 @@ def phase_encodec_stream(torch, rows):
     _stream_times(torch, path, codec, sig_dev, frames, seconds)
 
 
+def phase_encodec_stream(torch, rows):
+    from audiocodecs_tpu_torch.models.encodec import Encodec
+
+    sr, K, frames, seconds = 24000, 8, 6, 10.0
+    codec, cpu = _server_pair(torch, Encodec, sr, sr, num_codebooks=K)
+    sig, = _noise(np.random.default_rng(6), [(8, int(sr * seconds))])
+    _stream_path(torch, rows, "encodec_24k_stream", codec, cpu, sig, frames,
+                 seconds)
+
+
 def phase_mimi(torch, rows):
     from audiocodecs_tpu_torch.models.mimi import Mimi
 
     sr, K, seconds = 24000, 8, 10.0
-    codec = Mimi(sr, sr, num_codebooks=K, device="cuda",
-                 generator=torch.Generator().manual_seed(0))
-    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
-    cpu = Mimi(sr, sr, num_codebooks=K, device="cpu", state_dict=state)
-    rng = np.random.default_rng(7)
+    codec, cpu = _server_pair(torch, Mimi, sr, sr, num_codebooks=K)
     T = int(sr * seconds)
-    requests = [rng.standard_normal((8, T)).astype(np.float32) * 0.1,
-                rng.standard_normal((8, T)).astype(np.float32) * 0.1,
-                rng.standard_normal((1, 79201)).astype(np.float32) * 0.1]
+    requests = _noise(np.random.default_rng(7), [(8, T), (8, T), (1, 79201)])
     hop, stride = 960, codec.model_config.downsample_stride
 
     def shapes(shape):
@@ -1193,8 +1244,7 @@ def phase_mimi(torch, rows):
         return (shape[0], N, K), (shape[0], N * hop * stride)
 
     path = "mimi_24k"
-    none = {"lstm_recurrence": 0, "seanet_resblock": 0,
-            "seanet_resblock_packed": 0, "dac_resunit": 0}
+    none = _launch_table(0, 0)
     _batch_path(torch, rows, path, codec, cpu, requests, none, shapes,
                 (codec._encode, codec._decode, codec._decode_tower))
 
@@ -1227,9 +1277,127 @@ def phase_mimi(torch, rows):
     _stream_times(torch, path, codec, sig_dev, 1, seconds)
 
 
+def phase_wavtokenizer(torch, rows):
+    """WavTokenizer-24k: the encoder's 2 LSTM layers and 4 causal blocks on
+    the kernels, the Vocos head (768 wide, 12 blocks) on library calls."""
+    from audiocodecs_tpu_torch.models.wavtokenizer import WavTokenizer
+    from audiocodecs_tpu_torch.quant.vq import vq_decode, vq_encode
+
+    sr, hop = 24000, 320
+    codec, cpu = _server_pair(torch, WavTokenizer, sr, sr)
+    requests = _noise(np.random.default_rng(8),
+                      [(8, 10 * sr), (8, 10 * sr), (1, 79201)])
+
+    def shapes(shape):
+        # the head's ISTFT trims n_fft/2 a side: (N - 1) hops
+        N = math.ceil(shape[1] / hop)
+        return (shape[0], N, 1), (shape[0], (N - 1) * hop)
+
+    _batch_path(torch, rows, "wavtokenizer_24k", codec, cpu, requests,
+                _launch_table(2, 4), shapes,
+                (lambda f: vq_encode(f, codec.codebook)[..., None],
+                 lambda t: vq_decode(t[..., 0], codec.codebook),
+                 lambda q: codec._feats_to_sig(q, None)),
+                profile_decode="decode from features (Vocos head)")
+
+
+def phase_encodec_vocos(torch, rows):
+    """EnCodec-24k's encoder, K = 8 (AdaLN row 2, 6 kbps), and the Vocos
+    head (``VocosConfig()``) in place of the SEANet decoder."""
+    from audiocodecs_tpu_torch.models.encodec import Encodec
+    from audiocodecs_tpu_torch.nn.vocos import apply_vocos
+    from audiocodecs_tpu_torch.quant.rvq import rvq_decode, rvq_encode
+
+    sr, K, hop = 24000, 8, 320
+    codec, cpu = _server_pair(torch, Encodec, sr, sr, num_codebooks=K,
+                              use_vocos=True)
+    if codec._bandwidth_id != 2:
+        fail(f"encodec_vocos: bandwidth id {codec._bandwidth_id}, want 2")
+    requests = _noise(np.random.default_rng(9),
+                      [(8, 10 * sr), (8, 10 * sr), (1, 79201)])
+
+    def shapes(shape):
+        N = math.ceil(shape[1] / hop)
+        return (shape[0], N, K), (shape[0], (N - 1) * hop)
+
+    _batch_path(torch, rows, "encodec_vocos_24k", codec, cpu, requests,
+                _launch_table(2, 4), shapes,
+                (lambda f: rvq_encode(f, codec.codebooks, K),
+                 lambda t: rvq_decode(t, codec.codebooks),
+                 lambda q: apply_vocos(codec.vocos, q, codec.vocos_config,
+                                       cond_id=codec._bandwidth_id)),
+                profile_decode="decode from features (Vocos head)")
+
+
+def phase_encodec_48k(torch, rows):
+    """EnCodec-48k's chunking (1 s windows, 1 % overlap, normalized,
+    non-causal), mono and without time group norm as the JAX package has
+    it: 10 s is 11 windows a stream, so B = 8 is 88 windows of 150 frames
+    through one encoder call, the LSTMs at (150, 88, 512) in 3 launches a
+    layer (32 rows a launch at H = 512). The CPU checks a B = 1 x 2.97 s
+    request (3 windows): the 88 windows would take minutes there."""
+    from audiocodecs_tpu_torch.models.encodec import (
+        Encodec, EncodecModelConfig)
+
+    sr, K = 48000, 8
+    mc = EncodecModelConfig(sampling_rate=sr, use_causal_conv=False,
+                            normalize=True, chunk_length_s=1.0, overlap=0.01,
+                            num_quantizers=16)
+    L, S = mc.chunk_length, mc.chunk_stride
+    frames = L // mc.hop_length
+    codec, cpu = _server_pair(torch, Encodec, sr, sr, num_codebooks=K,
+                              model_config=mc)
+    # the CPU's request: 2.97 s, the longest that is 3 windows
+    requests = _noise(np.random.default_rng(10),
+                      [(8, 10 * sr), (8, 10 * sr), (1, 3 * S)])
+    log(f"encodec_48k_chunked: CPU parity on request 2, B = 1 x {3 * S} "
+        f"samples (3 windows), not on the timed B = 8 x 10 s (88 windows)")
+
+    def windows(shape):
+        return shape[0] * max(1, math.ceil(shape[1] / S))
+
+    def launches(shape):
+        # 2 layers a LSTM, encoder and decoder, 32 rows a launch
+        return _launch_table(4 * math.ceil(windows(shape) / 32), 0)
+
+    def shapes(shape):
+        n = windows(shape) // shape[0]
+        return (shape[0], n * frames, K), (shape[0], S * (n - 1) + L)
+
+    _batch_path(torch, rows, "encodec_48k_chunked", codec, cpu, requests,
+                launches, shapes, None, parity_rows=None)
+
+
+def phase_past(torch, rows):
+    """PAST-16k (streamable): the causal SEANet's 4 LSTM layers and 8
+    blocks on the kernels a roundtrip; then the first request streamed in
+    80 ms chunks (4 frames), 4 LSTM launches a chunk."""
+    from audiocodecs_tpu_torch.models.past import PAST
+    from audiocodecs_tpu_torch.quant.rvq import rvq_decode, rvq_encode
+
+    sr, K, hop = 16000, 8, 320
+    codec, cpu = _server_pair(torch, PAST, sr, sr, num_codebooks=K)
+    requests = _noise(np.random.default_rng(11),
+                      [(8, 10 * sr), (8, 10 * sr), (1, 80001)])
+
+    def shapes(shape):
+        N = math.ceil(shape[1] / hop)
+        return (shape[0], N, K), (shape[0], N * hop)
+
+    _batch_path(torch, rows, "past_16k", codec, cpu, requests,
+                _launch_table(4, 8), shapes,
+                (lambda f: rvq_encode(codec._project(f), codec.codebooks, K),
+                 lambda t: rvq_decode(t, codec.codebooks),
+                 lambda q: codec._decode(codec._unproject(q))))
+    _stream_path(torch, rows, "past_16k_stream", codec, cpu, requests[0], 4,
+                 10.0)
+
+
 _KERNEL_GROUPS = (("lstm_recurrence", "lstm_recurrence_kernel"),
                   ("seanet_resblock", "seanet_resblock_kernel"),
                   ("dac_resunit", "dac_resunit_kernel"),
+                  ("fft (cuFFT)", "fft"), ("overlap-add (fold)", "col2im"),
+                  ("layer_norm", "layer_norm"),
                   ("conv (cuDNN)", "cudnn"), ("conv (cuDNN)", "conv"),
                   ("matmul (cuBLAS)", "xmma_gemm"), ("conv (cuDNN)", "xmma"),
                   ("matmul (cuBLAS)", "gemm"), ("padding", "pad1d"),
@@ -1295,6 +1463,10 @@ def main() -> None:
     phase_speechtokenizer(torch, rows)
     phase_encodec_stream(torch, rows)
     phase_mimi(torch, rows)
+    phase_wavtokenizer(torch, rows)
+    phase_encodec_vocos(torch, rows)
+    phase_encodec_48k(torch, rows)
+    phase_past(torch, rows)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))
     log(f"card: {card}")

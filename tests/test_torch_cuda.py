@@ -18,9 +18,15 @@ import torch
 from audiocodecs_tpu_torch.models.dac import DAC, DACModelConfig
 from audiocodecs_tpu_torch.models.encodec import Encodec, EncodecModelConfig
 from audiocodecs_tpu_torch.models.mimi import Mimi, MimiModelConfig
+from audiocodecs_tpu_torch.models.past import PAST
+from audiocodecs_tpu_torch.models.seanet_rvq import SEANetRVQConfig
 from audiocodecs_tpu_torch.models.speechtokenizer import (
     SpeechTokenizer,
     SpeechTokenizerModelConfig,
+)
+from audiocodecs_tpu_torch.models.wavtokenizer import (
+    WavTokenizer,
+    WavTokenizerModelConfig,
 )
 from audiocodecs_tpu_torch.nn.layers import exact_fp32, pad1d
 from audiocodecs_tpu_torch.nn.lstm import (
@@ -29,6 +35,7 @@ from audiocodecs_tpu_torch.nn.lstm import (
     init_lstm_params,
     lstm,
 )
+from audiocodecs_tpu_torch.nn.vocos import VocosConfig, istft
 from audiocodecs_tpu_torch.ops.lstm_recurrence import (
     handoff_us,
     lstm_recurrence,
@@ -523,3 +530,118 @@ def test_chunked_equals_batch_on_the_card(dev, family):
     assert (toks == batch).float().mean() >= 0.999
     want = codec.toks_to_sig(toks).cpu()
     assert _decode_close(wav, want)
+
+
+@pytest.mark.parametrize("n_fft,hop,padding", [(64, 16, "center"),
+                                               (1280, 320, "center"),
+                                               (1280, 320, "same")])
+def test_istft_on_the_card_matches_cpu(dev, n_fft, hop, padding):
+    """cuFFT's complex-to-real transform against the CPU's on spectra whose
+    DC and Nyquist bins carry large imaginary parts: ``istft`` zeroes them
+    on every device."""
+    rng = np.random.default_rng(n_fft + len(padding))
+    half = n_fft // 2 + 1
+    re = rng.standard_normal((3, 40, half)).astype(np.float32)
+    im = rng.standard_normal((3, 40, half)).astype(np.float32)
+    im[..., 0], im[..., -1] = 80.0, -60.0
+    want = istft(torch.from_numpy(re), torch.from_numpy(im), n_fft, hop,
+                 padding)
+    got = istft(_t(re, dev), _t(im, dev), n_fft, hop, padding)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+def _pair_on_card(cls, dev, *args, **kwargs):
+    gpu = cls(*args, device=dev, generator=torch.Generator().manual_seed(0),
+              **kwargs)
+    cpu = cls(*args, device="cpu", state_dict={
+        k: v.cpu() for k, v in gpu.state_dict().items()}, **kwargs)
+    return gpu, cpu
+
+
+_ENC_SMALL = dict(num_filters=8, hidden_size=16, upsampling_ratios=(4, 2),
+                  codebook_size=64, codebook_dim=16, num_quantizers=8)
+_VOCOS_SMALL = VocosConfig(input_channels=16, dim=32, intermediate_dim=64,
+                           num_layers=2, n_fft=32, hop_length=8)
+
+
+@pytest.mark.parametrize("family", ["wavtokenizer", "encodec_vocos",
+                                    "past"])
+def test_small_new_codecs_launch_and_match_cpu(dev, family):
+    """The encoders' LSTMs (H = 32) and causal blocks (2 a side) on the
+    kernels; the Vocos heads are library calls; PAST's decoder launches
+    both kernels too."""
+    if family == "wavtokenizer":
+        gpu, cpu = _pair_on_card(
+            WavTokenizer, dev, 24000, model_config=WavTokenizerModelConfig(
+                num_filters=8, hidden_size=32, upsampling_ratios=(4, 2),
+                codebook_size=64, codebook_dim=32, vocos_dim=32,
+                vocos_intermediate_dim=64, vocos_layers=2, n_fft=64,
+                hop_length=8))
+        per_roundtrip = (2, 2, 0, 0)
+    elif family == "encodec_vocos":
+        gpu, cpu = _pair_on_card(
+            Encodec, dev, 24000, num_codebooks=8, use_vocos=True,
+            vocos_config=_VOCOS_SMALL,
+            model_config=EncodecModelConfig(**_ENC_SMALL))
+        per_roundtrip = (2, 2, 0, 0)
+    else:
+        gpu, cpu = _pair_on_card(
+            PAST, dev, 16000, num_codebooks=4, model_config=SEANetRVQConfig(
+                num_filters=8, hidden_size=16, upsampling_ratios=(4, 2),
+                codebook_size=64, codebook_dim=8, num_quantizers=4))
+        per_roundtrip = (4, 4, 0, 0)
+    sig = (np.random.default_rng(2).standard_normal((3, 4001)) * 0.3).astype(
+        np.float32)
+    before = _launches()
+    toks = gpu.sig_to_toks(sig)
+    y = gpu.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    assert _delta(before) == per_roundtrip
+    assert (toks.cpu() == cpu.sig_to_toks(sig)).float().mean() >= 0.999
+    assert _decode_close(y, cpu.toks_to_sig(toks.cpu()))
+
+
+def test_past_streaming_on_the_card_matches_cpu_stream(dev):
+    """Four LSTM launches a chunk (2 encoder + 2 decoder layers); the
+    blocks run conv by conv, as in EnCodec's streaming."""
+    gpu, cpu = _pair_on_card(
+        PAST, dev, 16000, num_codebooks=4, model_config=SEANetRVQConfig(
+            num_filters=8, hidden_size=16, upsampling_ratios=(4, 2),
+            codebook_size=64, codebook_dim=16, num_quantizers=4))
+    plan = [1, 3, 2, 4]
+    sig = (np.random.default_rng(3).standard_normal(
+        (2, gpu.frame_size * sum(plan))) * 0.3).astype(np.float32)
+    before = _launches()
+    toks, wav = _stream(gpu, sig, plan)
+    torch.cuda.synchronize()
+    assert _delta(before) == (4 * len(plan), 0, 0, 0)
+    want_toks, want_wav = _stream(cpu, sig, plan)
+    assert (toks.cpu() == want_toks).float().mean() >= 0.999
+    assert _decode_close(wav, want_wav)
+
+
+def test_chunked_48k_style_encodec_on_the_card_matches_cpu(dev):
+    """Non-causal, normalized, 320-sample windows at stride 240: B = 2 x
+    800 samples is 8 windows through one encoder call (2 LSTM launches) and
+    one decoder call (2 more); the non-causal blocks run cuDNN."""
+    gpu, cpu = _pair_on_card(
+        Encodec, dev, 800, 800, num_codebooks=4,
+        model_config=EncodecModelConfig(
+            sampling_rate=800, num_filters=8, hidden_size=16,
+            upsampling_ratios=(4, 2), codebook_size=64, codebook_dim=16,
+            num_quantizers=4, use_causal_conv=False, normalize=True,
+            chunk_length_s=0.4, overlap=0.25))
+    sig = (np.random.default_rng(5).standard_normal((2, 800)) * 2.0).astype(
+        np.float32)
+    before = _launches()
+    toks = gpu.sig_to_toks(sig)
+    y = gpu.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    assert _delta(before) == (4, 0, 0, 0)
+    assert tuple(toks.shape) == (2, 4 * 40, 4)
+    assert tuple(y.shape) == (2, 3 * 240 + 320)
+    assert (toks.cpu() == cpu.sig_to_toks(sig)).float().mean() >= 0.999
+    assert _decode_close(y, cpu.toks_to_sig(toks.cpu()))

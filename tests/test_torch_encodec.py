@@ -192,13 +192,20 @@ def test_init_is_seeded_and_complete():
     assert tc.embs().shape == (4, 64, 16)
 
 
-def test_unported_paths_refuse():
-    with pytest.raises(NotImplementedError):
-        Encodec(24000, use_vocos=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Encodec(48000, 48000, device="cpu", model_config=EncodecModelConfig(
-            sampling_rate=48000, chunk_length_s=1.0, overlap=0.01,
-            normalize=True, **SMALL))
+@pytest.mark.parametrize("kw", [
+    dict(use_vocos=True, num_codebooks=8, chunk_length_s=0.4),
+    dict(use_vocos=True, num_codebooks=3)])
+def test_refuses_what_the_reference_refuses(kw):
+    """Vocos does not compose with windowed chunking, and takes only the
+    bandwidths it has AdaLN rows for (K ∈ {2, 4, 8, 16})."""
+    kw = dict(kw)
+    chunk = kw.pop("chunk_length_s", None)
+    cfg = dict(SMALL, sampling_rate=800, chunk_length_s=chunk)
+    with pytest.raises(ValueError):
+        JEncodec(800, 800, model_config=JConfig(**cfg), **kw)
+    with pytest.raises(ValueError):
+        Encodec(800, 800, model_config=EncodecModelConfig(**cfg),
+                device="cpu", **kw)
 
 
 def test_full_width_features_and_tokens(rng):

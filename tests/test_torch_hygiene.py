@@ -36,13 +36,18 @@ def test_module_list_covers_the_slice():
     for m in ("audiocodecs_tpu_torch.models.encodec",
               "audiocodecs_tpu_torch.models.dac",
               "audiocodecs_tpu_torch.models.mimi",
+              "audiocodecs_tpu_torch.models.past",
+              "audiocodecs_tpu_torch.models.seanet_rvq",
               "audiocodecs_tpu_torch.models.speechtokenizer",
+              "audiocodecs_tpu_torch.models.wavtokenizer",
               "audiocodecs_tpu_torch.nn.streaming",
               "audiocodecs_tpu_torch.nn.transformer",
+              "audiocodecs_tpu_torch.nn.vocos",
               "audiocodecs_tpu_torch.ops.dac_resunit",
               "audiocodecs_tpu_torch.ops.lstm_recurrence",
               "audiocodecs_tpu_torch.ops.seanet_resblock",
-              "audiocodecs_tpu_torch.params"):
+              "audiocodecs_tpu_torch.params",
+              "audiocodecs_tpu_torch.quant.rvq"):
         assert m in mods
 
 
@@ -53,7 +58,9 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
         "import importlib, json, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
         "import audiocodecs_tpu_torch as p; p.Encodec; p.DAC; p.CodecConfig\n"
-        "p.Mimi; p.SpeechTokenizer\n"
+        "p.Mimi; p.SpeechTokenizer; p.WavTokenizer\n"
+        "p.WavTokenizerModelConfig; p.SEANetRVQCodec; p.SEANetRVQConfig\n"
+        "p.PAST\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = {"PATH": os.environ.get("PATH", ""), "PYTHONPATH": str(REPO),
            "HOME": os.environ.get("HOME", str(REPO)),
@@ -66,6 +73,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.models.encodec" in loaded
     assert "audiocodecs_tpu_torch.models.dac" in loaded
     assert "audiocodecs_tpu_torch.models.mimi" in loaded
+    assert "audiocodecs_tpu_torch.models.wavtokenizer" in loaded
+    assert "audiocodecs_tpu_torch.models.past" in loaded
     assert not [m for m in loaded if _is_reference(m)]
 
 
@@ -91,7 +100,10 @@ def test_default_device_is_the_card(monkeypatch):
     from audiocodecs_tpu_torch.models.dac import DAC
     from audiocodecs_tpu_torch.models.encodec import Encodec
     from audiocodecs_tpu_torch.models.mimi import Mimi
+    from audiocodecs_tpu_torch.models.past import PAST
+    from audiocodecs_tpu_torch.models.seanet_rvq import SEANetRVQCodec
     from audiocodecs_tpu_torch.models.speechtokenizer import SpeechTokenizer
+    from audiocodecs_tpu_torch.models.wavtokenizer import WavTokenizer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -102,6 +114,12 @@ def test_default_device_is_the_card(monkeypatch):
         SpeechTokenizer(16000)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Mimi(24000)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        WavTokenizer(24000)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SEANetRVQCodec(16000)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PAST(16000)
     with pytest.raises(RuntimeError):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
