@@ -113,8 +113,8 @@ class ResidualUnit(nn.Module):
     A fused unit keeps its conv weights in the kernel's layout
     (:func:`..ops.dac_resunit.pack_resunit_weights`), built on its first
     forward and again only when ``conv1.w`` or ``conv2.w`` changes: moves to
-    another device, or is written in place (``load_state_dict`` bumps the
-    tensor's version). The packed pair is no parameter or buffer, so the
+    another device, or is written in place (``load_state_dict`` and an
+    optimizer's step bump the tensor's version). The packed pair is no parameter or buffer, so the
     state dict is unchanged."""
 
     def __init__(self, ch: int, dilation: int, fused: bool):

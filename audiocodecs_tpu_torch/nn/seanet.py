@@ -153,8 +153,10 @@ class ResBlock(nn.Module):
     kernel's layout (:func:`..ops.seanet_resblock.pack_resblock_weights`),
     built on its first forward on the card and again only when a conv
     weight changes: moves to another device, or is written in place
-    (``load_state_dict`` bumps the tensor's version). The packed weights
-    are no parameter or buffer, so the state dict is unchanged."""
+    (``load_state_dict`` and an optimizer's step bump the tensor's
+    version, so a training step repacks each block once). The packed
+    weights are no parameter or buffer, so the state dict is unchanged;
+    the kernel's autograd Function takes them as a detached side input."""
 
     def __init__(self, ch: int, cfg: SEANetConfig):
         super().__init__()

@@ -17,6 +17,8 @@ builds once and passes as ``packed``.
 
 :func:`dac_resunit` launches the kernel for CUDA tensors and runs
 :func:`dac_resunit_reference` for CPU tensors; there is no other path.
+Its gradient recomputes through the plain version (:class:`_Unit`), on
+both devices.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from audiocodecs_tpu_torch.nn.layers import exact_fp32
 from audiocodecs_tpu_torch.ops import _build
+from audiocodecs_tpu_torch.ops._autograd import recompute_vjp
 
 __all__ = ["dac_resunit", "dac_resunit_info", "dac_resunit_reference",
            "pack_resunit_weights", "snake"]
@@ -142,19 +145,7 @@ def _check(x, w7, b7, alpha1, w1, b1, alpha2, dilation, packed=None):
             raise ValueError(f"{name} must be contiguous")
 
 
-def dac_resunit(x, w7, b7, alpha1, w1, b1, alpha2, dilation: int, *,
-                packed=None):
-    """The fused unit: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Returns ``[B, C, T]`` float32. On the card the kernel
-    takes contiguous float32 tensors and ``C <= 256``; anything else
-    raises. ``packed`` is :func:`pack_resunit_weights` of ``(w7, w1)``;
-    without it the kernel's layout is built for this call. The CPU path
-    ignores it."""
-    if x.device.type == "cpu":
-        return dac_resunit_reference(x, w7, b7, alpha1, w1, b1, alpha2,
-                                     dilation)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+def _launch(x, w7, b7, alpha1, w1, b1, alpha2, dilation, packed):
     _check(x, w7, b7, alpha1, w1, b1, alpha2, dilation, packed)
     if packed is None:
         packed = pack_resunit_weights(w7, w1)
@@ -173,6 +164,47 @@ def dac_resunit(x, w7, b7, alpha1, w1, b1, alpha2, dilation: int, *,
                            + lib.dac_resunit_error_string(err).decode())
     dac_resunit.launches += 1
     return out
+
+
+class _Unit(torch.autograd.Function):
+    """The unit with a recompute gradient rule: the forward launches the
+    kernel (CUDA tensors) or runs the plain version (CPU tensors); the
+    backward recomputes through :func:`dac_resunit_reference` and returns
+    the VJP for ``x``, both convs and both ``alpha``s. ``packed`` is a
+    detached side input: it gets no gradient and is not saved."""
+
+    @staticmethod
+    def forward(ctx, x, w7, b7, alpha1, w1, b1, alpha2, dilation, packed):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, w7, b7, alpha1, w1, b1, alpha2)
+        ctx.dilation = dilation
+        if x.device.type == "cpu":
+            return dac_resunit_reference(x, w7, b7, alpha1, w1, b1, alpha2,
+                                         dilation)
+        return _launch(x, w7, b7, alpha1, w1, b1, alpha2, dilation, packed)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out):
+        grads = recompute_vjp(dac_resunit_reference, "dac_resunit.backward",
+                              (*ctx.saved_tensors, ctx.dilation), (g_out,),
+                              ctx.needs_input_grad[:8])
+        return (*grads, None)
+
+
+def dac_resunit(x, w7, b7, alpha1, w1, b1, alpha2, dilation: int, *,
+                packed=None):
+    """The fused unit: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. Returns ``[B, C, T]`` float32. On the card the kernel
+    takes contiguous float32 tensors and ``C <= 256``; anything else
+    raises. ``packed`` is :func:`pack_resunit_weights` of ``(w7, w1)``;
+    without it the kernel's layout is built for this call. The CPU path
+    ignores it. Differentiable on both devices (:class:`_Unit`): the
+    backward recomputes through the plain version and launches no
+    kernel."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    return _Unit.apply(x, w7, b7, alpha1, w1, b1, alpha2, dilation, packed)
 
 
 dac_resunit.launches = 0  # kernel launches in this process

@@ -10,6 +10,8 @@ and design.
 
 :func:`lstm_recurrence` launches the kernel for CUDA tensors and runs
 :func:`lstm_recurrence_reference` for CPU tensors; there is no other path.
+Its gradient recomputes through the plain version (:class:`_Recurrence`),
+on both devices.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import ctypes
 import torch
 
 from audiocodecs_tpu_torch.ops import _build
+from audiocodecs_tpu_torch.ops._autograd import recompute_vjp
 
 __all__ = ["handoff_us", "lstm_recurrence", "lstm_recurrence_info",
            "lstm_recurrence_reference", "MAX_HIDDEN"]
@@ -114,17 +117,9 @@ def _plan(lib, dev: torch.device, H: int):
     return _plans[key]
 
 
-def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
-                    h0: torch.Tensor, c0: torch.Tensor):
-    """Run one layer's recurrence: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Same contract as
-    :func:`lstm_recurrence_reference`; the kernel takes float32,
-    ``H % 32 == 0`` and ``H <= 1024``. A batch larger than one launch's
-    shared memory holds runs as consecutive row slices, one launch each."""
-    if gates_x.device.type == "cpu":
-        return lstm_recurrence_reference(gates_x, w_hh, h0, c0)
-    if gates_x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {gates_x.device}")
+def _launch(gates_x, w_hh, h0, c0):
+    """The kernel on CUDA tensors: one launch a slice of at most ``rows``
+    rows."""
     _check(gates_x, w_hh, h0, c0)
     T, B, _ = gates_x.shape
     H = w_hh.shape[0]
@@ -159,6 +154,43 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
                     + lib.lstm_recurrence_error_string(err).decode())
             lstm_recurrence.launches += 1
     return ys, h_t, c_t
+
+
+class _Recurrence(torch.autograd.Function):
+    """The recurrence with the JAX package's gradient rule
+    (``audiocodecs_tpu/ops/lstm_pallas.py:97-117``): the forward launches
+    the kernel (CUDA tensors) or runs the plain version (CPU tensors); the
+    backward recomputes through :func:`lstm_recurrence_reference` and
+    returns its VJP for ``gates_x``, ``w_hh``, ``h0`` and ``c0``."""
+
+    @staticmethod
+    def forward(ctx, gates_x, w_hh, h0, c0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(gates_x, w_hh, h0, c0)
+        if gates_x.device.type == "cpu":
+            return lstm_recurrence_reference(gates_x, w_hh, h0, c0)
+        return _launch(gates_x, w_hh, h0, c0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_ys, g_h, g_c):
+        return recompute_vjp(lstm_recurrence_reference,
+                             "lstm_recurrence.backward", ctx.saved_tensors,
+                             (g_ys, g_h, g_c), ctx.needs_input_grad)
+
+
+def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
+                    h0: torch.Tensor, c0: torch.Tensor):
+    """Run one layer's recurrence: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. Same contract as
+    :func:`lstm_recurrence_reference`; the kernel takes float32,
+    ``H % 32 == 0`` and ``H <= 1024``. A batch larger than one launch's
+    shared memory holds runs as consecutive row slices, one launch each.
+    Differentiable on both devices: the backward recomputes through the
+    plain version (:class:`_Recurrence`) and launches no kernel."""
+    if gates_x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {gates_x.device}")
+    return _Recurrence.apply(gates_x, w_hh, h0, c0)
 
 
 lstm_recurrence.launches = 0  # kernel launches in this process

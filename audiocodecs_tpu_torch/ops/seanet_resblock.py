@@ -18,6 +18,8 @@ passes as ``packed``.
 
 :func:`seanet_resblock` launches the kernel for CUDA tensors and runs
 :func:`seanet_resblock_reference` for CPU tensors; there is no other path.
+Its gradient recomputes through the plain version (:class:`_Block`), on
+both devices.
 
 :func:`seanet_resblock_packed` is the entry point that replaces the TPU
 kernel ``audiocodecs_tpu/ops/seanet_block_packed.py::seanet_resblock_packed``
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 
 from audiocodecs_tpu_torch.nn.layers import elu, exact_fp32
 from audiocodecs_tpu_torch.ops import _build
+from audiocodecs_tpu_torch.ops._autograd import recompute_vjp
 
 __all__ = ["pack_resblock_weights", "seanet_resblock",
            "seanet_resblock_info", "seanet_resblock_reference",
@@ -191,20 +194,50 @@ def _launch(x, halo, w1, b1, w2, b2, ws, bs, packed=None):
     return out
 
 
+class _Block(torch.autograd.Function):
+    """The block with a recompute gradient rule: the forward launches the
+    kernel (CUDA tensors; ``counter``, the entry point, counts the launch)
+    or runs the plain version (CPU tensors); the backward recomputes through
+    :func:`seanet_resblock_reference` and returns the VJP for ``x``,
+    ``halo`` (which the caller built from ``x``, so its gradient flows back
+    into ``x`` there) and the six weights. ``packed`` is a detached side
+    input: it gets no gradient and is not saved."""
+
+    @staticmethod
+    def forward(ctx, counter, x, halo, w1, b1, w2, b2, ws, bs, packed):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, halo, w1, b1, w2, b2, ws, bs)
+        if x.device.type == "cpu":
+            return seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs)
+        out = _launch(x, halo, w1, b1, w2, b2, ws, bs, packed)
+        counter.launches += 1
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out):
+        grads = recompute_vjp(seanet_resblock_reference,
+                              "seanet_resblock.backward", ctx.saved_tensors,
+                              (g_out,), ctx.needs_input_grad[1:9])
+        return (None, *grads, None)
+
+
+def _apply(counter, x, halo, w1, b1, w2, b2, ws, bs, packed):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    return _Block.apply(counter, x, halo, w1, b1, w2, b2, ws, bs, packed)
+
+
 def seanet_resblock(x, halo, w1, b1, w2, b2, ws, bs, *, packed=None):
     """The fused block: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. Returns ``[B, C, T]`` float32. On the card the kernel
     takes contiguous float32 tensors and ``C <= 384``; anything else
     raises. ``packed`` is :func:`pack_resblock_weights` of ``(w1, w2, ws)``;
     without it the kernel's layout is built for this call. The CPU path
-    ignores it."""
-    if x.device.type == "cpu":
-        return seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    out = _launch(x, halo, w1, b1, w2, b2, ws, bs, packed)
-    seanet_resblock.launches += 1
-    return out
+    ignores it. Differentiable on both devices (:class:`_Block`): the
+    backward recomputes through the plain version and launches no
+    kernel."""
+    return _apply(seanet_resblock, x, halo, w1, b1, w2, b2, ws, bs, packed)
 
 
 seanet_resblock.launches = 0  # kernel launches in this process
@@ -255,13 +288,10 @@ def seanet_resblock_packed(x, w1, b1, w2, b2, ws, bs):
     [B, T, C] unpadded (the causal left side is zero), ``w1`` [3, C, H],
     ``w2`` [H, C], ``ws`` [C, C]; returns [B, T, C]. Raises ``ValueError``
     for C > 64. CUDA tensors launch the block kernel, CPU tensors run its
-    plain version."""
-    if x.device.type == "cpu":
-        return seanet_resblock_packed_reference(x, w1, b1, w2, b2, ws, bs)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    out = _launch(*_packed_args(x, w1, b1, w2, b2, ws, bs))
-    seanet_resblock_packed.launches += 1
+    plain version; both through :class:`_Block` after the layout copies,
+    so the gradient flows back through them to the caller's layouts."""
+    out = _apply(seanet_resblock_packed,
+                 *_packed_args(x, w1, b1, w2, b2, ws, bs), None)
     return out.transpose(1, 2)
 
 

@@ -1,8 +1,11 @@
-"""Weight bridge from the reference package's param trees.
+"""Weight bridge to and from the reference package's param trees.
 
 :func:`from_jax_params` takes the JAX package's param tree, with numpy
 arrays as leaves (``jax.tree.map(np.asarray, params)``), and returns the
 state dict of a port module, ready for ``load_state_dict(strict=True)``.
+:func:`to_jax_params` is its inverse: a port state dict back to the
+reference's tree of numpy arrays, so that a model trained here is a
+checkpoint of the JAX package (:mod:`.utils.checkpoint` writes it).
 Nothing here imports JAX: the tree is plain dicts, lists and arrays.
 
 Layouts (reference → port):
@@ -38,7 +41,7 @@ from torch import nn
 
 from audiocodecs_tpu_torch.nn.layers import Conv1d, ConvTranspose1d
 
-__all__ = ["flatten_tree", "from_jax_params"]
+__all__ = ["flatten_tree", "from_jax_params", "to_jax_params"]
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -87,3 +90,48 @@ def from_jax_params(tree, model: nn.Module) -> dict:
                              f"model shape {tuple(ref.shape)}")
         out[key] = t
     return out
+
+
+def _to_jax_layout(owner: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`_to_port_layout`."""
+    if leaf == "w" and isinstance(owner, ConvTranspose1d):
+        cin, cout_g, k = a.shape
+        g = owner.groups
+        a = a.reshape(g, cin // g, cout_g, k).transpose(3, 1, 0, 2)
+        return np.flip(a.reshape(k, cin // g, g * cout_g), 0)
+    if leaf == "w" and isinstance(owner, Conv1d):
+        return a.transpose(2, 1, 0)
+    return a
+
+
+def to_jax_params(state_dict: dict, model: nn.Module):
+    """``model``'s state dict (tensors on any device) as the reference's
+    param tree: nested dicts keyed by module and parameter name, a list
+    where the port has an ``nn.ModuleList`` (LSTM layers, a residual
+    block's convs), and float32 numpy arrays in the reference's layouts.
+    ``from_jax_params(to_jax_params(sd, model), model)`` gives ``sd`` back.
+    Raises on a missing or extra key."""
+    want = model.state_dict()
+    missing = sorted(set(want) - set(state_dict))
+    extra = sorted(set(state_dict) - set(want))
+    if missing or extra:
+        raise KeyError(f"state dict does not match the model: missing "
+                       f"{missing[:5]}, unexpected {extra[:5]}")
+
+    def tree(module: nn.Module, prefix: str):
+        node = {}
+        own = [*module.named_parameters(recurse=False),
+               *module.named_buffers(recurse=False)]
+        for name in (n for n, _ in own if prefix + n in want):
+            t = state_dict[prefix + name].detach().to("cpu", torch.float32)
+            a = _to_jax_layout(module, name, t.numpy())
+            node[name] = np.ascontiguousarray(a)
+        for name, child in module.named_children():
+            sub = tree(child, f"{prefix}{name}.")
+            if sub or isinstance(module, nn.ModuleList):
+                node[name] = sub
+        if isinstance(module, nn.ModuleList):
+            return [node[str(i)] for i in range(len(module))]
+        return node
+
+    return tree(model, "")

@@ -68,7 +68,21 @@ it fails:
    request (3 windows);
 15. PAST-16 kHz as in 9: four kernel-1 and eight kernel-2 launches a
    roundtrip, then the first request streamed in 80 ms chunks (4 frames)
-   as in 10.
+   as in 10;
+16. EnCodec-24 kHz training at its published width (seeded random
+   weights, 8 codebooks, EMA codebooks, the spectral term live from the
+   second step, Adam at 3e-4 with betas (0.5, 0.9)): first each kernel's
+   autograd Function (kernel forward, backward recomputed through the
+   plain version) against the plain version's autograd on the card, and
+   each kernel's forward against its plain version, at the training
+   path's shapes; step 1 on a B = 2 x 1 s batch against the CPU path
+   (losses, every gradient, tokens, the EMA codebooks); then eight steps on
+   B = 8 x 1 s synthetic batches, four kernel-1 and eight kernel-2 launches
+   a step, every encoder and decoder gradient finite and nonzero, the warm
+   step's time, audio seconds trained a wall second, peak memory, and one
+   profiled step taken apart by the step's own ranges: each part's time,
+   the kernels each part launched (all in the forward, none in the
+   backward) and the time of the kernels' recompute inside the backward.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -109,6 +123,15 @@ DAC_UNIT_SHAPES = [(1, 192, 220416, d) for d in (1, 3, 9)] + [
 # ragged; T < 6d; C and T off the chunk and the tile; the widest window
 DAC_UNIT_EXTRA = [(3, 96, 1001, 9), (2, 8, 20, 9), (1, 200, 4099, 9),
                   (1, 256, 4097, 9)]
+# the Functions' gradients at the training step's shapes: (T, B, H) for B1,
+# (B, C, T) for B2 (EnCodec-24k's four blocks at B = 8 x 1 s) and B3, and
+# (B, C, T, dilation) for B4
+TRAIN_GRAD_LSTM = (75, 8, 512)
+TRAIN_GRAD_BLOCKS = [(8, 32, 24000), (8, 64, 12000), (8, 128, 3000),
+                     (8, 256, 600)]
+TRAIN_GRAD_PACKED = (8, 32, 24000)
+TRAIN_GRAD_UNIT = (1, 192, 22050, 1)
+TRAIN_B, TRAIN_STEPS, TRAIN_TIMED = 8, 8, slice(2, 8)  # steps 3-8 timed
 
 
 def fail(msg: str) -> None:
@@ -1393,6 +1416,361 @@ def phase_past(torch, rows):
                  10.0)
 
 
+def _function_grad(torch, fn, plain, args, g_outs):
+    """The Function ``fn`` (kernel forward, backward recomputed through the
+    plain version) against autograd through ``plain`` on the same inputs
+    on the card: the worst forward error relative to max(1, max|plain
+    output|) (the kernel against its plain version at this shape), the
+    worst gradient error relative to the plain gradient's max|g| (the
+    backward's wiring: both sides differentiate the plain version), and
+    the ms of one backward of each (CUDA events; the graphs are kept, so
+    the Function's backward recomputes every time)."""
+    from audiocodecs_tpu_torch.nn.layers import exact_fp32
+
+    leaves = [a for a in args if a.requires_grad]
+    outs, grads, ms = [], [], []
+    with exact_fp32():
+        for f in (fn, plain):
+            out = f(*args)
+            out = out if isinstance(out, tuple) else (out,)
+            grads.append(torch.autograd.grad(out, leaves, g_outs,
+                                             retain_graph=True))
+            ms.append(cuda_ms(torch, lambda: torch.autograd.grad(
+                out, leaves, g_outs, retain_graph=True), reps=5, warmup=1))
+            outs.append(tuple(o.detach() for o in out))
+            del out
+    fwd = max(float((o - w).abs().max()) / max(1.0, float(w.abs().max()))
+              for o, w in zip(*outs))
+    err = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+              for g, w in zip(*grads))
+    return fwd, err, ms[0], ms[1]
+
+
+def phase_train_grads(torch, rows, card):
+    """Each kernel's Function against the plain version on the card, at
+    the training path's shapes: the forward (the kernel) within 1e-5 of
+    max(1, max|out|), the gradient within 1e-4 of max|g|."""
+    from audiocodecs_tpu_torch.nn.layers import pad1d
+    from audiocodecs_tpu_torch.ops.dac_resunit import (
+        dac_resunit, dac_resunit_reference, pack_resunit_weights)
+    from audiocodecs_tpu_torch.ops.lstm_recurrence import (
+        lstm_recurrence, lstm_recurrence_reference)
+    from audiocodecs_tpu_torch.ops.seanet_resblock import (
+        pack_resblock_weights, seanet_resblock, seanet_resblock_packed,
+        seanet_resblock_packed_reference, seanet_resblock_reference)
+
+    gen = torch.Generator().manual_seed(9)
+    by_name = {r["name"]: r for r in rows}
+
+    def req(t):
+        return t.to("cuda").requires_grad_()
+
+    def g_like(*shape):
+        return (torch.randn(*shape, generator=gen)).to("cuda")
+
+    def record(name, label, fwd, err, bwd_ms, plain_bwd_ms):
+        log(f"{name} training shape {label}: forward max_rel_err={fwd:.3e} "
+            f"(limit 1e-5), gradient max_rel_err={err:.3e} (limit 1e-4) "
+            f"backward_ms={bwd_ms:.4f} plain_backward_ms={plain_bwd_ms:.4f} "
+            f"({card})")
+        if not fwd <= 1e-5:
+            fail(f"{name}: the kernel disagrees with its plain version at "
+                 f"{label}: {fwd}")
+        if not err <= 1e-4:
+            fail(f"{name}: the Function's gradient disagrees with the plain "
+                 f"version's at {label}: {err}")
+        row = by_name[name]
+        row["grad_fwd_max_err"] = max(row.get("grad_fwd_max_err", 0.0), fwd)
+        row["grad_max_err"] = max(row.get("grad_max_err", 0.0), err)
+        row["grad_backward_ms"] = row.get("grad_backward_ms", 0.0) + bwd_ms
+        row["plain_backward_ms"] = (row.get("plain_backward_ms", 0.0)
+                                    + plain_bwd_ms)
+        row.setdefault("grad_shapes", []).append(label)
+
+    T, B, H = TRAIN_GRAD_LSTM
+    args = [req(a) for a in _lstm_inputs(torch, gen, T, B, H, "cpu")]
+    record("lstm_recurrence", f"T={T} B={B} H={H}", *_function_grad(
+        torch, lstm_recurrence, lstm_recurrence_reference, args,
+        [g_like(T, B, H), g_like(B, H), g_like(B, H)]))
+
+    for B, C, T in TRAIN_GRAD_BLOCKS:
+        x, weights = _resblock_inputs(torch, gen, B, C, T, "cpu")
+        x, weights = req(x), [req(w) for w in weights]
+        packed = pack_resblock_weights(weights[0], weights[2], weights[4])
+
+        def halo(x):
+            return pad1d(x[..., :3], 2, 0, mode="reflect")[..., :2].contiguous()
+
+        record("seanet_resblock", f"B={B} C={C} T={T}", *_function_grad(
+            torch, lambda x, *w: seanet_resblock(x, halo(x), *w,
+                                                 packed=packed),
+            lambda x, *w: seanet_resblock_reference(x, halo(x), *w),
+            [x, *weights], [g_like(B, C, T)]))
+
+    B, C, T = TRAIN_GRAD_PACKED
+    x, (w1, b1, w2, b2, ws, bs) = _resblock_inputs(torch, gen, B, C, T, "cpu")
+    args = [req(a) for a in (x.transpose(1, 2).contiguous(),
+                             w1.permute(2, 1, 0).contiguous(), b1,
+                             w2[..., 0].T.contiguous(), b2,
+                             ws[..., 0].T.contiguous(), bs)]
+    record("seanet_resblock_packed", f"B={B} C={C} T={T}", *_function_grad(
+        torch, seanet_resblock_packed, seanet_resblock_packed_reference,
+        args, [g_like(B, T, C)]))
+
+    B, C, T, d = TRAIN_GRAD_UNIT
+    x, weights = _unit_inputs(torch, gen, B, C, T, "cpu")
+    x, weights = req(x), [req(w) for w in weights]
+    packed = pack_resunit_weights(weights[0], weights[3])
+    record("dac_resunit", f"B={B} C={C} T={T} d={d}", *_function_grad(
+        torch, lambda x, *w: dac_resunit(x, *w, d, packed=packed),
+        lambda x, *w: dac_resunit_reference(x, *w, d), [x, *weights],
+        [g_like(B, C, T)]))
+
+
+def _train_batches(rng, B, seconds, sr, n):
+    """``examples/train_codec.py``'s synthetic batches: the example signal
+    at a random gain in [0.5, 1) plus N(0, 0.05²) noise."""
+    from audiocodecs_tpu_torch.utils.audio import example_signal
+
+    base = example_signal(sr, seconds)
+    out = []
+    for _ in range(n):
+        noise = rng.standard_normal((B, base.shape[0])).astype(np.float32)
+        out.append((base[None] * rng.uniform(0.5, 1.0)
+                    + 0.05 * noise).astype(np.float32))
+    return out
+
+
+def _trainer(torch, model):
+    """EnCodec's published recipe on one card: Adam at 3e-4, betas (0.5,
+    0.9); EMA codebooks (decay 0.99); the spectral term at weight 1.0,
+    ramped in over two updates from the first."""
+    from audiocodecs_tpu_torch.parallel.train import (
+        init_codec_opt_state, make_codec_train_step)
+
+    optimizer = torch.optim.Adam(model.parameters(), lr=3e-4,
+                                 betas=(0.5, 0.9))
+    state = init_codec_opt_state(optimizer, model, 8)
+    step = make_codec_train_step(model, 8, spec_weight=1.0, ema_decay=0.99,
+                                 spec_delay=0, spec_ramp=2)
+    return state, step
+
+
+def _rel_l2(a, b) -> float:
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def _train_parity(torch, sr):
+    """Step 1 on the card against the port's CPU path: same weights, same
+    B = 2 x 1 s batch. Losses within 1e-4 relative, each gradient within
+    1e-3 relative L2, the tokens of the batch (token_match >= 0.999), the
+    EMA codebooks after the update within 1e-4 of max|codebook|."""
+    from audiocodecs_tpu_torch.models.encodec import Encodec
+
+    model, cpu = _server_pair(torch, Encodec, sr, sr, num_codebooks=8)
+    sig, = _train_batches(np.random.default_rng(1), 2, 1.0, sr, 1)
+    toks, t_cpu = model.sig_to_toks(sig).cpu(), cpu.sig_to_toks(sig)
+    mism = int((toks != t_cpu).sum())
+    match = 1.0 - mism / t_cpu.numel()
+    t0 = time.perf_counter()
+    mets = []
+    for m in (model, cpu):
+        state, step = _trainer(torch, m)
+        mets.append({k: float(v) for k, v in step(state, sig).items()})
+    cpu_s = time.perf_counter() - t0
+    m_err = {k: abs(mets[0][k] - mets[1][k]) / max(abs(mets[1][k]), 1e-30)
+             for k in ("loss", "recon", "commit", "spec")}
+    g_err = {}
+    for (name, p), q in zip(model.named_parameters(), cpu.parameters()):
+        if p.grad is None or q.grad is None:
+            if not (p.grad is None and q.grad is None and name == "codebooks"):
+                fail(f"train parity: {name} has a gradient on one side only")
+            continue
+        g_err[name] = _rel_l2(p.grad.cpu(), q.grad)
+    worst = max(g_err, key=g_err.get)
+    cb_err = float((model.codebooks.detach().cpu() - cpu.codebooks.detach())
+                   .abs().max()) / float(cpu.codebooks.detach().abs().max())
+    log(f"train step 1, card vs CPU (B=2 x 1 s): token_match={match:.6f} "
+        f"({mism} of {t_cpu.numel()} differ); metrics rel err "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in m_err.items()})} "
+        f"(limit 1e-4); gradient rel L2 worst {g_err[worst]:.3e} ({worst}; "
+        f"limit 1e-3) over {len(g_err)} tensors; EMA codebooks after the "
+        f"update max_rel_err={cb_err:.3e} (limit 1e-4); cpu_seconds="
+        f"{cpu_s:.1f}")
+    if not match >= 0.999:
+        fail(f"train parity: token_match {match} < 0.999")
+    if not max(m_err.values()) <= 1e-4:
+        fail(f"train parity: metrics differ from the CPU path: {m_err}")
+    if not g_err[worst] <= 1e-3:
+        fail(f"train parity: gradient of {worst} differs from the CPU path "
+             f"by {g_err[worst]} (relative L2)")
+    if not cb_err <= 1e-4:
+        fail(f"train parity: EMA codebooks differ from the CPU path: {cb_err}")
+
+
+def phase_train(torch, rows, card):
+    """EnCodec-24 kHz training at its published width on the card: each
+    kernel and its Function at the path's shapes (``phase_train_grads``),
+    step 1 against the CPU path (``_train_parity``), then the counted run
+    of ``TRAIN_STEPS`` steps on B = 8 x 1 s synthetic batches (4 B1 and 8
+    B2 launches a step, every encoder and decoder gradient finite and
+    nonzero after step 1), the warm step's time (median of steps 3-8, CUDA
+    events), audio seconds a wall second, peak memory, and one profiled
+    step: its split into forward, backward and update, the kernels each
+    part launched, and the time of B1's and B2's recompute inside the
+    backward (``_train_step_split``)."""
+    from audiocodecs_tpu_torch.models.encodec import Encodec
+
+    sr = 24000
+    phase_train_grads(torch, rows, card)
+    _train_parity(torch, sr)
+
+    model = Encodec(sr, sr, num_codebooks=8, device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+    state, step = _trainer(torch, model)
+    batches = [torch.as_tensor(b, device="cuda") for b in _train_batches(
+        np.random.default_rng(0), TRAIN_B, 1.0, sr, TRAIN_STEPS + 2)]
+    torch.cuda.synchronize()
+
+    # the counted run: the training path only
+    reset_counts()
+    recon, step_ms, per_step = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = read_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        met = step(state, batches[i])
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        recon.append(float(met["recon"]))
+        if not all(math.isfinite(float(v)) for v in met.values()):
+            fail(f"train step {i + 1}: non-finite metrics {met}")
+        if i == 0:
+            bad = [n for n, p in model.named_parameters() if n != "codebooks"
+                   and (p.grad is None or not bool(torch.isfinite(p.grad).all())
+                        or float(p.grad.abs().max()) == 0.0)]
+            n_params = sum(1 for _ in model.parameters())
+            log(f"train step 1 gradient coverage: {n_params - 1 - len(bad)} "
+                f"of {n_params - 1} encoder and decoder tensors finite and "
+                f"nonzero; codebooks (EMA) gradient "
+                f"{'none' if model.codebooks.grad is None else 'present'}")
+            if bad or model.codebooks.grad is not None:
+                fail(f"train step 1: gradients missing, zero or non-finite: "
+                     f"{bad[:8]}")
+    counts = read_counts()
+    log(f"encodec_24k_train launches over {TRAIN_STEPS} steps: "
+        f"{json.dumps(counts)}; a step: {per_step[0]}")
+    if counts != _launch_table(4 * TRAIN_STEPS, 8 * TRAIN_STEPS) or any(
+            s != _launch_table(4, 8) for s in per_step):
+        fail(f"encodec_24k_train: expected 4 B1 and 8 B2 launches a step, "
+             f"got {per_step}")
+    _add_launches(rows, "encodec_24k_train", counts)
+    log(f"train recon over steps 1-{TRAIN_STEPS}: "
+        f"{json.dumps([round(r, 6) for r in recon])}")
+
+    warm = statistics.median(step_ms[TRAIN_TIMED])
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batches[TRAIN_STEPS])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train warm step B={TRAIN_B} x 1 s ({card}): median "
+        f"{warm:.3f} ms over steps 3-{TRAIN_STEPS} "
+        f"{json.dumps([round(t, 3) for t in step_ms])}; "
+        f"audio_seconds_per_wall_second={TRAIN_B * 1.0 / (warm / 1e3):.3f}; "
+        f"peak_mem_bytes={peak}")
+    before = read_counts()
+    prof = phase_profile(torch, lambda: step(state, batches[TRAIN_STEPS + 1]),
+                         warm, what=f"train step ({card})")
+    after = read_counts()
+    if {k: after[k] - before[k] for k in after} != _launch_table(4, 8):
+        fail(f"train step: the profiled step did not launch 4 B1 and 8 B2: "
+             f"{before} -> {after}")
+    if prof is None:
+        fail("train step: the profiler saw no device time, so the step's "
+             "split and its launches by part cannot be read")
+    _train_step_split(prof, card)
+
+
+# the device name of each counted wrapper's kernel (B3 runs B2's kernel)
+_KERNEL_NAMES = {"lstm_recurrence": "lstm_recurrence_kernel",
+                 "seanet_resblock": "seanet_resblock_kernel",
+                 "dac_resunit": "dac_resunit_kernel"}
+_STEP_PARTS = ("forward", "backward", "update")
+
+
+def _train_step_split(prof, card):
+    """The profiled train step taken apart by ``make_codec_train_step``'s
+    own ranges ``codec_train_step.{forward,backward,update}``: each part's
+    host time and device window, the package's kernels launched in each
+    (4 B1 and 8 B2 in the forward, none in the backward or the update),
+    and the recompute ranges of B1's and B2's Functions inside the
+    backward.
+
+    The forward and the update launch from the calling thread, so their
+    ranges' device spans hold their kernels. The backward's kernels are
+    launched by autograd's device thread, outside the caller's range: on
+    the one stream they run after the forward's last kernel and before the
+    update's first, so that gap is the backward's device window (its idle
+    time included)."""
+    from torch.autograd import DeviceType
+
+    spans, host, kernels = {}, {}, []
+    for evt in prof.events():
+        name = evt.name
+        if evt.device_type == DeviceType.CUDA:
+            if getattr(evt, "is_user_annotation", False):
+                spans.setdefault(name, []).append(
+                    (evt.time_range.start, evt.time_range.end))
+            else:
+                kernels.append((evt.time_range.start, name))
+        elif name.startswith("codec_train_step."):
+            host[name] = host.get(name, 0.0) + evt.cpu_time_total / 1e3
+    for part in _STEP_PARTS:
+        key = f"codec_train_step.{part}"
+        if key not in host or (part != "backward"
+                               and len(spans.get(key, ())) != 1):
+            fail(f"train step: the profile has no single range {key} on "
+                 f"the host and the device: {sorted(spans)}")
+    fwd = spans["codec_train_step.forward"][0]
+    upd = spans["codec_train_step.update"][0]
+    windows = {"forward": fwd, "backward": (fwd[1], upd[0]), "update": upd}
+    split, by_part = {}, {}
+    for part, (lo, hi) in windows.items():
+        split[part] = {"host_ms": round(host[f"codec_train_step.{part}"], 3),
+                       "device_window_ms": round((hi - lo) / 1e3, 3)}
+        by_part[part] = {c: sum(1 for t, n in kernels
+                                if k in n and lo <= t < hi)
+                         for c, k in _KERNEL_NAMES.items()}
+    log(f"train step split (the profiled step, {card}): {json.dumps(split)}")
+    log(f"train step kernel launches by part: {json.dumps(by_part)}")
+    want = {"lstm_recurrence": 4, "seanet_resblock": 8, "dac_resunit": 0}
+    none = dict.fromkeys(want, 0)
+    if (by_part["forward"] != want or by_part["backward"] != none
+            or by_part["update"] != none):
+        fail(f"train step: expected 4 B1 and 8 B2 launches in the forward "
+             f"and none in the backward or the update, got {by_part}")
+    # each recompute range twice: on the host (its time there and its
+    # kernels' device time) and on the device (the span of its kernels)
+    ranges = {}
+    for evt in prof.key_averages():
+        if evt.key not in ("lstm_recurrence.backward",
+                           "seanet_resblock.backward"):
+            continue
+        r = ranges.setdefault(evt.key, {})
+        if evt.device_type == DeviceType.CUDA:
+            r["device_span_ms"] = round(_device_us(evt) / 1e3, 3)
+        else:
+            r.update(count=evt.count,
+                     host_ms=round(evt.cpu_time_total / 1e3, 3),
+                     kernels_ms=round(_device_us(evt) / 1e3, 3))
+    log(f"train step recompute inside the backward ({card}): "
+        f"{json.dumps(ranges)}")
+
+
 _KERNEL_GROUPS = (("lstm_recurrence", "lstm_recurrence_kernel"),
                   ("seanet_resblock", "seanet_resblock_kernel"),
                   ("dac_resunit", "dac_resunit_kernel"),
@@ -1413,7 +1791,8 @@ def _device_us(evt) -> float:
 
 def phase_profile(torch, fn, wall_ms, what="roundtrip", top=12):
     """Device time of one run of ``fn`` by kernel (torch.profiler), beside
-    its wall time ``wall_ms``."""
+    its wall time ``wall_ms``; returns the profile (None if it saw no
+    device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1423,13 +1802,16 @@ def phase_profile(torch, fn, wall_ms, what="roundtrip", top=12):
         torch.cuda.synchronize()
     kernels = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        # a profiler range (record_function) also shows on the device as
+        # the span of its kernels; it is no kernel of its own
+        if evt.device_type != DeviceType.CUDA or getattr(
+                evt, "is_user_annotation", False):
             continue
         kernels.append((_device_us(evt) / 1e3, evt.count, evt.key))
     busy = sum(k[0] for k in kernels)
     if busy <= 0:
         log("profile: the profiler saw no device time (not measured)")
-        return
+        return None
     groups = {}
     for ms, _, key in kernels:
         g = next((g for g, pat in _KERNEL_GROUPS if pat in key.lower()),
@@ -1441,6 +1823,7 @@ def phase_profile(torch, fn, wall_ms, what="roundtrip", top=12):
                       sorted(groups.items(), key=lambda kv: -kv[1])}))
     for ms, count, key in sorted(kernels, reverse=True)[:top]:
         log(f"  {ms:9.3f} ms  x{count:<4d} {key[:100]}")
+    return prof
 
 
 def main() -> None:
@@ -1467,6 +1850,7 @@ def main() -> None:
     phase_encodec_vocos(torch, rows)
     phase_encodec_48k(torch, rows)
     phase_past(torch, rows)
+    phase_train(torch, rows, card)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))
     log(f"card: {card}")

@@ -8,7 +8,10 @@ runs on a machine that has only PyTorch:
 
 Tolerances: kernel against plain version 1e-5 (absolute for the LSTM,
 relative to max(1, max|ref|) for the blocks and the DAC unit), the limits
-``chip_smoke.py`` uses.
+``chip_smoke.py`` uses. A Function's gradient (kernel forward, backward
+recomputed through the plain version) against autograd through the plain
+version: 1e-4 of the plain gradient's max|g| (cuDNN may pick another
+backward algorithm for the two, in another summation order).
 """
 
 import numpy as np
@@ -645,3 +648,203 @@ def test_chunked_48k_style_encodec_on_the_card_matches_cpu(dev):
     assert tuple(y.shape) == (2, 3 * 240 + 320)
     assert (toks.cpu() == cpu.sig_to_toks(sig)).float().mean() >= 0.999
     assert _decode_close(y, cpu.toks_to_sig(toks.cpu()))
+
+
+# --------------------------------------------------------------------------
+# Training: the Functions' gradients and a full-width EnCodec step
+# --------------------------------------------------------------------------
+
+
+def _grads_vs_plain(fn, plain, args, g_outs):
+    """Gradients of ``fn`` (the Function: kernel forward, recompute
+    backward) and of ``plain`` (autograd through the plain version) for
+    every tensor of ``args`` that requires grad, with the output
+    gradients ``g_outs``; returns the worst forward error relative to
+    max(1, max|plain output|) and the worst gradient error relative to the
+    plain gradient's max|g|."""
+    leaves = [a for a in args if isinstance(a, torch.Tensor)
+              and a.requires_grad]
+    worst_fwd, worst = 0.0, 0.0
+    outs = []
+    grads = []
+    for f in (fn, plain):
+        with exact_fp32():
+            out = f(*args)
+            out = out if isinstance(out, tuple) else (out,)
+            loss = sum((o * g).sum() for o, g in zip(out, g_outs))
+            grads.append(torch.autograd.grad(loss, leaves))
+        outs.append(out)
+    for o, w in zip(*outs):
+        worst_fwd = max(worst_fwd, float((o - w).detach().abs().max())
+                        / max(1.0, float(w.detach().abs().max())))
+    for g, w in zip(*grads):
+        worst = max(worst, float((g - w).abs().max())
+                    / max(float(w.abs().max()), 1e-30))
+    return worst_fwd, worst
+
+
+def _req(a, dev):
+    return _t(a, dev).requires_grad_()
+
+
+@pytest.mark.parametrize("T,B,H", [(75, 8, 512), (20, 3, 1024), (5, 40, 512)])
+def test_lstm_function_gradient_matches_plain_on_the_card(dev, T, B, H):
+    """Forward one B1 launch (or more, B = 40 at H = 512 is two), backward
+    none: the recompute runs the plain version."""
+    rng = np.random.default_rng(T + B + H)
+    s = 1 / np.sqrt(H)
+    args = [_req(rng.standard_normal((T, B, 4 * H)) * 0.5, dev),
+            _req(rng.uniform(-s, s, (H, 4 * H)), dev),
+            _req(rng.standard_normal((B, H)) * 0.1, dev),
+            _req(rng.standard_normal((B, H)) * 0.1, dev)]
+    g_outs = [_t(rng.standard_normal(sh), dev)
+              for sh in ((T, B, H), (B, H), (B, H))]
+    before = lstm_recurrence.launches
+    fwd, err = _grads_vs_plain(lstm_recurrence, lstm_recurrence_reference,
+                               args, g_outs)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches - before == -(-B // (32 if H == 512
+                                                         else 16))
+    assert fwd <= 1e-5 and err <= 1e-4
+
+
+@pytest.mark.parametrize("C,T,pad_mode", [(32, 24000, "reflect"),
+                                          (256, 600, "constant"),
+                                          (64, 3, "reflect")])
+def test_block_function_gradient_matches_plain_on_the_card(dev, C, T,
+                                                           pad_mode):
+    """The halo built from x as the model builds it: x's gradient includes
+    the halo's share."""
+    rng = np.random.default_rng(C + T)
+    Hc = C // 2
+    x = _req(rng.standard_normal((2, C, T)), dev)
+    weights = [_req(rng.standard_normal(s) / np.sqrt(f), dev) for s, f in (
+        ((Hc, C, 3), 3 * C), ((Hc,), 3 * C), ((C, Hc, 1), Hc), ((C,), Hc),
+        ((C, C, 1), C), ((C,), C))]
+    packed = pack_resblock_weights(weights[0], weights[2], weights[4])
+
+    def halo(x):
+        return pad1d(x[..., :3], 2, 0, mode=pad_mode)[..., :2].contiguous()
+
+    before = seanet_resblock.launches
+    fwd, err = _grads_vs_plain(
+        lambda x, *w: seanet_resblock(x, halo(x), *w, packed=packed),
+        lambda x, *w: seanet_resblock_reference(x, halo(x), *w),
+        [x, *weights], [_t(rng.standard_normal((2, C, T)), dev)])
+    torch.cuda.synchronize()
+    assert seanet_resblock.launches - before == 1
+    assert fwd <= 1e-5 and err <= 1e-4
+
+
+def test_packed_entry_function_gradient_matches_plain_on_the_card(dev):
+    rng = np.random.default_rng(7)
+    C, T = 64, 1001
+    args = [_req(rng.standard_normal((2, T, C)), dev),
+            _req(rng.standard_normal((3, C, C // 2)) / np.sqrt(3 * C), dev),
+            _req(rng.standard_normal(C // 2) * 0.1, dev),
+            _req(rng.standard_normal((C // 2, C)) / np.sqrt(C), dev),
+            _req(rng.standard_normal(C) * 0.1, dev),
+            _req(rng.standard_normal((C, C)) / np.sqrt(C), dev),
+            _req(rng.standard_normal(C) * 0.1, dev)]
+    before = seanet_resblock_packed.launches
+    fwd, err = _grads_vs_plain(seanet_resblock_packed,
+                               seanet_resblock_packed_reference, args,
+                               [_t(rng.standard_normal((2, T, C)), dev)])
+    torch.cuda.synchronize()
+    assert seanet_resblock_packed.launches - before == 1
+    assert fwd <= 1e-5 and err <= 1e-4
+
+
+@pytest.mark.parametrize("C,T,d", [(192, 22050, 1), (96, 1001, 9)])
+def test_dac_unit_function_gradient_matches_plain_on_the_card(dev, C, T, d):
+    rng = np.random.default_rng(C + d)
+    x = _req(rng.standard_normal((1, C, T)) * 0.5, dev)
+    w = [_req(rng.standard_normal((C, C, 7)) / np.sqrt(7 * C), dev),
+         _req(rng.standard_normal(C) * 0.1, dev),
+         _req(np.abs(rng.standard_normal(C)) + 0.5, dev),
+         _req(rng.standard_normal((C, C, 1)) / np.sqrt(C), dev),
+         _req(rng.standard_normal(C) * 0.1, dev),
+         _req(np.abs(rng.standard_normal(C)) + 0.5, dev)]
+    packed = pack_resunit_weights(w[0], w[3])
+    before = dac_resunit.launches
+    fwd, err = _grads_vs_plain(
+        lambda x, *w: dac_resunit(x, *w, d, packed=packed),
+        lambda x, *w: dac_resunit_reference(x, *w, d),
+        [x, *w], [_t(rng.standard_normal((1, C, T)), dev)])
+    torch.cuda.synchronize()
+    assert dac_resunit.launches - before == 1
+    assert fwd <= 1e-5 and err <= 1e-4
+
+
+def test_full_width_encodec_training_step_on_the_card(dev):
+    """EnCodec-24 kHz at its published width, B = 2 x 1 s, EMA codebooks
+    and the spectral term: the forward launches B1 4 times and B2 8 times,
+    the backward launches neither; every encoder and decoder parameter gets
+    a finite, nonzero gradient (the codebooks none: the EMA rule trains
+    them); a second step repacks each block once and its blocks run the
+    new weights."""
+    from audiocodecs_tpu_torch.nn.seanet import (
+        ResBlock,
+        _apply_resnet,
+        _resnet_plain,
+    )
+    from audiocodecs_tpu_torch.parallel.train import (
+        codec_loss,
+        init_codec_opt_state,
+        make_codec_train_step,
+    )
+
+    model = Encodec(24000, 24000, num_codebooks=8, device=dev,
+                    generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    sig = torch.from_numpy((rng.standard_normal((2, 24000)) * 0.1)
+                           .astype(np.float32)).to(dev)
+    before = _launches()
+    with exact_fp32():
+        loss, (metrics, _) = codec_loss(model, sig, 8,
+                                        spec_weight=torch.tensor(0.5),
+                                        ema=True)
+        torch.cuda.synchronize()
+        fwd = _delta(before)
+        loss.backward()
+        torch.cuda.synchronize()
+    assert fwd == (4, 8, 0, 0)
+    assert _delta(before) == fwd
+    for name, p in model.named_parameters():
+        if name == "codebooks":
+            assert p.grad is None
+            continue
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name
+        assert float(p.grad.abs().max()) > 0, name
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+    optimizer = torch.optim.Adam(model.parameters(), lr=3e-4,
+                                 betas=(0.5, 0.9))
+    state = init_codec_opt_state(optimizer, model, 8)
+    step = make_codec_train_step(model, 8, spec_weight=1.0, spec_ramp=2)
+    blocks = [m for m in model.modules() if isinstance(m, ResBlock)]
+    assert len(blocks) == 8
+    # the first step's forward finds the weights the layouts were built for
+    # above; its update changes them, so the second step's forward repacks
+    # each block once
+    for want_packs in (0, 8):
+        packs, before = pack_resblock_weights.packs, _launches()
+        met = step(state, sig)
+        torch.cuda.synchronize()
+        assert _delta(before) == (4, 8, 0, 0)
+        assert pack_resblock_weights.packs - packs == want_packs
+        assert all(bool(torch.isfinite(v)) for v in met.values())
+    # the layouts the blocks hold are the current weights', and a block
+    # run through the kernel agrees with the plain path on them
+    blk = blocks[0]
+    for got, want in zip(blk.packed_weights(), pack_resblock_weights(
+            blk.block[0].w, blk.block[1].w, blk.shortcut.w)):
+        assert torch.equal(got, want)
+    x = _t(rng.standard_normal((2, 32, 4001)), dev)
+    cfg = model.encoder.cfg
+    with torch.inference_mode():
+        fused = _apply_resnet(x, blk, cfg, (1, 1))
+        plain = _resnet_plain(x, blk, cfg, (1, 1))
+    assert float((fused - plain).abs().max()) <= 1e-5 * max(
+        1.0, float(plain.abs().max()))

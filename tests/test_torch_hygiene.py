@@ -47,7 +47,13 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.ops.lstm_recurrence",
               "audiocodecs_tpu_torch.ops.seanet_resblock",
               "audiocodecs_tpu_torch.params",
-              "audiocodecs_tpu_torch.quant.rvq"):
+              "audiocodecs_tpu_torch.quant.rvq",
+              "audiocodecs_tpu_torch.ops._autograd",
+              "audiocodecs_tpu_torch.parallel.train",
+              "audiocodecs_tpu_torch.downstream.metrics.dsp",
+              "audiocodecs_tpu_torch.utils.audio",
+              "audiocodecs_tpu_torch.utils.checkpoint",
+              "audiocodecs_tpu_torch.examples.train_codec"):
         assert m in mods
 
 
@@ -75,6 +81,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.models.mimi" in loaded
     assert "audiocodecs_tpu_torch.models.wavtokenizer" in loaded
     assert "audiocodecs_tpu_torch.models.past" in loaded
+    assert "audiocodecs_tpu_torch.parallel.train" in loaded
+    assert "audiocodecs_tpu_torch.examples.train_codec" in loaded
     assert not [m for m in loaded if _is_reference(m)]
 
 
@@ -125,6 +133,18 @@ def test_default_device_is_the_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device(None) == torch.device("cuda")
+
+
+def test_train_entry_point_defaults_to_the_card(monkeypatch, tmp_path):
+    """Without ``--device`` the trainer asks for the card and raises where
+    there is none; it does not fall back to the CPU."""
+    from audiocodecs_tpu_torch.examples import train_codec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_codec.main(["--steps", "1", "--out",
+                          str(tmp_path / "ckpt.npz")])
+    assert not (tmp_path / "ckpt.npz").exists()
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
