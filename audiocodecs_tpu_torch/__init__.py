@@ -9,13 +9,16 @@ built at first use (:mod:`audiocodecs_tpu_torch.ops._build`).
 Importing the package is light: the codec classes load on first access.
 """
 
-__all__ = ["Codec", "CodecConfig", "DAC", "DACModelConfig", "Encodec",
+__all__ = ["BigCodec", "BigCodecModelConfig", "Codec", "CodecConfig", "DAC",
+           "DACModelConfig", "Encodec",
            "EncodecModelConfig", "Mimi", "MimiModelConfig", "PAST",
            "SEANetRVQCodec", "SEANetRVQConfig", "SpeechTokenizer",
            "SpeechTokenizerModelConfig", "WavTokenizer",
            "WavTokenizerModelConfig"]
 
 _LAZY = {
+    "BigCodec": "audiocodecs_tpu_torch.models.bigcodec",
+    "BigCodecModelConfig": "audiocodecs_tpu_torch.models.bigcodec",
     "Codec": "audiocodecs_tpu_torch.codec",
     "CodecConfig": "audiocodecs_tpu_torch.codec",
     "DAC": "audiocodecs_tpu_torch.models.dac",

@@ -55,6 +55,42 @@
 // memory holds B rows of h and registers the gate inputs of B rows, so the
 // wrapper splits a larger batch into launches of at most
 // lstm_recurrence_max_batch rows.
+//
+// Wide mode, 1024 < H <= 1536 (BigCodec's LSTMs at H = 1536; the TPU
+// kernel's vmem_limit_bytes branch). A 1536-wide w_hh is 37.7 MB: at most
+// 132 blocks can be resident at one an SM, so a block owns U = 12 units
+// (ceil(H / 12) = 128 blocks) and a 1536 x 48 slice of 295 KB, more than a
+// block's shared memory (227 KB) and more than an SM's register file
+// (256 KB). The slice is split between the two: a separate instance,
+// lstm_recurrence_kernel_wide, with 384 threads keeps 80 of each thread's
+// 192 weights in registers (120 KB of the register file) and 112 in shared
+// memory (172 KB), beside the h rows (6.5 KB a batch row). w_hh stays on
+// chip for the whole sequence, as in the narrow instances. A thread block
+// cluster sharing slices over DSMEM adds no room (the 128 blocks already
+// fill 128 of the 132 SMs), and reading part of w_hh from L2 every step
+// would add to the exchange's 12.6 MB of L2 reads a step (B = 8).
+//   * Gate mapping: warp w owns unit j = 12 * block + w and all four of its
+//     gate columns; lane l owns those four columns over k rows
+//     [48 l, 48 l + 48). A float4 of h feeds 16 FMAs, and every lane reads
+//     other bytes of h (a lane's 48 floats are padded to 52, so a
+//     quarter-warp's float4s fall in distinct banks). One lane owning one
+//     column (the first design) read h four FMAs a float4, and the
+//     quarter-warp phases of those loads set the step: 17.3 ms at
+//     (800, 8, 1536) on the H100.
+//   * The 32 lanes' partial sums (4 gates x R rows) meet by a reduce-scatter
+//     of 31 shuffles (R = 8), after which lane (gate, kg) = (l >> 3, l & 7)
+//     holds that gate of row kg; lanes (0, kg) gather the other three gates
+//     of their row by shuffles and keep its cell in a register. No shared
+//     reduction array.
+//   * Rows: the product reads R rows of h a step (R = 8, or R = 1 when
+//     B = 1). A launch takes at most 8 rows; the wrapper splits larger
+//     batches.
+//   * Every warp reads all of h_{t-1}, so the whole block polls the exchange
+//     together (B x H tagged pairs, [2][B][H], 4 rows a pass) into one h
+//     buffer between two __syncthreads a step.
+//   * H need not be a multiple of 12: the last block's spare warps hold zero
+//     weights and publish nothing.
+// Its gx, exactness, exchange and trap rules are the narrow instances'.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -295,6 +331,240 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+namespace wide {
+constexpr int kThreads = 384;                 // 12 warps
+constexpr int kUnits = kThreads / 32;         // one hidden unit a warp
+constexpr int kKL = 48;                       // k rows a lane: Hp = 32 * 48
+constexpr int kKR = 20;                       // of them in registers (x 4),
+constexpr int kKS = kKL - kKR;                // and in shared memory (x 4)
+constexpr int kSeg = kKL + 4;                 // floats of a lane's h segment
+constexpr int kHs = 32 * kSeg;                // floats of an h_s row
+constexpr int kMaxRows = 8;                   // batch rows a launch
+constexpr int kMaxHidden = 32 * kKL;          // 1536
+constexpr int kMinHidden = 1024 + 32;         // narrower H: the narrow kernel
+constexpr int kPollRows = kPoll / 4;          // rows a polling pass
+constexpr int kColsPerThread = 4;             // ceil(1536 / 384) k a row
+
+// Shared memory of a block reading R rows of h: w_s [kKS][kThreads] float4
+// (the four gates) and h_s [R][kHs].
+constexpr size_t smem_bytes(int R) {
+  return sizeof(float) * (4 * (size_t)kKS * kThreads + (size_t)R * kHs);
+}
+}  // namespace wide
+
+// Sums v[0..N) (N = 4R, a power of two <= 32) over the 32 lanes, scattered:
+// the level of offset o halves the values a lane keeps while more than one
+// is left (the lane's bit o picks the half), then adds. Afterwards lane L
+// holds the total of value L >> 3 (R = 1, the same over each 8 lanes) or
+// of value L (R = 8): in both cases gate L >> 3 of row L & 7, as the values
+// are ordered gate * R + row.
+template <int n, int o, int N>
+__device__ __forceinline__ float reduce_scatter(float (&v)[N], int lane) {
+  if constexpr (o == 0) {
+    return v[0];
+  } else if constexpr (n > 1) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int q = 0; q < n / 2; ++q) {
+      const float send = up ? v[q] : v[q + n / 2];
+      const float keep = up ? v[q + n / 2] : v[q];
+      v[q] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    return reduce_scatter<n / 2, o / 2>(v, lane);
+  } else {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+    return reduce_scatter<1, o / 2>(v, lane);
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    lstm_recurrence_kernel_wide(const float* __restrict__ gx,
+                                const float* __restrict__ w_hh,
+                                const float* __restrict__ h0,
+                                const float* __restrict__ c0,
+                                float* __restrict__ ys,
+                                float* __restrict__ h_out,
+                                float* __restrict__ c_out, u64* pairs, int T,
+                                int B, int ldb, int H) {
+  // the wide layout's constants (kThreads hides the narrow instances' 256)
+  constexpr int kThreads = wide::kThreads, kUnits = wide::kUnits;
+  constexpr int kKL = wide::kKL, kKR = wide::kKR, kKS = wide::kKS;
+  constexpr int kSeg = wide::kSeg, kHs = wide::kHs;
+  constexpr int kPollRows = wide::kPollRows, kCols = wide::kColsPerThread;
+  extern __shared__ __align__(16) float smem[];
+  float4* w_s = reinterpret_cast<float4*>(smem);  // [kKS][kThreads]
+  float* h_s = smem + 4 * kKS * kThreads;         // [R][kHs]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int j = blockIdx.x * kUnits + warp;  // this warp's hidden unit
+  const bool unit = j < H;                   // the last block may have fewer
+  const int H4 = 4 * H, k0 = lane * kKL;     // this lane's k range
+  // after the reduction lane (gate, kg) = (lane >> 3, lane & 7) holds that
+  // gate of row kg
+  const int gate = lane >> 3, b = lane & 7;
+  const bool row = unit && b < R && b < B;
+  const int col = gate * H + j;
+  // pairs: the exchange, [2][B][H] tagged pairs
+
+  auto w_at = [&](int k, int g) {
+    return unit && k < H ? __ldg(w_hh + (size_t)k * H4 + g * H + j) : 0.f;
+  };
+  float w_r[kKR][4];
+#pragma unroll
+  for (int i = 0; i < kKR; ++i)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) w_r[i][g] = w_at(k0 + i, g);
+  for (int i = 0; i < kKS; ++i) {
+    const int k = k0 + kKR + i;
+    w_s[i * kThreads + tid] =
+        make_float4(w_at(k, 0), w_at(k, 1), w_at(k, 2), w_at(k, 3));
+  }
+  // h_0; rows >= B, columns >= H and the segments' pads stay zero for the
+  // whole sequence
+  for (int idx = tid; idx < R * kHs; idx += kThreads) {
+    const int r = idx / kHs, i = idx % kSeg, k = idx % kHs / kSeg * kKL + i;
+    h_s[idx] = r < B && i < kKL && k < H ? h0[r * H + k] : 0.f;
+  }
+  // the h_s offsets of the k positions this thread polls in every row
+  int at[kCols];
+#pragma unroll
+  for (int m = 0; m < kCols; ++m) {
+    const int k = tid + kThreads * m;
+    at[m] = k < H ? k / kKL * kSeg + k % kKL : -1;
+  }
+  // lane (0, kg) keeps the cell of row kg
+  float c = row && gate == 0 ? c0[b * H + j] : 0.f;
+  auto gx_at = [&](int t) {
+    return row ? __ldg(gx + ((size_t)t * ldb + b) * H4 + col) : 0.f;
+  };
+  float gx_cur = gx_at(0), gx_next = 0.f;
+
+  // clear this block's part of the exchange, then the one grid barrier
+  // (a single step exchanges nothing)
+  const int BH = B * H;
+  if (T > 1) {
+    for (int idx = tid; idx < 2 * B * kUnits; idx += kThreads) {
+      const int r = idx % (B * kUnits);
+      const int jj = blockIdx.x * kUnits + r % kUnits;
+      if (jj < H)
+        pairs[(size_t)(idx / (B * kUnits)) * BH + (r / kUnits) * H + jj] =
+            0ull;
+    }
+    cg::this_grid().sync();
+  } else {
+    __syncthreads();
+  }
+
+  const float* hb = h_s + lane * kSeg;  // this lane's k range, row 0
+  for (int t = 0; t < T; ++t) {
+    if (t + 1 < T) gx_next = gx_at(t + 1);
+
+    // h_{t-1} into h_s, once every producer has published it, kPollRows
+    // rows a pass; the first barrier waits until every warp is done with
+    // h_{t-2}
+    if (t > 0) {
+      __syncthreads();
+      const u64* src = pairs + (size_t)((t - 1) & 1) * BH;
+      const unsigned want = t;
+      unsigned polls = 0;
+      for (int b0 = 0; b0 < B; b0 += kPollRows) {
+        auto ok = [&](int q) {
+          return b0 + q / kCols < B && at[q % kCols] >= 0;
+        };
+        auto addr = [&](int q) {
+          return src + (size_t)(b0 + q / kCols) * H + tid +
+                 kThreads * (q % kCols);
+        };
+        u64 v[kPoll];
+#pragma unroll
+        for (int q = 0; q < kPoll; ++q)
+          v[q] = ok(q) ? ld_relaxed(addr(q)) : u64{want} << 32;
+        // one round trip a pass: reload every pair not yet of step t
+        for (;; count_poll(polls)) {
+          unsigned miss = 0;
+#pragma unroll
+          for (int q = 0; q < kPoll; ++q)
+            if (static_cast<unsigned>(v[q] >> 32) != want) miss |= 1u << q;
+          if (!miss) break;
+#pragma unroll
+          for (int q = 0; q < kPoll; ++q)
+            if (miss >> q & 1) v[q] = ld_relaxed(addr(q));
+        }
+#pragma unroll
+        for (int q = 0; q < kPoll; ++q)
+          if (ok(q))
+            h_s[(b0 + q / kCols) * kHs + at[q % kCols]] =
+                __uint_as_float(static_cast<unsigned>(v[q]));
+      }
+      __syncthreads();
+    }
+
+    // the four gate columns of this warp's unit over this lane's k range,
+    // R rows: registers, then shared memory; 16 FMAs a float4 of h
+    float acc[4 * R];
+#pragma unroll
+    for (int q = 0; q < 4 * R; ++q) acc[q] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kKR; i += 4) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 hv = *reinterpret_cast<const float4*>(hb + r * kHs + i);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float& a = acc[g * R + r];
+          a = fmaf(hv.x, w_r[i][g], a);
+          a = fmaf(hv.y, w_r[i + 1][g], a);
+          a = fmaf(hv.z, w_r[i + 2][g], a);
+          a = fmaf(hv.w, w_r[i + 3][g], a);
+        }
+      }
+    }
+#pragma unroll 1
+    for (int i = 0; i < kKS; i += 4) {
+      float4 w4[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) w4[m] = w_s[(i + m) * kThreads + tid];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 hv =
+            *reinterpret_cast<const float4*>(hb + r * kHs + kKR + i);
+        const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          acc[0 * R + r] = fmaf(hk[m], w4[m].x, acc[0 * R + r]);
+          acc[1 * R + r] = fmaf(hk[m], w4[m].y, acc[1 * R + r]);
+          acc[2 * R + r] = fmaf(hk[m], w4[m].z, acc[2 * R + r]);
+          acc[3 * R + r] = fmaf(hk[m], w4[m].w, acc[3 * R + r]);
+        }
+      }
+    }
+    const float s = reduce_scatter<4 * R, 16>(acc, lane);
+
+    // gate math for gate (lane >> 3) of row (lane & 7), and the cell update
+    // by lane (0, kg), which gathers the f, g and o gates of its row from
+    // lanes 8, 16, 24 + kg
+    const float g = gx_cur + s;
+    const float a = gate == 2 ? tanhf(g) : acx_sigmoid(g);
+    const float gf = __shfl_sync(0xffffffffu, a, 8 + b);
+    const float gg = __shfl_sync(0xffffffffu, a, 16 + b);
+    const float go = __shfl_sync(0xffffffffu, a, 24 + b);
+    if (row && gate == 0) {
+      const float cn = gf * c + a * gg;
+      const float h = go * tanhf(cn);
+      c = cn;
+      if (t + 1 < T)
+        st_relaxed(pairs + (size_t)(t & 1) * BH + b * H + j,
+                   (static_cast<u64>(t + 1) << 32) | __float_as_uint(h));
+      ys[((size_t)t * ldb + b) * H + j] = h;
+      if (t == T - 1) {
+        h_out[b * H + j] = h;
+        c_out[b * H + j] = cn;
+      }
+    }
+    gx_cur = gx_next;
+  }
+}
+
 // The latency floor of one step: blocks 0 and 1, each holding more than
 // half an SM's shared memory so that they sit on two SMs, pass a tagged pair
 // back and forth `iters` times through L2, two hand-offs a round.
@@ -337,6 +607,27 @@ cudaError_t pick(int H, Tile* tile, Kernel* kernel) {
   return cudaSuccess;
 }
 
+// The wide instance for a launch of B rows at 1024 < H <= 1536: R = 1 for a
+// single row, else R = 8; ceil(H / 12) blocks must fit the card.
+cudaError_t pick_wide(int H, int B, Kernel* kernel, size_t* smem) {
+  if (H < wide::kMinHidden || H % 32 || H > wide::kMaxHidden || B < 1 ||
+      B > wide::kMaxRows ||
+      (H + wide::kUnits - 1) / wide::kUnits > acx_num_sms())
+    return cudaErrorInvalidValue;
+  if (B == 1) {
+    *kernel = lstm_recurrence_kernel_wide<1>;
+    *smem = wide::smem_bytes(1);
+  } else {
+    *kernel = lstm_recurrence_kernel_wide<wide::kMaxRows>;
+    *smem = wide::smem_bytes(wide::kMaxRows);
+  }
+  return cudaFuncSetAttribute(*kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
+}
+
+bool is_wide(int H) { return H >= wide::kMinHidden; }
+
 cudaError_t prepare(int H, int B, Tile* tile, Kernel* kernel, size_t* smem) {
   cudaError_t err = pick(H, tile, kernel);
   if (err != cudaSuccess) return err;
@@ -352,17 +643,28 @@ cudaError_t prepare(int H, int B, Tile* tile, Kernel* kernel, size_t* smem) {
 ACX_EXPORT long lstm_recurrence_exchange_row_bytes(int H) {
   Tile tile;
   Kernel kernel;
+  size_t smem = 0;
+  if (is_wide(H))  // [2][H] tagged pairs
+    return pick_wide(H, 1, &kernel, &smem) == cudaSuccess
+               ? 2L * sizeof(u64) * H
+               : 0;
   if (pick(H, &tile, &kernel) != cudaSuccess) return 0;
   return 2L * sizeof(u64) * layout(tile, 1).Hp;
 }
 
 // The most batch rows one launch takes at H: the largest B whose gate
 // inputs fit the threads' registers (B * 4U <= kGateIters * kThreads) and
-// whose shared memory fits the card's limit.
+// whose shared memory fits the card's limit; in wide mode one row a k group.
 ACX_EXPORT int lstm_recurrence_max_batch(int H) {
   Tile tile;
   Kernel kernel;
   int dev = 0, optin = 0;
+  if (is_wide(H)) {
+    size_t smem = 0;
+    return pick_wide(H, wide::kMaxRows, &kernel, &smem) == cudaSuccess
+               ? wide::kMaxRows
+               : 0;
+  }
   if (pick(H, &tile, &kernel) != cudaSuccess ||
       cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -387,13 +689,17 @@ ACX_EXPORT int lstm_recurrence_f32(const float* gx, const float* w_hh,
   Tile tile;
   Kernel kernel;
   size_t smem = 0;
-  cudaError_t err = prepare(H, B, &tile, &kernel, &smem);
+  const bool wide_mode = is_wide(H);
+  cudaError_t err = wide_mode ? pick_wide(H, B, &kernel, &smem)
+                              : prepare(H, B, &tile, &kernel, &smem);
   if (err != cudaSuccess) return err;
   u64* pairs = static_cast<u64*>(exchange);
   void* args[] = {(void*)&gx,  (void*)&w_hh,  (void*)&h0,    (void*)&c0,
                   (void*)&ys,  (void*)&h_out, (void*)&c_out, (void*)&pairs,
                   (void*)&T,   (void*)&B,     (void*)&ldb,   (void*)&H};
-  const dim3 grid(H / tile.U), block(kThreads);
+  const dim3 grid(wide_mode ? (H + wide::kUnits - 1) / wide::kUnits
+                            : H / tile.U),
+      block(wide_mode ? wide::kThreads : kThreads);
   // The spin-waits need every block resident, which the cooperative launch
   // guarantees (it refuses a grid that does not fit). A single step
   // exchanges nothing, so no block waits on another: a plain launch.
@@ -414,18 +720,20 @@ ACX_EXPORT int lstm_recurrence_info(int H, int B, int* regs, int* local_bytes,
   Tile tile;
   Kernel kernel;
   size_t smem = 0;
-  cudaError_t err = prepare(H, B, &tile, &kernel, &smem);
+  const bool wide_mode = is_wide(H);
+  cudaError_t err = wide_mode ? pick_wide(H, B, &kernel, &smem)
+                              : prepare(H, B, &tile, &kernel, &smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
-                                                      kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, wide_mode ? wide::kThreads : kThreads, smem);
   if (err != cudaSuccess) return err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   *smem_bytes = (int)smem;
-  *units = tile.U;
+  *units = wide_mode ? wide::kUnits : tile.U;
   return cudaSuccess;
 }
 

@@ -5,7 +5,7 @@ whole sequence is one ``torch.matmul`` (TF32 off), written time-major; the
 recurrence always goes through :func:`..ops.lstm_recurrence.lstm_recurrence`,
 which launches the CUDA kernel for CUDA tensors and runs the plain loop for
 CPU tensors. On the card a width the kernel does not take (``H % 32 != 0``
-or ``H > 1024``) raises rather than running the plain loop.
+or ``H > 1536``) raises rather than running the plain loop.
 
 Params per layer: ``{"w_ih": [Cin, 4H], "w_hh": [H, 4H], "b": [4H]}`` with
 the two PyTorch biases summed, as in the reference package. A bidirectional

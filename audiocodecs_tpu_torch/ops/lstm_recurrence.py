@@ -5,8 +5,11 @@ The kernel (``csrc/lstm_recurrence.cu``) replaces the TPU kernel
 cooperative grid in which each block keeps its slice of ``w_hh`` on chip
 and the time loop runs inside the kernel. Blocks hand ``h_t`` to each other
 through an exchange of tagged ``{value, step}`` pairs in device memory,
-with no grid barrier inside the loop. The source's header states its bound
-and design.
+with no grid barrier inside the loop. Up to H = 1024 a block owns 1-8
+units and holds its slice of ``w_hh`` in registers; for 1024 < H <= 1536
+(BigCodec's H = 1536, the TPU kernel's wide mode) a separate instance owns
+12 units a block and holds its 295 KB slice half in registers, half in
+shared memory. The source's header states its bound and design.
 
 :func:`lstm_recurrence` launches the kernel for CUDA tensors and runs
 :func:`lstm_recurrence_reference` for CPU tensors; there is no other path.
@@ -26,7 +29,7 @@ from audiocodecs_tpu_torch.ops._autograd import recompute_vjp
 __all__ = ["handoff_us", "lstm_recurrence", "lstm_recurrence_info",
            "lstm_recurrence_reference", "MAX_HIDDEN"]
 
-MAX_HIDDEN = 1024  # the kernel keeps a [H, 4U] slice of w_hh per SM
+MAX_HIDDEN = 1536  # the kernel keeps a [H, 4U] slice of w_hh per SM
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -153,6 +156,8 @@ def _launch(gates_x, w_hh, h0, c0):
                     "lstm_recurrence kernel launch failed: "
                     + lib.lstm_recurrence_error_string(err).decode())
             lstm_recurrence.launches += 1
+            if H > 1024:
+                lstm_recurrence.wide_launches += 1
     return ys, h_t, c_t
 
 
@@ -184,8 +189,9 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
     """Run one layer's recurrence: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. Same contract as
     :func:`lstm_recurrence_reference`; the kernel takes float32,
-    ``H % 32 == 0`` and ``H <= 1024``. A batch larger than one launch's
-    shared memory holds runs as consecutive row slices, one launch each.
+    ``H % 32 == 0`` and ``H <= 1536``. A batch larger than one launch
+    takes (:func:`lstm_recurrence_info`'s ``max_batch``: 8 rows above
+    H = 1024) runs as consecutive row slices, one launch each.
     Differentiable on both devices: the backward recomputes through the
     plain version (:class:`_Recurrence`) and launches no kernel."""
     if gates_x.device.type not in ("cpu", "cuda"):
@@ -194,6 +200,7 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
 
 
 lstm_recurrence.launches = 0  # kernel launches in this process
+lstm_recurrence.wide_launches = 0  # of them of the wide instance, H > 1024
 
 
 def lstm_recurrence_info(H: int, B: int) -> dict:

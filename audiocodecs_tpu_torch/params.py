@@ -30,7 +30,10 @@ Layouts (reference → port):
   LayerScale vectors and the Vocos ``gamma``, AdaLN tables ``scale``/
   ``shift [n, dim]`` and continuous AdaLN ``scale_w``/``shift_w
   [cond_dim, dim]`` with their biases: unchanged;
-* codebooks ``[K, C, H]``, quantizer projections and biases: unchanged.
+* codebooks ``[K, C, H]``, quantizer projections and biases: unchanged;
+* snake ``α``: ``[C]``, or ``[1, 1, C]`` where the reference keeps it so
+  (BigCodec): flattened here, and restored by :func:`to_jax_params` for a
+  model whose class sets ``JAX_ALPHA_SHAPE``.
 """
 
 from __future__ import annotations
@@ -66,6 +69,8 @@ def _to_port_layout(owner: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
         return a.transpose(2, 1, 3, 0).reshape(g * cin_g, cout // g, k)
     if leaf == "w" and isinstance(owner, Conv1d):
         return a.transpose(2, 1, 0)
+    if leaf.startswith("alpha") and a.ndim == 3 and a.shape[:2] == (1, 1):
+        return a.reshape(-1)
     return a
 
 
@@ -112,6 +117,7 @@ def to_jax_params(state_dict: dict, model: nn.Module):
     ``from_jax_params(to_jax_params(sd, model), model)`` gives ``sd`` back.
     Raises on a missing or extra key."""
     want = model.state_dict()
+    alpha_shape = getattr(model, "JAX_ALPHA_SHAPE", None)
     missing = sorted(set(want) - set(state_dict))
     extra = sorted(set(state_dict) - set(want))
     if missing or extra:
@@ -125,6 +131,8 @@ def to_jax_params(state_dict: dict, model: nn.Module):
         for name in (n for n, _ in own if prefix + n in want):
             t = state_dict[prefix + name].detach().to("cpu", torch.float32)
             a = _to_jax_layout(module, name, t.numpy())
+            if alpha_shape is not None and name.startswith("alpha"):
+                a = a.reshape(alpha_shape)
             node[name] = np.ascontiguousarray(a)
         for name, child in module.named_children():
             sub = tree(child, f"{prefix}{name}.")

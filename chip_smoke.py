@@ -15,14 +15,18 @@ it fails:
    several launches, H=1024, one step (T=1), SpeechTokenizer's 10 s LSTMs
    (T=500, H=1024, B=8 and 1), one EnCodec streaming chunk (T=6, B=8)
    and EnCodec-48k's layer over 88 windows (T=150, B=88, three launches,
-   and its launch shapes B=32 and 24), and two pairs of launches back to
-   back; timings at B and at B=1 (per step) at the main shape, H=1024,
-   T=1, T=500, T=6 and T=150 (B=32, 24) (``time_lstm``: a call, the
+   and its launch shapes B=32 and 24), the wide instance (H > 1024) at
+   BigCodec's 10 s layers (T=800, H=1536, B=8 and 1), a ragged shape, 20
+   rows over three launches, T=1 and H=1088, and two pairs of launches
+   back to back; timings at B and at B=1 (per step) at the main shape,
+   H=1024, T=1, T=500, T=6, T=150 (B=32, 24) and T=800 at H=1536
+   (``time_lstm``: a call, the
    kernel's own device time, and at T=1 calls queued back to back) with
    each one's bound, the kernel's registers, spill and shared bytes;
    ``nn.LSTM`` beside the port's bidirectional layer (T=500, B=8, H=1024),
-   beside one streaming chunk's call and beside the 48k layer (B=32, 24,
-   88); and one inter-SM hand-off, the latency floor of a step;
+   beside one streaming chunk's call, beside the 48k layer (B=32, 24,
+   88) and beside the wide instance (T=800, H=1536, B=8 and 1); and one
+   inter-SM hand-off, the latency floor of a step;
 4. kernel 2, the fused SEANet residual block, against its plain version at
    the main path's four (C, T) shapes (B=8), a ragged one and its widest
    tile (C=384), with timings of the kernel on weights packed once (as the
@@ -37,7 +41,8 @@ it fails:
    and tile), the widest window and ones shorter than their padding, with
    timings of the kernel on weights packed once (as the model calls it),
    the time of one pack, and the kernel's registers, shared bytes and
-   blocks an SM;
+   blocks an SM; then at BigCodec-16k's nine decoder units for
+   B = 8 x 10 s (C = 192, 96, 48 at d = 1, 3, 9) beside the cuDNN path;
 7. the EnCodec path as a small server: EnCodec-24 kHz, 8 codebooks, seeded
    random weights, three requests through ``sig_to_toks`` → ``toks_to_sig``
    with the kernel launches and kernel 2's weight packs counted, parity
@@ -69,7 +74,20 @@ it fails:
 15. PAST-16 kHz as in 9: four kernel-1 and eight kernel-2 launches a
    roundtrip, then the first request streamed in 80 ms chunks (4 frames)
    as in 10;
-16. EnCodec-24 kHz training at its published width (seeded random
+16. BigCodec-16 kHz as in 9 (published width, the encoder's 1024-d output
+   as features): four kernel-1 launches a roundtrip on the wide instance
+   (H = 1536, one launch a layer at B = 8) and nine kernel-3 launches (the
+   decoder's units of C = 192, 96, 48), the fused units packed on the
+   first decode only;
+17. the server: ``CodecServer`` (``audiocodecs_tpu_torch/examples/
+   serve.py``) over BigCodec-16k and EnCodec-24k by registry name,
+   buckets (1, 2, 5, 10) s, 8 rows a batch, 5 ms to gather, the JAX
+   ``examples/serve.py`` main()'s 16 requests at once: every reply of its
+   request's length, finite and equal, bit for bit, to the row of
+   ``codec.roundtrip`` on its padded batch, one roundtrip's launches a
+   batch; requests served, audio and wall seconds, x real time, latency
+   p50/p90;
+18. EnCodec-24 kHz training at its published width (seeded random
    weights, 8 codebooks, EMA codebooks, the spectral term live from the
    second step, Adam at 3e-4 with betas (0.5, 0.9)): first each kernel's
    autograd Function (kernel forward, backward recomputed through the
@@ -104,13 +122,18 @@ _PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
 # main path, ragged, a batch split over several launches, the kernel's
 # widest H, one step (lstm_cell_step); SpeechTokenizer's 10 s LSTMs at B = 8
 # and B = 1, one 80 ms chunk of EnCodec streaming; EnCodec-48k's 88 windows
-# of 150 frames (launches of 32, 32 and 24 rows)
+# of 150 frames (launches of 32, 32 and 24 rows); then the wide instance:
+# BigCodec's 10 s LSTMs at B = 8 and 1, ragged, 20 rows over three launches
+# of 8, one step, and a width off its 12 units a block
 LSTM_SHAPES = [(750, 8, 512), (257, 3, 512), (40, 100, 512), (750, 8, 1024),
                (1, 8, 512), (500, 8, 1024), (500, 1, 1024), (6, 8, 512),
-               (150, 32, 512), (150, 24, 512), (150, 88, 512)]
+               (150, 32, 512), (150, 24, 512), (150, 88, 512),
+               (800, 8, 1536), (800, 1, 1536), (257, 3, 1536),
+               (40, 20, 1536), (1, 8, 1536), (33, 5, 1088)]
 # each also timed at B = 1
 LSTM_TIMED = [(750, 8, 512), (750, 8, 1024), (1, 8, 512), (500, 8, 1024),
-              (6, 8, 512), (150, 32, 512), (150, 24, 512)]
+              (6, 8, 512), (150, 32, 512), (150, 24, 512), (800, 8, 1536)]
+LSTM_WIDE = (800, 8, 1536)  # BigCodec-16k's LSTM layer at B = 8 x 10 s
 RESBLOCK_SHAPES = [(8, 32, 240000), (8, 64, 120000), (8, 128, 30000),
                    (8, 256, 6000)]
 # ragged (T off the 4-sample vectors) and the widest tile
@@ -123,6 +146,10 @@ DAC_UNIT_SHAPES = [(1, 192, 220416, d) for d in (1, 3, 9)] + [
 # ragged; T < 6d; C and T off the chunk and the tile; the widest window
 DAC_UNIT_EXTRA = [(3, 96, 1001, 9), (2, 8, 20, 9), (1, 200, 4099, 9),
                   (1, 256, 4097, 9)]
+# BigCodec-16k's decoder units for B = 8 x 10 s (the nine of a decode)
+DAC_UNIT_BIGCODEC = [(8, C, T, d) for C, T in ((192, 40000), (96, 80000),
+                                               (48, 160000))
+                     for d in (1, 3, 9)]
 # the Functions' gradients at the training step's shapes: (T, B, H) for B1,
 # (B, C, T) for B2 (EnCodec-24k's four blocks at B = 8 x 1 s) and B3, and
 # (B, C, T, dilation) for B4
@@ -211,11 +238,14 @@ def ptxas_report(out: str) -> list:
     for line in out.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"(lstm_(?:recurrence|handoff_probe)_kernel)"
-                          r"(ILi(\d+)ELi(\d+)E)?", m.group(1))
+            t = re.search(r"(lstm_(?:recurrence_kernel_wide|recurrence_kernel"
+                          r"|handoff_probe_kernel))(ILi(\d+)E(?:Li(\d+)E)?)?",
+                          m.group(1))
             name = t and t.group(1)
-            if t and t.group(2):
+            if t and t.group(4):
                 name += " U={} KP={}".format(*t.group(3, 4))
+            elif t and t.group(3):
+                name += f" R={t.group(3)}"
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "registers" in line:
@@ -306,26 +336,33 @@ def phase_lstm(torch, peaks):
 
     gen = torch.Generator().manual_seed(1)
     dev = "cuda"
-    worst, per_shape = 0.0, []
+    worst, worst_wide, per_shape, wide_args = 0.0, 0.0, [], {}
 
     def check(label, args):
         nonlocal worst
         with torch.inference_mode(), exact_fp32():
+            before = lstm_recurrence.launches
             got = lstm_recurrence(*args)
             want = lstm_recurrence_reference(*args)
             torch.cuda.synchronize()
         err = _lstm_err(got, want)
-        log(f"lstm_recurrence {label}: max_abs_err={err:.3e}")
+        log(f"lstm_recurrence {label}: max_abs_err={err:.3e} launches="
+            f"{lstm_recurrence.launches - before}")
         if not err <= 1e-5:
             fail(f"lstm_recurrence disagrees with its plain version at "
                  f"{label}: {err}")
         worst = max(worst, err)
+        return err
 
     for T, B, H in LSTM_SHAPES:
         args = _lstm_inputs(torch, gen, T, B, H, dev)
-        check(f"T={T} B={B} H={H}", args)
+        err = check(f"T={T} B={B} H={H}", args)
         if (T, B, H) == LSTM_SHAPES[0]:
             main_args = args
+        if H > 1024:
+            worst_wide = max(worst_wide, err)
+        if (T, H) == (LSTM_WIDE[0], LSTM_WIDE[2]):
+            wide_args[B] = args
 
     for T, B, H in LSTM_TIMED:
         entry = time_lstm(torch, ops, T, B, H)
@@ -342,6 +379,18 @@ def phase_lstm(torch, peaks):
     row = _lstm_main_row(torch, gen, peaks, main_args, main["ms"],
                          main["b1_ms"])
     row.update(_lstm_library(torch, gen))
+    # the wide instance's row: BigCodec's layer at B = 8, and at B = 1
+    wide = next(e for e in per_shape if (e["T"], e["B"], e["H"]) == LSTM_WIDE)
+    wide_row = _lstm_main_row(torch, gen, peaks, wide_args[LSTM_WIDE[1]],
+                              wide["ms"], wide["b1_ms"],
+                              name="lstm_recurrence_wide")
+    at_b1 = _lstm_main_row(torch, gen, peaks, wide_args[1], wide["b1_ms"],
+                           wide["b1_ms"], name="lstm_recurrence_wide")
+    wide_row.update(
+        max_abs_err=worst_wide, device_us=wide["device_us"],
+        b1={k: at_b1[k] for k in ("ms", "plain_ms", "library_ms",
+                                  "port_layer_ms", "bound_ms", "bound_by")},
+        info={B: lstm_recurrence_info(LSTM_WIDE[2], B) for B in (8, 1)})
 
     # back to back on one stream, different inputs, the exchange's memory
     # reused: at T = 2 a tag left by the first launch is the one the second
@@ -367,7 +416,11 @@ def phase_lstm(torch, peaks):
         f"latency floor T x hand-off = {T * hand / 1e3:.4f} ms at T={T}")
     row.update(max_abs_err=worst, per_shape=per_shape, handoff_us=hand,
                latency_floor_ms=T * hand / 1e3)
-    return row
+    T = LSTM_WIDE[0]
+    wide_row.update(handoff_us=hand, latency_floor_ms=T * hand / 1e3)
+    log(f"lstm_recurrence_wide T={T}: latency floor T x hand-off = "
+        f"{T * hand / 1e3:.4f} ms")
+    return row, wide_row
 
 
 def _lstm_bound(T, B, H, peaks):
@@ -482,9 +535,9 @@ def _lstm_library(torch, gen) -> dict:
     return out
 
 
-def _lstm_main_row(torch, gen, peaks, args, ms, ms1):
-    """The kernel line's entry at the main shape: plain version, the port's
-    layer, nn.LSTM and the bound."""
+def _lstm_main_row(torch, gen, peaks, args, ms, ms1, name="lstm_recurrence"):
+    """The kernel line's entry at a shape (the main path's, or the wide
+    instance's): plain version, the port's layer, nn.LSTM and the bound."""
     from audiocodecs_tpu_torch.nn.layers import exact_fp32
     from audiocodecs_tpu_torch.nn.lstm import _layer
     from audiocodecs_tpu_torch.ops.lstm_recurrence import (
@@ -512,11 +565,11 @@ def _lstm_main_row(torch, gen, peaks, args, ms, ms1):
                          - _layer(x.transpose(0, 1), p, h0, c0)[0]
                          .transpose(0, 1)).abs().max())
     b_ms, b_by = _lstm_bound(T, B, H, peaks)
-    log(f"lstm_recurrence T={T} B={B} H={H}: kernel_ms={ms:.4f} "
+    log(f"{name} T={T} B={B} H={H}: kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} port_layer_ms={layer_ms:.4f} "
         f"library_ms(nn.LSTM)={lib_ms:.4f} library_vs_port_max_abs="
         f"{lib_err:.3e} bound_ms={b_ms:.4f} ({b_by})")
-    return {"name": "lstm_recurrence", "status": "ported", "route": "cuda",
+    return {"name": name, "status": "ported", "route": "cuda",
             "source": "audiocodecs_tpu_torch/csrc/lstm_recurrence.cu",
             "replaces": "audiocodecs_tpu/ops/lstm_pallas.py:195",
             "launches": 0, "max_abs_err": 0.0, "ms": ms,
@@ -754,17 +807,71 @@ def phase_dac_resunit(torch, peaks):
         tot["flops"] += flops
         tot["bytes"] += nbytes
     budget = {f"C={C} d={d}": tuple(dac_resunit_info(C, d).values())
-              for C in (96, 192, 256) for d in (1, 3, 9)}
+              for C in (48, 96, 192, 256) for d in (1, 3, 9)}
     log(f"dac_resunit (regs, smem_bytes, blocks_per_sm): {budget}")
     b_ms, b_by = bound(tot["flops"], tot["bytes"], peaks)
+    big = _dac_unit_bigcodec(torch, gen, peaks)
+    worst = max(worst, big["max_abs_err"])
     return {"name": "dac_resunit", "status": "ported", "route": "cuda",
             "source": "audiocodecs_tpu_torch/csrc/dac_resunit.cu",
             "replaces": "audiocodecs_tpu/ops/dac_resunit_pallas.py:114",
             "launches": 0, "max_abs_err": worst, "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "per_shape": per_shape,
+            "library_ms": None, "per_shape": per_shape, "bigcodec": big,
             "shape": "sum over the six fused units of one B=1 x 10 s decode,"
                      " weights packed once"}
+
+
+def _dac_unit_bigcodec(torch, gen, peaks) -> dict:
+    """B4 at BigCodec-16k's nine decoder units for B = 8 x 10 s: each held
+    against its plain version (limit 1e-5 · max(1, max|out|)), then the
+    kernel on weights packed once beside the plain version, which is the
+    model's cuDNN path (snake, ``F.conv1d`` with TF32 off), and the bound."""
+    from audiocodecs_tpu_torch.ops.dac_resunit import (
+        dac_resunit, dac_resunit_reference, pack_resunit_weights)
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    worst, per_shape = 0.0, []
+    for B, C, T, d in DAC_UNIT_BIGCODEC:
+        x, weights = _unit_inputs(torch, gen, B, C, T, "cuda")
+        with torch.inference_mode():
+            packed = pack_resunit_weights(weights[0], weights[3])
+            got = dac_resunit(x, *weights, d, packed=packed)
+            want = dac_resunit_reference(x, *weights, d)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(want.abs().max()))
+            err = float((got - want).abs().max())
+            del got, want
+            if not err <= 1e-5 * scale:
+                fail(f"dac_resunit disagrees with its plain version at "
+                     f"BigCodec's B={B} C={C} T={T} d={d}: {err}")
+            ms = cuda_ms(torch,
+                         lambda: dac_resunit(x, *weights, d, packed=packed),
+                         reps=5)
+            plain_ms = cuda_ms(
+                torch, lambda: dac_resunit_reference(x, *weights, d), reps=5)
+        flops = 2.0 * B * T * 8 * C * C
+        nbytes = 4.0 * (2 * B * C * T + 8 * C * C + 4 * C)
+        b_ms, b_by = bound(flops, nbytes, peaks)
+        log(f"dac_resunit BigCodec B={B} C={C} T={T} d={d}: max_abs_err="
+            f"{err:.3e} (limit {1e-5 * scale:.3e}) kernel_ms={ms:.4f} "
+            f"plain_ms(cuDNN path)={plain_ms:.4f} kernel/plain="
+            f"{ms / plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"fp32_share_of_peak={flops / peaks[0] / (ms / 1e3):.3f}")
+        per_shape.append({"B": B, "C": C, "T": T, "d": d, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "max_abs_err": err})
+        worst = max(worst, err)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("flops", flops),
+                     ("bytes", nbytes)):
+            tot[k] += v
+        del x, weights, packed
+    b_ms, b_by = bound(tot["flops"], tot["bytes"], peaks)
+    log(f"dac_resunit BigCodec, nine units of a B=8 x 10 s decode: "
+        f"kernel_ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by})")
+    return {"ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": worst, "per_shape": per_shape}
 
 
 def _counters():
@@ -780,10 +887,17 @@ def _counters():
 def reset_counts() -> None:
     for f in _counters().values():
         f.launches = 0
+    _counters()["lstm_recurrence"].wide_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: f.launches for name, f in _counters().items()}
+    """Launches by wrapper since ``reset_counts``; ``lstm_recurrence_wide``
+    counts the LSTM launches of the wide instance (H > 1024) among
+    ``lstm_recurrence``'s."""
+    counts = {name: f.launches for name, f in _counters().items()}
+    counts["lstm_recurrence_wide"] = _counters()[
+        "lstm_recurrence"].wide_launches
+    return counts
 
 
 def _server_pair(torch, cls, *args, **kwargs):
@@ -800,9 +914,10 @@ def _noise(rng, shapes):
             for shape in shapes]
 
 
-def _launch_table(lstm, resblock):
+def _launch_table(lstm, resblock, dac=0, wide=0):
     return {"lstm_recurrence": lstm, "seanet_resblock": resblock,
-            "seanet_resblock_packed": 0, "dac_resunit": 0}
+            "seanet_resblock_packed": 0, "dac_resunit": dac,
+            "lstm_recurrence_wide": wide}
 
 
 def phase_main_path(torch, rows):
@@ -932,8 +1047,7 @@ def phase_dac_path(torch, rows):
         f"{json.dumps(counts)}; dac_resunit (sig_to_toks, toks_to_sig) per "
         f"request: {per_call}; weight packs per toks_to_sig: {packs}")
     n = len(requests)
-    want = {"lstm_recurrence": 0, "seanet_resblock": 0,
-            "seanet_resblock_packed": 0, "dac_resunit": 6 * n}
+    want = _launch_table(0, 0, dac=6 * n)
     if counts != want or any(c != (0, 6) for c in per_call):
         fail(f"expected launches {want} and (0, 6) per request, got "
              f"{counts}, {per_call}")
@@ -1057,7 +1171,8 @@ def _parity(label, codec, cpu, sig, toks, y, n_rows=None):
 
 
 def _batch_path(torch, rows, path, codec, cpu, requests, per_roundtrip,
-                shapes, quant, parity_rows=2, profile_decode=None):
+                shapes, quant, parity_rows=2, profile_decode=None,
+                packs=None):
     """A codec as a small server: the requests through ``sig_to_toks`` →
     ``toks_to_sig`` with every kernel's launches counted (``per_roundtrip``
     each, or ``per_roundtrip(sig_shape)`` where it depends on the request),
@@ -1068,16 +1183,24 @@ def _batch_path(torch, rows, path, codec, cpu, requests, per_roundtrip,
     aggregate, peak memory, stages (``quant`` = (tokens of features,
     features of tokens, waveform of features), or ``None``) and the device
     time by kernel, also of the decode from features alone when
-    ``profile_decode`` names it."""
+    ``profile_decode`` names it. ``packs`` = (a counter of weight packs, the
+    packs of the first decode): the fused weights are packed on the first
+    decode only."""
     reset_counts()
-    answers = []
+    answers, packed = [], []
     for sig in requests:
         toks = codec.sig_to_toks(sig)
+        p0 = packs[0]() if packs else 0
         answers.append((toks, codec.toks_to_sig(toks)))
+        packed.append(packs[0]() - p0 if packs else 0)
     torch.cuda.synchronize()
     counts = read_counts()
     n = len(requests)
-    log(f"{path} launches over {n} roundtrips: {json.dumps(counts)}")
+    log(f"{path} launches over {n} roundtrips: {json.dumps(counts)}"
+        + (f"; weight packs per toks_to_sig: {packed}" if packs else ""))
+    if packs and packed != [packs[1]] + [0] * (n - 1):
+        fail(f"{path}: expected the fused weights to pack on the first "
+             f"decode only, got {packed}")
     each = [per_roundtrip(sig.shape) if callable(per_roundtrip)
             else per_roundtrip for sig in requests]
     want = {k: sum(e[k] for e in each) for k in each[0]}
@@ -1414,6 +1537,124 @@ def phase_past(torch, rows):
                  lambda q: codec._decode(codec._unproject(q))))
     _stream_path(torch, rows, "past_16k_stream", codec, cpu, requests[0], 4,
                  10.0)
+
+
+def _bigcodec_frames(cfg, n_samples: int) -> int:
+    """Token frames of BigCodec's encoder: each strided conv (k = 2s, pad
+    ⌈s/2⌉ a side) floors."""
+    t = n_samples
+    for s in cfg.up_ratios:
+        t = (t + 2 * math.ceil(s / 2) - 2 * s) // s + 1
+    return t
+
+
+def phase_bigcodec(torch, rows):
+    """BigCodec-16k at its published width (ngf 48, the 2 + 2 LSTM layers at
+    H = 1536 on the wide instance, one 8192 x 8 codebook) as in 9: two
+    B = 8 x 10 s requests and one ragged B = 1, four wide kernel-1 launches
+    (one a layer: 8 rows) and nine kernel-3 launches (the decoder's units of
+    C = 192, 96, 48) a roundtrip, the fused units packed on the first decode
+    only; parity on the ragged request and two rows of the first; features
+    are the encoder's 1024-d output (``latent=False``)."""
+    from audiocodecs_tpu_torch.models.bigcodec import BigCodec
+    from audiocodecs_tpu_torch.ops.dac_resunit import pack_resunit_weights
+
+    sr = 16000
+    codec, cpu = _server_pair(torch, BigCodec, sr, sr, latent=False)
+    mc = codec.model_config
+    requests = _noise(np.random.default_rng(12),
+                      [(8, 10 * sr), (8, 10 * sr), (1, 80001)])
+
+    def shapes(shape):
+        N = _bigcodec_frames(mc, shape[1])
+        return (shape[0], N, 1), (shape[0], N * mc.hop_length)
+
+    q = codec.quantizer
+    _batch_path(torch, rows, "bigcodec_16k", codec, cpu, requests,
+                _launch_table(4, 0, dac=9, wide=4), shapes,
+                (lambda f: q.encode(f)[..., None],
+                 lambda t: q.decode(t[..., 0]),
+                 lambda z: codec._feats_to_sig(z, None)),
+                packs=(lambda: pack_resunit_weights.packs, 9))
+
+
+def _server_requests(sr: int, n: int = 16):
+    """The JAX ``examples/serve.py`` main()'s stream: durations uniform in
+    0.5-8 s from ``default_rng(0)``, request i a sine at 200 + 50 i Hz."""
+    rng = np.random.default_rng(0)
+    out = []
+    for i in range(n):
+        t = np.arange(int(float(rng.uniform(0.5, 8.0)) * sr)) / sr
+        out.append(np.sin(2 * np.pi * (200 + 50 * i) * t).astype(np.float32))
+    return out
+
+
+def phase_server(torch, rows):
+    """``CodecServer`` (``audiocodecs_tpu_torch/examples/serve.py``) over
+    BigCodec-16k and EnCodec-24k, reached by registry name, seeded random
+    weights: buckets (1, 2, 5, 10) s, max_batch 8, max_wait_ms 5, the JAX
+    main()'s 16 requests submitted at once. Every reply must have its
+    request's length, be finite and equal, bit for bit, the row of
+    ``codec.roundtrip`` on the padded batch it ran in (the same code on the
+    same device and shapes); each batch launches one roundtrip's kernels. A
+    request whose batch failed fails the phase."""
+    from audiocodecs_tpu_torch.examples.serve import CodecServer
+    from audiocodecs_tpu_torch.models import get_codec_class
+
+    per_batch = {"bigcodec": _launch_table(4, 0, dac=9, wide=4),
+                 "encodec": _launch_table(4, 8)}
+    for name, each in per_batch.items():
+        cls = get_codec_class(name)
+        sr = getattr(cls, "DEFAULT_ORIG_SR", 24000)
+        codec = cls(sr, sr, device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+        t0 = time.perf_counter()
+        server = CodecServer(codec, buckets_s=(1.0, 2.0, 5.0, 10.0),
+                             max_batch=8, max_wait_ms=5.0)
+        warm_s = time.perf_counter() - t0
+        reqs = _server_requests(sr)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            replies = [server.submit(w) for w in reqs]
+            try:
+                recs = [r.get(timeout=600) for r in replies]
+            except Exception as e:  # a worker's error, delivered to get()
+                fail(f"server {name}: a request failed: {e!r}")
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            server.stop()
+        batches = {id(r.batch): r.batch for r in replies}
+        want = {k: v * len(batches) for k, v in each.items()}
+        log(f"server {name}: {len(reqs)} requests in {len(batches)} "
+            f"batches of 8 rows, buckets "
+            f"{sorted(b.shape[1] for b in batches.values())}; launches "
+            f"{json.dumps(counts)}")
+        if counts != want:
+            fail(f"server {name}: expected launches {want}, got {counts}")
+        _add_launches(rows, f"server_{name}", counts)
+        rt = {}
+        for w, r, y in zip(reqs, replies, recs):
+            if y.shape != w.shape or not np.isfinite(y).all():
+                fail(f"server {name}: reply of shape {y.shape} for a "
+                     f"request of {w.shape}, or not finite")
+            if id(r.batch) not in rt:
+                rt[id(r.batch)] = codec.roundtrip(r.batch).cpu().numpy()
+            if not np.array_equal(y, rt[id(r.batch)][r.row, : len(w)]):
+                fail(f"server {name}: a reply differs from its batch's "
+                     f"roundtrip row by "
+                     f"{np.abs(y - rt[id(r.batch)][r.row, : len(w)]).max()}")
+        audio = sum(len(w) for w in reqs) / sr
+        lat = sorted((r.done - r.submitted) * 1e3 for r in replies)
+        log(f"server {name}: {len(reqs)} requests served, {audio:.3f} s of "
+            f"audio in {wall:.3f} s wall ({audio / wall:.3f}x real time); "
+            f"latency p50={statistics.median(lat):.3f} ms p90="
+            f"{lat[min(len(lat) - 1, math.ceil(0.9 * len(lat)) - 1)]:.3f} "
+            f"ms; every reply equals its batch's roundtrip row; warm-up "
+            f"(first roundtrip, builds and packs) {warm_s:.3f} s")
+        del codec, server
 
 
 def _function_grad(torch, fn, plain, args, g_outs):
@@ -1839,7 +2080,7 @@ def main() -> None:
     t0 = time.perf_counter()
     name, card, peaks = phase_card(torch)
     phase_build()
-    rows = [phase_lstm(torch, peaks), phase_resblock(torch, peaks),
+    rows = [*phase_lstm(torch, peaks), phase_resblock(torch, peaks),
             phase_packed(torch, peaks), phase_dac_resunit(torch, peaks)]
     phase_main_path(torch, rows)
     phase_dac_path(torch, rows)
@@ -1850,6 +2091,8 @@ def main() -> None:
     phase_encodec_vocos(torch, rows)
     phase_encodec_48k(torch, rows)
     phase_past(torch, rows)
+    phase_bigcodec(torch, rows)
+    phase_server(torch, rows)
     phase_train(torch, rows, card)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))

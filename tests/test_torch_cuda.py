@@ -165,6 +165,37 @@ def test_lstm_kernel_info(dev, H):
     assert lstm_recurrence_info(H, info["max_batch"])["blocks_per_sm"] >= 1
 
 
+@pytest.mark.parametrize("T,B,H", [(60, 8, 1536), (40, 1, 1536),
+                                   (33, 3, 1536), (9, 20, 1536),
+                                   (1, 5, 1536), (25, 4, 1088),
+                                   (12, 2, 1056)])
+def test_lstm_wide_kernel_matches_plain_version(dev, T, B, H):
+    """The wide instance (1024 < H <= 1536): B = 8 and 1 (its two row
+    counts), ragged B, 20 rows over three launches of at most 8, one step,
+    and widths off its 12 units a block (1088: the last block has spare
+    warps)."""
+    args = _lstm_args(np.random.default_rng(T * B + H), T, B, H, dev)
+    rows = lstm_recurrence_info(H, 1)["max_batch"]
+    before = lstm_recurrence.launches
+    with torch.inference_mode(), exact_fp32():
+        got = lstm_recurrence(*args)
+        want = lstm_recurrence_reference(*args)
+    torch.cuda.synchronize()
+    assert rows == 8
+    assert lstm_recurrence.launches == before + -(-B // rows)
+    assert _lstm_close(got, want)
+
+
+def test_lstm_wide_kernel_info(dev):
+    """12 units a block, no spills, one block an SM, 8 rows a launch."""
+    for B in (1, 8):
+        info = lstm_recurrence_info(1536, B)
+        assert info["units"] == 12 and info["max_batch"] == 8
+        assert info["local_bytes"] == 0 and 0 < info["regs"] <= 168
+        assert info["blocks_per_sm"] == 1
+        assert info["smem_bytes"] <= 232448
+
+
 def test_lstm_handoff_probe(dev):
     us = handoff_us(2000)
     assert 0.0 < us < 10.0
@@ -213,9 +244,9 @@ def test_resblock_kernel_info(dev, C):
     assert info["blocks_per_sm"] >= 1 and info["tile"] % 64 == 0
 
 
-@pytest.mark.parametrize("H", [48, 1056])
+@pytest.mark.parametrize("H", [48, 1568])
 def test_lstm_on_the_card_refuses_widths_the_kernel_does_not_take(dev, H):
-    """No plain loop on the card: the kernel takes H % 32 == 0, H <= 1024."""
+    """No plain loop on the card: the kernel takes H % 32 == 0, H <= 1536."""
     params = [{k: v.to(dev) for k, v in p.items()} for p in
               init_lstm_params(torch.Generator().manual_seed(0), 1, 8, H)]
     before = lstm_recurrence.launches
@@ -461,6 +492,37 @@ def test_small_speechtokenizer_launches_and_matches_cpu(dev):
     torch.cuda.synchronize()
     assert _delta(before) == (6, 0, 0, 0)
     assert (toks.cpu() == cpu.sig_to_toks(sig)).float().mean() >= 0.999
+    assert _decode_close(y, cpu.toks_to_sig(toks.cpu()))
+
+
+def test_bigcodec_at_h1536_launches_and_matches_cpu(dev):
+    """BigCodec's published LSTM width (ngf 48 over five stride-2 stages:
+    1536) on a short request: four wide recurrence launches (2 encoder,
+    2 decoder layers) and nine fused units (C = 192, 96, 48) a roundtrip,
+    against the same weights on the CPU."""
+    from audiocodecs_tpu_torch.models.bigcodec import (
+        BigCodec,
+        BigCodecModelConfig,
+    )
+
+    mc = BigCodecModelConfig(ngf=48, up_ratios=(2, 2, 2, 2, 2),
+                             hidden_size=64, codebook_size=256)
+    gpu = BigCodec(16000, model_config=mc, device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    cpu = BigCodec(16000, model_config=mc, device="cpu", state_dict={
+        k: v.cpu() for k, v in gpu.state_dict().items()})
+    sig = (np.random.default_rng(2).standard_normal((2, 3200)) * 0.1).astype(
+        np.float32)
+    before = _launches()
+    toks = gpu.sig_to_toks(sig)
+    y = gpu.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    assert _delta(before) == (4, 0, 0, 9)
+    assert toks.shape == (2, 100, 1)
+    assert (toks.cpu() == cpu.sig_to_toks(sig)).float().mean() >= 0.99
+    f_gpu, f_cpu = gpu.sig_to_feats(sig).cpu(), cpu.sig_to_feats(sig)
+    assert float((f_gpu - f_cpu).abs().max()) <= 1e-4 * float(
+        f_cpu.abs().max())
     assert _decode_close(y, cpu.toks_to_sig(toks.cpu()))
 
 

@@ -53,7 +53,10 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.downstream.metrics.dsp",
               "audiocodecs_tpu_torch.utils.audio",
               "audiocodecs_tpu_torch.utils.checkpoint",
-              "audiocodecs_tpu_torch.examples.train_codec"):
+              "audiocodecs_tpu_torch.examples.train_codec",
+              "audiocodecs_tpu_torch.models",
+              "audiocodecs_tpu_torch.models.bigcodec",
+              "audiocodecs_tpu_torch.examples.serve"):
         assert m in mods
 
 
@@ -66,7 +69,9 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
         "import audiocodecs_tpu_torch as p; p.Encodec; p.DAC; p.CodecConfig\n"
         "p.Mimi; p.SpeechTokenizer; p.WavTokenizer\n"
         "p.WavTokenizerModelConfig; p.SEANetRVQCodec; p.SEANetRVQConfig\n"
-        "p.PAST\n"
+        "p.PAST; p.BigCodec; p.BigCodecModelConfig\n"
+        "from audiocodecs_tpu_torch.models import get_codec_class\n"
+        "get_codec_class('bigcodec')\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = {"PATH": os.environ.get("PATH", ""), "PYTHONPATH": str(REPO),
            "HOME": os.environ.get("HOME", str(REPO)),
@@ -83,6 +88,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.models.past" in loaded
     assert "audiocodecs_tpu_torch.parallel.train" in loaded
     assert "audiocodecs_tpu_torch.examples.train_codec" in loaded
+    assert "audiocodecs_tpu_torch.models.bigcodec" in loaded
+    assert "audiocodecs_tpu_torch.examples.serve" in loaded
     assert not [m for m in loaded if _is_reference(m)]
 
 
@@ -105,6 +112,8 @@ def test_no_import_statement_names_jax_or_reference(path):
 
 def test_default_device_is_the_card(monkeypatch):
     from audiocodecs_tpu_torch.codec import resolve_device
+    from audiocodecs_tpu_torch.examples import serve
+    from audiocodecs_tpu_torch.models.bigcodec import BigCodec
     from audiocodecs_tpu_torch.models.dac import DAC
     from audiocodecs_tpu_torch.models.encodec import Encodec
     from audiocodecs_tpu_torch.models.mimi import Mimi
@@ -128,6 +137,11 @@ def test_default_device_is_the_card(monkeypatch):
         SEANetRVQCodec(16000)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PAST(16000)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BigCodec(16000)
+    # the server's entry point asks for the card too (before any request)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--codec", "bigcodec", "--requests", "1"])
     with pytest.raises(RuntimeError):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
