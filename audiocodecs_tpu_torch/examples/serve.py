@@ -20,6 +20,10 @@ Port-specific rules:
 * A failure in a batch goes to every request of that batch: its
   :meth:`Reply.get` raises it. The worker goes on serving.
 
+The codec is built in its family's serving tier
+(:func:`audiocodecs_tpu_torch.serving.apply_serving_preset`, ``--quality``
+exact|balanced|fast, balanced by default, as the reference's ``main``).
+
 Run (synthesizes its own request stream; seeded random weights):
 
     python -m audiocodecs_tpu_torch.examples.serve --codec bigcodec
@@ -167,13 +171,20 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' on request)")
+    p.add_argument("--quality", default="balanced",
+                   choices=("exact", "balanced", "fast"),
+                   help="serving tier of the family's decoder")
     args = p.parse_args(argv)
 
     from audiocodecs_tpu_torch.models import get_codec_class
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
 
+    preset = apply_serving_preset(args.codec, args.quality)
+    if preset:
+        print(f"serving preset[{args.codec}]: {preset}")
     cls = get_codec_class(args.codec)
     sr = getattr(cls, "DEFAULT_ORIG_SR", 24000)
-    codec = cls(sr, sr, device=args.device)
+    codec = cls(sr, sr, device=args.device, **preset)
     server = CodecServer(codec, max_batch=args.batch)
 
     rng = np.random.default_rng(0)

@@ -21,14 +21,20 @@ Counterpart of ``audiocodecs_tpu/models/bigcodec.py`` (Xin et al., 2024;
 The residual units are DAC's (:class:`..models.dac.ResidualUnit`): the
 decoder's units of at most 256 channels (C = 192, 96 and 48 at the
 published width: 9 a decode) launch the fused unit kernel on the card, the
-encoder's and the wider decoder's run the plain version. The four LSTM
-layers (2 in the encoder, 2 in the decoder) each launch the recurrence
-kernel's wide instance, once for every 8 batch rows. Inside the stacks the layout is PyTorch's
-``[B, C, T]``.
+encoder's and the wider decoder's run unfused. The four LSTM layers (2 in
+the encoder, 2 in the decoder) each launch the recurrence kernel's wide
+instance, once for every 8 batch rows. Inside the stacks the layout is
+PyTorch's ``[B, C, T]``.
 
-Not carried over: the reference's environment switches for activation
-dtype, conv precision, the polynomial snake and the wide LSTM's role gate
-(the port runs every LSTM through its kernel on the card, in exact fp32).
+The decoder computes in a :class:`..models.dac.DecodeForm` (``BigCodec(...,
+decode_dtype, decode_precision, snake_poly)``), the reference's serving
+tier (``_decode_z_inner`` under its environment switches): with bf16
+activations the stem and every conv run in bf16, the six wide units
+unfused in bf16, the nine narrow ones on the kernel's bf16 form; the
+decoder's residual LSTM stays an fp32 island (fp32 weights, on the
+recurrence kernel) whose output is cast back. The encoder and the
+quantizer run exact fp32 in every form. The reference's wide-LSTM role
+gate selects nothing here: every LSTM runs on the kernel in exact fp32.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from audiocodecs_tpu_torch.codec import (
     prune_params_for_mode,
 )
 from audiocodecs_tpu_torch.models.dac import (
+    DecodeForm,
     ResidualUnit,
     _conv,
     fused_resunit,
@@ -54,7 +61,6 @@ from audiocodecs_tpu_torch.models.dac import (
 from audiocodecs_tpu_torch.nn.layers import (
     Conv1d,
     ConvTranspose1d,
-    conv_transpose1d,
     exact_fp32,
     unit_norm,
 )
@@ -85,9 +91,10 @@ class BigCodecModelConfig:
         return self.ngf * (2 ** len(self.up_ratios))
 
 
-def _res_units(ch: int, role: str, dilations) -> nn.ModuleList:
+def _res_units(ch: int, role: str, dilations,
+               form: DecodeForm = DecodeForm()) -> nn.ModuleList:
     """DAC's residual units, fused where DAC's gate fuses them."""
-    return nn.ModuleList(ResidualUnit(ch, d, fused_resunit(role, ch))
+    return nn.ModuleList(ResidualUnit(ch, d, fused_resunit(role, ch), form)
                          for d in dilations)
 
 
@@ -108,10 +115,11 @@ class _EncoderBlock(nn.Module):
 
 
 def _residual_lstm(h: torch.Tensor, rnn: LSTM) -> torch.Tensor:
-    """``h + LSTM(h)`` over ``[B, C, T]`` (the bottleneck of both stacks)."""
-    x = h.transpose(1, 2)
+    """``h + LSTM(h)`` over ``[B, C, T]`` (the bottleneck of both stacks),
+    in fp32 whatever ``h``'s dtype, cast back to it."""
+    x = h.transpose(1, 2).float()
     y, _ = rnn(x)
-    return (x + y).transpose(1, 2)
+    return (x + y).to(h.dtype).transpose(1, 2)
 
 
 class CodecEncoder(nn.Module):
@@ -141,17 +149,19 @@ class CodecEncoder(nn.Module):
 
 
 class _DecoderBlock(nn.Module):
-    def __init__(self, cin: int, stride: int, dilations):
+    def __init__(self, cin: int, stride: int, dilations,
+                 form: DecodeForm = DecodeForm()):
         super().__init__()
         self.alpha_up = nn.Parameter(torch.empty(cin))
         self.convtr = ConvTranspose1d(cin, cin // 2, 2 * stride)
-        self.res = _res_units(cin // 2, "decoder", dilations)
+        self.res = _res_units(cin // 2, "decoder", dilations, form)
         self.stride = stride
+        self.form = form
 
     def forward(self, x):
-        s = self.stride
-        x = snake(x, self.alpha_up)
-        y = conv_transpose1d(x, self.convtr.w, self.convtr.b, stride=s)
+        f, s = self.form, self.stride
+        x = snake(x, f.param(self, "alpha_up"), f.snake_poly)
+        y = f.conv_transpose1d(x, self.convtr, stride=s)
         left = math.ceil(s / 2)
         x = y[..., left: y.shape[-1] - (left - s % 2)]
         for unit in self.res:
@@ -160,27 +170,32 @@ class _DecoderBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    """``[B, hidden, N]`` → ``[B, 1, N · hop]``."""
+    """``[B, hidden, N]`` → ``[B, 1, N · hop]`` float32, computed in
+    ``form``."""
 
-    def __init__(self, cfg: BigCodecModelConfig):
+    def __init__(self, cfg: BigCodecModelConfig,
+                 form: DecodeForm = DecodeForm()):
         super().__init__()
         d = cfg.enc_width
         self.stem = Conv1d(cfg.hidden_size, d, 7)
         self.rnn = LSTM(cfg.rnn_layers, d, d)
         blocks = []
         for stride in reversed(cfg.up_ratios):
-            blocks.append(_DecoderBlock(d, stride, cfg.dilations))
+            blocks.append(_DecoderBlock(d, stride, cfg.dilations, form))
             d //= 2
         self.blocks = nn.ModuleList(blocks)
         self.alpha_out = nn.Parameter(torch.empty(d))
         self.conv_out = Conv1d(d, 1, 7)
+        self.form = form
 
     def forward(self, z):
-        h = _residual_lstm(_conv(z, self.stem, pad=3), self.rnn)
+        f = self.form
+        h = _residual_lstm(f.conv1d(z.to(f.dtype), self.stem, pad=3),
+                           self.rnn)
         for block in self.blocks:
             h = block(h)
-        return torch.tanh(_conv(snake(h, self.alpha_out), self.conv_out,
-                                pad=3))
+        h = snake(h, f.param(self, "alpha_out"), f.snake_poly)
+        return torch.tanh(f.conv1d(h, self.conv_out, pad=3)).float()
 
 
 class Quantizer(nn.Module):
@@ -215,7 +230,10 @@ class BigCodec(Codec):
     :func:`audiocodecs_tpu_torch.params.from_jax_params`) is loaded
     strictly; without it the weights are drawn by
     :func:`init_bigcodec_params` from ``generator`` (seed 0 by default).
-    ``device=None`` means the card.
+    ``device=None`` means the card. ``decode_dtype``, ``decode_precision``
+    and ``snake_poly`` are the decoder's
+    :class:`..models.dac.DecodeForm` (a serving tier; exact fp32 by
+    default).
     """
 
     DEFAULT_ORIG_SR = 16000
@@ -237,7 +255,11 @@ class BigCodec(Codec):
         state_dict: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
         device=None,
+        decode_dtype: torch.dtype = torch.float32,
+        decode_precision: str = "exact",
+        snake_poly: bool = False,
     ):
+        form = DecodeForm(decode_dtype, decode_precision, snake_poly)
         if num_codebooks != 1:
             raise ValueError("BigCodec is single-codebook (K=1)")
         mc = model_config or BigCodecModelConfig(
@@ -249,11 +271,12 @@ class BigCodec(Codec):
             device=device)
         self.model_config = mc
         self.latent = latent
+        self.decode_form = form
         if mode != "decode":
             self.encoder = CodecEncoder(mc)
         self.quantizer = Quantizer(mc)
         if mode != "encode":
-            self.decoder = Decoder(mc)
+            self.decoder = Decoder(mc, form)
         if state_dict is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)

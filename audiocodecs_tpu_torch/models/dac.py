@@ -17,17 +17,22 @@ symmetric zero padding. The decoder's residual units with C ≤ 256 are built
 fused: they call :func:`..ops.dac_resunit.dac_resunit`, which launches the
 CUDA kernel for CUDA tensors and runs its plain version for CPU tensors.
 Encoder units (their output decides the tokens) and wider decoder units run
-that plain version on every device (snake and ``F.conv1d`` with TF32 off),
-as the reference leaves them to XLA. The gate is fixed when a unit is built,
-from its role and width.
+unfused on every device (snake and ``F.conv1d``), as the reference leaves
+them to XLA. The gate is fixed when a unit is built, from its role and
+width.
 
-Not carried over: the reference's environment switches for activation
-dtype, conv precision and the polynomial snake (decode runs exact fp32 with
-``sin``).
+The decoder computes in a :class:`DecodeForm`: the reference's serving
+tiers, which it selects with environment switches (activation dtype, the
+decoder's conv precision, the polynomial snake), are options given at
+construction here (``DAC(..., decode_dtype, decode_precision,
+snake_poly)``; :mod:`audiocodecs_tpu_torch.serving` picks them by family).
+The encoder and the quantizer run exact fp32 in every form, so the tokens
+do not depend on it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -51,16 +56,140 @@ from audiocodecs_tpu_torch.nn.layers import (
 )
 from audiocodecs_tpu_torch.ops.dac_resunit import (
     MAX_CHANNELS,
+    PRECISIONS,
     dac_resunit,
     dac_resunit_reference,
     pack_resunit_weights,
-    snake,
 )
 
-__all__ = ["DAC", "DACModelConfig", "ResidualUnit", "dac_rvq_encode",
-           "dac_rvq_decode", "init_dac_params", "snake"]
+__all__ = ["DAC", "DACModelConfig", "DecodeForm", "ResidualUnit",
+           "dac_rvq_encode", "dac_rvq_decode", "init_dac_params",
+           "residual_unit_io", "snake"]
 
 DILATIONS = (1, 3, 9)
+
+# cos(2πr) on r ∈ [-½, ½] as an even minimax polynomial in t = r², copied
+# from the reference (``audiocodecs_tpu/models/dac.py``).
+_SNAKE_COS_POLY = (
+    0.99999998905902143, -19.739204499453951, 64.939117459897673,
+    -85.450139530911997, 60.167630951117602, -25.967599248888114,
+    6.5286581616462076,
+)
+
+
+def _snake_sin2_poly(y: torch.Tensor) -> torch.Tensor:
+    """``sin²(y)`` = (1 − cos 2πr)/2 with r = y/π − round(y/π), cos 2πr
+    from the polynomial by Horner, in ``y``'s dtype with 1/π and the
+    coefficients rounded to it (the reference's ``_snake_sin2_poly``); each
+    step is one tensor operation, rounded to ``y``'s dtype."""
+    inv_pi, *coef = (float(torch.tensor(v, dtype=y.dtype))
+                     for v in (1.0 / math.pi, *_SNAKE_COS_POLY))
+    u = y * inv_pi
+    r = u - torch.round(u)
+    t = r * r
+    cos2 = coef[-1] * t + coef[-2]
+    for k in coef[-3::-1]:
+        cos2 = cos2 * t + k
+    return 0.5 - 0.5 * cos2
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor,
+          poly: bool = False) -> torch.Tensor:
+    """Snake activation ``x + sin²(αx)/(α + 1e-9)`` over ``[B, C, T]`` in
+    ``x``'s dtype (``alpha`` [C] of the same); ``poly`` takes sin² from
+    :func:`_snake_sin2_poly`, the reference's XLA-path form
+    (``ACX_SNAKE_APPROX=1``). The fused unit's kernel has its own form,
+    :func:`..ops.dac_resunit.snake`."""
+    a = alpha[:, None]
+    if poly:
+        return x + _snake_sin2_poly(a * x) / (a + 1e-9)
+    return x + torch.sin(a * x) ** 2 / (a + 1e-9)
+
+
+def _cached(module: nn.Module, name: str, tag, make, params=None):
+    """``make`` of ``params`` (by default ``module``'s parameter ``name``)
+    detached, kept outside the state dict under ``name``: built once and
+    again only when ``tag`` or a parameter's (device, data_ptr, version)
+    changes (a move, ``load_state_dict`` or an optimizer's step)."""
+    params = (getattr(module, name),) if params is None else params
+    key = (tag, *((p.device, p.data_ptr(), p._version) for p in params))
+    cache = module.__dict__.setdefault("_form_cache", {})
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            hit = (key, make(*(p.detach() for p in params)))
+        cache[name] = hit
+    return hit[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeForm:
+    """How a decoder computes: a serving tier (the reference's
+    ``apply_dac_decoder`` under its environment switches).
+
+    * ``dtype``: the activations' dtype, float32 or bfloat16
+      (``ACX_ACT_DTYPE=decoder-bfloat16``). The input and the weights are
+      cast to it (each weight once, again only when it changes); bf16 convs
+      run in bf16 (cuDNN on the card), and need ``precision="default"``.
+    * ``precision``: ``"exact"`` (fp32, TF32 off) or ``"default"``, one
+      bf16 pass: with fp32 activations every conv takes bf16-rounded
+      operands and sums in fp32 (``ACX_DEC_CONV_PRECISION=default``).
+    * ``snake_poly``: the polynomial snake (``ACX_SNAKE_APPROX=1``).
+
+    The fused units take the same form (:func:`..ops.dac_resunit.
+    dac_resunit`'s ``precision`` and ``snake_poly``). ``tanh`` runs in the
+    activations' dtype and the waveform comes out float32."""
+
+    dtype: torch.dtype = torch.float32
+    precision: str = "exact"
+    snake_poly: bool = False
+
+    def __post_init__(self):
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"decode_dtype must be float32 or bfloat16, "
+                             f"got {self.dtype}")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"decode_precision must be one of {PRECISIONS},"
+                             f" got {self.precision!r}")
+        if self.dtype == torch.bfloat16 and self.precision != "default":
+            raise ValueError("bf16 activations run one bf16 pass: "
+                             "decode_precision='default'")
+
+    @property
+    def exact(self) -> bool:
+        return self == DecodeForm()
+
+    def param(self, module: nn.Module, name: str) -> torch.Tensor:
+        """``module.<name>`` (a weight, bias or α) in the activations'
+        dtype."""
+        if self.dtype == torch.float32:
+            return getattr(module, name)
+        return _cached(module, name, self.dtype, lambda t: t.to(self.dtype))
+
+    def _conv(self, fn, x, conv, **kw):
+        w = self.param(conv, "w")
+        if self.dtype == torch.float32 and self.precision == "default":
+            w = _cached(conv, "w", "rounded",
+                        lambda t: t.to(torch.bfloat16).float())
+            x = x.to(torch.bfloat16).float()
+        b = None if conv.b is None else self.param(conv, "b")
+        if self.dtype == torch.float32:
+            return fn(x, w, b, **kw)
+        # bf16: the conv's output is rounded, then the bias added in bf16,
+        # as the reference's conv1d does
+        y = fn(x, w, None, **kw)
+        return y if b is None else y + b[:, None]
+
+    def conv1d(self, x, conv: Conv1d, *, stride: int = 1, dilation: int = 1,
+               pad: int = 0):
+        """Symmetric zero pad, then a valid conv in this form."""
+        if pad:
+            x = F.pad(x, (pad, pad))
+        return self._conv(conv1d, x, conv, stride=stride, dilation=dilation)
+
+    def conv_transpose1d(self, x, conv: ConvTranspose1d, *, stride: int):
+        """Full transposed conv in this form."""
+        return self._conv(conv_transpose1d, x, conv, stride=stride)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,12 +218,6 @@ def _conv(x, p: Conv1d, *, stride: int = 1, pad: int = 0):
     return conv1d(x, p.w, p.b, stride=stride)
 
 
-def _convtr(x, p: ConvTranspose1d, *, stride: int, pad: int):
-    """Full transposed conv, trimmed by ``pad`` on both sides."""
-    y = conv_transpose1d(x, p.w, p.b, stride=stride)
-    return y[..., pad: y.shape[-1] - pad] if pad else y
-
-
 def _proj(x, p: Conv1d):
     """1×1 conv over the last axis (``[..., Cin]`` → ``[..., Cout]``)."""
     with exact_fp32():
@@ -108,16 +231,19 @@ def fused_resunit(role: str, channels: int) -> bool:
 
 
 class ResidualUnit(nn.Module):
-    """snake → dilated conv7 → snake → conv1, plus the input.
+    """snake → dilated conv7 → snake → conv1, plus the input, in a
+    :class:`DecodeForm` (exact fp32 by default).
 
-    A fused unit keeps its conv weights in the kernel's layout
-    (:func:`..ops.dac_resunit.pack_resunit_weights`), built on its first
-    forward and again only when ``conv1.w`` or ``conv2.w`` changes: moves to
-    another device, or is written in place (``load_state_dict`` and an
-    optimizer's step bump the tensor's version). The packed pair is no parameter or buffer, so the
-    state dict is unchanged."""
+    A fused unit keeps its conv weights in the kernel's layout for its
+    form's precision (:func:`..ops.dac_resunit.pack_resunit_weights`),
+    built on its first forward and again only when the form or ``conv1.w``
+    or ``conv2.w`` changes: moves to another device, or is written in place
+    (``load_state_dict`` and an optimizer's step bump the tensor's
+    version). The packed pair is no parameter or buffer, so the state dict
+    is unchanged."""
 
-    def __init__(self, ch: int, dilation: int, fused: bool):
+    def __init__(self, ch: int, dilation: int, fused: bool,
+                 form: DecodeForm = DecodeForm()):
         super().__init__()
         self.alpha1 = nn.Parameter(torch.empty(ch))
         self.conv1 = Conv1d(ch, ch, 7)
@@ -125,33 +251,63 @@ class ResidualUnit(nn.Module):
         self.conv2 = Conv1d(ch, ch, 1)
         self.dilation = dilation
         self.fused = fused
-        self._packed = None
-        self._packed_key = None
+        self.form = form
 
     def packed_weights(self):
-        """The kernel's layout of (conv1.w, conv2.w), rebuilt only when
-        either weight's (device, data_ptr, version) changed."""
-        key = tuple((w.device, w.data_ptr(), w._version)
-                    for w in (self.conv1.w, self.conv2.w))
-        if key != self._packed_key:
-            self._packed = pack_resunit_weights(self.conv1.w, self.conv2.w)
-            self._packed_key = key
-        return self._packed
+        """The kernel's layout of (conv1.w, conv2.w) for the form's
+        precision, rebuilt only when the precision or either weight's
+        (device, data_ptr, version) changed."""
+        precision = self.form.precision
+        return _cached(
+            self, "packed", precision,
+            lambda w7, w1: pack_resunit_weights(w7, w1, precision),
+            (self.conv1.w, self.conv2.w))
 
     def forward(self, x):
+        f = self.form
         if self.fused:
             # the transposed conv's trim leaves a strided view
-            return dac_resunit(x.contiguous(), self.conv1.w, self.conv1.b,
-                               self.alpha1, self.conv2.w, self.conv2.b,
-                               self.alpha2, self.dilation,
-                               packed=self.packed_weights())
-        return dac_resunit_reference(x, self.conv1.w, self.conv1.b,
-                                     self.alpha1, self.conv2.w, self.conv2.b,
-                                     self.alpha2, self.dilation)
+            return dac_resunit(
+                x.contiguous(), f.param(self.conv1, "w"),
+                f.param(self.conv1, "b"), f.param(self, "alpha1"),
+                f.param(self.conv2, "w"), f.param(self.conv2, "b"),
+                f.param(self, "alpha2"), self.dilation,
+                precision=f.precision, snake_poly=f.snake_poly,
+                packed=self.packed_weights())
+        if f.exact:
+            return dac_resunit_reference(x, self.conv1.w, self.conv1.b,
+                                         self.alpha1, self.conv2.w,
+                                         self.conv2.b, self.alpha2,
+                                         self.dilation)
+        h = snake(x, f.param(self, "alpha1"), f.snake_poly)
+        h = f.conv1d(h, self.conv1, dilation=self.dilation,
+                     pad=3 * self.dilation)
+        h = snake(h, f.param(self, "alpha2"), f.snake_poly)
+        return x + f.conv1d(h, self.conv2)
 
 
-def _units(ch: int, role: str) -> nn.ModuleList:
-    return nn.ModuleList(ResidualUnit(ch, d, fused_resunit(role, ch))
+@contextlib.contextmanager
+def residual_unit_io(module: nn.Module):
+    """Yields two dicts, filled with the input and the output of each
+    :class:`ResidualUnit` in ``module`` (by its name there) as the units
+    run inside ``with``: a check can then feed one device's unit the input
+    that another device's unit got."""
+    ins, outs, hooks = {}, {}, []
+    for name, m in module.named_modules():
+        if isinstance(m, ResidualUnit):
+            def keep(unit, args, out, name=name):
+                ins[name], outs[name] = args[0].detach(), out.detach()
+            hooks.append(m.register_forward_hook(keep))
+    try:
+        yield ins, outs
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _units(ch: int, role: str,
+           form: DecodeForm = DecodeForm()) -> nn.ModuleList:
+    return nn.ModuleList(ResidualUnit(ch, d, fused_resunit(role, ch), form)
                          for d in DILATIONS)
 
 
@@ -172,17 +328,21 @@ class EncoderBlock(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, stride: int):
+    def __init__(self, cin: int, cout: int, stride: int,
+                 form: DecodeForm = DecodeForm()):
         super().__init__()
         self.alpha_up = nn.Parameter(torch.empty(cin))
         self.convtr = ConvTranspose1d(cin, cout, 2 * stride)
-        self.res = _units(cout, "decoder")
+        self.res = _units(cout, "decoder", form)
         self.stride = stride
+        self.form = form
 
     def forward(self, x):
-        x = snake(x, self.alpha_up)
-        x = _convtr(x, self.convtr, stride=self.stride,
-                    pad=math.ceil(self.stride / 2))
+        f = self.form
+        x = snake(x, f.param(self, "alpha_up"), f.snake_poly)
+        x = f.conv_transpose1d(x, self.convtr, stride=self.stride)
+        pad = math.ceil(self.stride / 2)
+        x = x[..., pad: x.shape[-1] - pad]
         for unit in self.res:
             x = unit(x)
         return x
@@ -211,25 +371,28 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    """``[B, hidden, N]`` → ``[B, 1, T]``."""
+    """``[B, hidden, N]`` → ``[B, 1, T]`` float32, computed in ``form``."""
 
-    def __init__(self, cfg: DACModelConfig):
+    def __init__(self, cfg: DACModelConfig,
+                 form: DecodeForm = DecodeForm()):
         super().__init__()
         dim = cfg.decoder_hidden_size
         self.conv_in = Conv1d(cfg.hidden_size, dim, 7)
         self.blocks = nn.ModuleList(
-            DecoderBlock(dim // 2**i, dim // 2 ** (i + 1), stride)
+            DecoderBlock(dim // 2**i, dim // 2 ** (i + 1), stride, form)
             for i, stride in enumerate(cfg.upsampling_ratios))
         out_dim = dim // 2 ** len(cfg.upsampling_ratios)
         self.alpha_out = nn.Parameter(torch.empty(out_dim))
         self.conv_out = Conv1d(out_dim, 1, 7)
+        self.form = form
 
     def forward(self, q):
-        h = _conv(q, self.conv_in, pad=3)
+        f = self.form
+        h = f.conv1d(q.to(f.dtype), self.conv_in, pad=3)
         for block in self.blocks:
             h = block(h)
-        return torch.tanh(_conv(snake(h, self.alpha_out), self.conv_out,
-                                pad=3))
+        h = snake(h, f.param(self, "alpha_out"), f.snake_poly)
+        return torch.tanh(f.conv1d(h, self.conv_out, pad=3)).float()
 
 
 class QuantizerStage(nn.Module):
@@ -275,6 +438,8 @@ class DAC(Codec):
     :func:`audiocodecs_tpu_torch.params.from_jax_params`) is loaded
     strictly; without it the weights are drawn by :func:`init_dac_params`
     from ``generator`` (seed 0 by default). ``device=None`` means the card.
+    ``decode_dtype``, ``decode_precision`` and ``snake_poly`` are the
+    decoder's :class:`DecodeForm` (a serving tier; exact fp32 by default).
     """
 
     @classmethod
@@ -307,7 +472,11 @@ class DAC(Codec):
         state_dict: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
         device=None,
+        decode_dtype: torch.dtype = torch.float32,
+        decode_precision: str = "exact",
+        snake_poly: bool = False,
     ):
+        form = DecodeForm(decode_dtype, decode_precision, snake_poly)
         mc = model_config or self.default_model_config(orig_sample_rate)
         super().__init__(
             CodecConfig(sample_rate=sample_rate,
@@ -317,10 +486,11 @@ class DAC(Codec):
             device=device)
         self.model_config = mc
         self.latent = latent
+        self.decode_form = form
         if mode != "decode":
             self.encoder = Encoder(mc)
         if mode != "encode":
-            self.decoder = Decoder(mc)
+            self.decoder = Decoder(mc, form)
         self.quantizer = nn.ModuleList(
             QuantizerStage(mc) for _ in range(mc.n_codebooks))
         if state_dict is None:

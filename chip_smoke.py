@@ -43,6 +43,13 @@ it fails:
    the time of one pack, and the kernel's registers, shared bytes and
    blocks an SM; then at BigCodec-16k's nine decoder units for
    B = 8 x 10 s (C = 192, 96, 48 at d = 1, 3, 9) beside the cuDNN path;
+   then each of its other forms (exact with the polynomial snake; one bf16
+   pass on the tensor cores with the sin or the polynomial snake, on fp32
+   or bf16 activations) at both sets of shapes: held against its plain
+   version (the default form one rounding point at a time,
+   ``ops/dac_resunit.py::default_errors``), timed beside the plain version
+   and the model's unfused unit in the same form, with its bound at
+   989 TFLOP/s bf16, registers, spill and shared bytes: a kernel row each;
 7. the EnCodec path as a small server: EnCodec-24 kHz, 8 codebooks, seeded
    random weights, three requests through ``sig_to_toks`` → ``toks_to_sig``
    with the kernel launches and kernel 2's weight packs counted, parity
@@ -79,15 +86,31 @@ it fails:
    (H = 1536, one launch a layer at B = 8) and nine kernel-3 launches (the
    decoder's units of C = 192, 96, 48), the fused units packed on the
    first decode only;
-17. the server: ``CodecServer`` (``audiocodecs_tpu_torch/examples/
-   serve.py``) over BigCodec-16k and EnCodec-24k by registry name,
+17. the serving tiers (``audiocodecs_tpu_torch/serving.py``): DAC-44.1k
+   in its latency and fast tiers at B = 1 and its throughput tier (bf16
+   activations, polynomial snake) at B = 4 and 8, then in the unit's three
+   forms that no preset selects at B = 1 (six B4 launches a decode in the
+   tier's form), and BigCodec-16k's balanced tier at B = 8 x 10 s (four
+   wide kernel-1 and nine bf16-poly B4 launches a roundtrip): tokens equal
+   to the exact tier's bit for bit, the waveform's rms and max deviation
+   from the exact tier, and the tier's warm roundtrip beside the exact
+   tier's; for the presets' tiers also the decode of one row's first
+   second on the card against the CPU path of the same tier (the exact
+   forms within 1e-4 of max|sig|; where the tier rounds to bf16, every
+   decoder residual unit fed its CPU twin's input within a quarter of the
+   unit's move off exact fp32, the exact unit reading more, and end to end
+   rms no larger than the tier's move), and at B = 8 the throughput tier
+   with its units unfused;
+18. the server: ``CodecServer`` (``audiocodecs_tpu_torch/examples/
+   serve.py``) over BigCodec-16k (exact, and in its balanced tier as the
+   entry point builds it) and EnCodec-24k by registry name,
    buckets (1, 2, 5, 10) s, 8 rows a batch, 5 ms to gather, the JAX
    ``examples/serve.py`` main()'s 16 requests at once: every reply of its
    request's length, finite and equal, bit for bit, to the row of
    ``codec.roundtrip`` on its padded batch, one roundtrip's launches a
    batch; requests served, audio and wall seconds, x real time, latency
    p50/p90;
-18. EnCodec-24 kHz training at its published width (seeded random
+19. EnCodec-24 kHz training at its published width (seeded random
    weights, 8 codebooks, EMA codebooks, the spectral term live from the
    second step, Adam at 3e-4 with betas (0.5, 0.9)): first each kernel's
    autograd Function (kernel forward, backward recomputed through the
@@ -99,8 +122,11 @@ it fails:
    a step, every encoder and decoder gradient finite and nonzero, the warm
    step's time, audio seconds trained a wall second, peak memory, and one
    profiled step taken apart by the step's own ranges: each part's time,
-   the kernels each part launched (all in the forward, none in the
-   backward) and the time of the kernels' recompute inside the backward.
+   the kernels each part launched, by the wrappers' counters read at the
+   ranges' edges and in the profile's device window of each part (all in
+   the forward, none in the backward, by both), and the time of the
+   kernels' recompute inside the backward. Every profile follows 256
+   spin-kernel launches (``PROFILE_WARMUP_LAUNCHES``).
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -108,6 +134,7 @@ card line come before the last line, ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -159,6 +186,19 @@ TRAIN_GRAD_BLOCKS = [(8, 32, 24000), (8, 64, 12000), (8, 128, 3000),
 TRAIN_GRAD_PACKED = (8, 32, 24000)
 TRAIN_GRAD_UNIT = (1, 192, 22050, 1)
 TRAIN_B, TRAIN_STEPS, TRAIN_TIMED = 8, 8, slice(2, 8)  # steps 3-8 timed
+# the DAC unit's forms besides the exact sin one (ops/dac_resunit.py FORMS):
+# name → (precision, snake_poly, activations' dtype name)
+_NEW_FORMS = {"exact_poly": ("exact", True, "float32"),
+              "default_f32": ("default", False, "float32"),
+              "default_poly_f32": ("default", True, "float32"),
+              "default_bf16": ("default", False, "bfloat16"),
+              "default_poly_bf16": ("default", True, "bfloat16")}
+BF16_PEAK = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
+# A one-pass tier's residual unit on the card, fed the CPU path's input, at
+# most this share of the unit's own move off exact fp32 away from the CPU
+# path's output (tools/tier_divergence.py reads at most 0.04 between two
+# conv implementations on the CPU; exact fp32 in place of the tier reads 1).
+UNIT_SHARE = 0.25
 
 
 def fail(msg: str) -> None:
@@ -874,6 +914,135 @@ def _dac_unit_bigcodec(torch, gen, peaks) -> dict:
             "bound_by": b_by, "max_abs_err": worst, "per_shape": per_shape}
 
 
+def _form_unit(torch, C, d, form, weights, dtype):
+    """The model's unfused residual unit in a form (the path the decoders'
+    wide units take), holding ``weights``: the form's library yardstick."""
+    from audiocodecs_tpu_torch.models.dac import DecodeForm, ResidualUnit
+
+    precision, poly, _ = _NEW_FORMS[form]
+    unit = ResidualUnit(C, d, fused=False,
+                        form=DecodeForm(dtype, precision, poly)).cuda()
+    with torch.no_grad():
+        for dst, src in zip((unit.conv1.w, unit.conv1.b, unit.alpha1,
+                             unit.conv2.w, unit.conv2.b, unit.alpha2),
+                            weights):
+            dst.copy_(src.float())
+    return unit
+
+
+def _dac_unit_form(torch, form, shapes, peaks, gen, label):
+    """One form of B4 at ``shapes`` (B, C, T, d): the kernel against its
+    plain version (exact form: within 1e-5 · max(1, max|plain|); default
+    form: ``default_errors``, one rounding point at a time), then the
+    kernel on weights packed once, the plain version and the model's
+    unfused unit in the same form and dtype (library), each timed, and the
+    bound (one bf16 pass at 989 TFLOP/s, or fp32 at the fp32 peak; bytes
+    at the HBM rate)."""
+    from audiocodecs_tpu_torch.ops.dac_resunit import (
+        dac_resunit, dac_resunit_info, dac_resunit_reference,
+        dac_resunit_stages, default_errors, pack_resunit_weights)
+
+    precision, poly, dt = _NEW_FORMS[form]
+    dtype = getattr(torch, dt)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+           "bytes": 0.0}
+    worst, per_shape = 0.0, []
+    for B, C, T, d in shapes:
+        x, weights = _unit_inputs(torch, gen, B, C, T, "cuda")
+        x, weights = x.to(dtype), [w.to(dtype) for w in weights]
+        kw = dict(precision=precision, snake_poly=poly)
+        unit = _form_unit(torch, C, d, form, weights, dtype)
+        with torch.inference_mode():
+            packed = pack_resunit_weights(weights[0], weights[3], precision)
+            got = dac_resunit(x, *weights, d, packed=packed, **kw)
+            want = dac_resunit_reference(x, *weights, d, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            if precision == "exact":
+                torch.cuda.synchronize()
+                lim = 1e-5 * max(1.0, float(want.abs().max()))
+                check = {"limit": lim}
+                ok = err <= lim
+            else:
+                out, h2 = dac_resunit_stages(x, *weights, d, snake_poly=poly,
+                                             packed=packed)
+                check = default_errors(out, h2, x, *weights, d, poly)
+                ok = check["ok"] and torch.equal(out, got)
+                del out, h2
+            del got, want
+            if not ok:
+                fail(f"dac_resunit {form} disagrees with its plain version "
+                     f"at B={B} C={C} T={T} d={d}: {err} {check}")
+            ms = cuda_ms(torch, lambda: dac_resunit(
+                x, *weights, d, packed=packed, **kw), reps=5)
+            plain_ms = cuda_ms(torch, lambda: dac_resunit_reference(
+                x, *weights, d, **kw), reps=5)
+            lib_ms = cuda_ms(torch, lambda: unit(x), reps=5)
+        flops = 2.0 * B * T * 8 * C * C
+        if precision == "default":
+            nbytes = (2 * B * C * T * x.element_size() + 2 * 8 * C * C
+                      + 4 * C * x.element_size())
+            b_ms, b_by = bound(flops, nbytes, (BF16_PEAK, peaks[1]))
+        else:
+            nbytes = 4.0 * (2 * B * C * T + 8 * C * C + 4 * C)
+            b_ms, b_by = bound(flops, nbytes, peaks)
+        occ = dac_resunit_info(C, d, precision, poly, dtype)
+        log(f"dac_resunit {form} {label} B={B} C={C} T={T} d={d}: "
+            f"max_abs_err={err:.3e} check={json.dumps(check)} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms(unfused unit)={lib_ms:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by}) kernel/bound={ms / b_ms:.2f} regs={occ['regs']} "
+            f"local_bytes={occ['local_bytes']} "
+            f"smem_bytes={occ['smem_bytes']} "
+            f"blocks_per_sm={occ['blocks_per_sm']}")
+        per_shape.append({"B": B, "C": C, "T": T, "d": d, "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "bound_ms": b_ms, "max_abs_err": err, **occ,
+                          **{k: v for k, v in check.items() if k != "ok"}})
+        worst = max(worst, err)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("library_ms", lib_ms), ("flops", flops),
+                     ("bytes", nbytes)):
+            tot[k] += v
+        del x, weights, packed, unit
+    peak = BF16_PEAK if precision == "default" else peaks[0]
+    b_ms, b_by = bound(tot["flops"], tot["bytes"], (peak, peaks[1]))
+    log(f"dac_resunit {form} {label}, {len(shapes)} units: kernel_ms="
+        f"{tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} library_ms="
+        f"{tot['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    return {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "library_ms": tot["library_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": worst, "per_shape": per_shape}
+
+
+def phase_dac_resunit_forms(torch, peaks):
+    """B4's other forms (exact with the polynomial snake; one bf16 pass
+    with the sin or the polynomial snake, on fp32 or bf16 activations) at
+    the DAC-44.1k decoder's six units (B = 1 x 10 s) and BigCodec-16k's
+    nine (B = 8 x 10 s): one kernel row each."""
+    gen = torch.Generator().manual_seed(5)
+    rows = []
+    for form in _NEW_FORMS:
+        dac = _dac_unit_form(torch, form, DAC_UNIT_SHAPES, peaks, gen,
+                             "DAC")
+        big = _dac_unit_form(torch, form, DAC_UNIT_BIGCODEC, peaks, gen,
+                             "BigCodec")
+        rows.append({
+            "name": f"dac_resunit_{form}", "status": "ported",
+            "route": "cuda",
+            "source": "audiocodecs_tpu_torch/csrc/dac_resunit.cu",
+            "replaces": "audiocodecs_tpu/ops/dac_resunit_pallas.py:114",
+            "launches": 0,
+            "max_abs_err": max(dac["max_abs_err"], big["max_abs_err"]),
+            "ms": dac["ms"], "plain_ms": dac["plain_ms"],
+            "bound_ms": dac["bound_ms"], "bound_by": dac["bound_by"],
+            "library_ms": dac["library_ms"], "bigcodec": big,
+            "per_shape": dac["per_shape"],
+            "shape": "sum over the six fused units of one DAC-44.1k B=1 x "
+                     "10 s decode, weights packed once; library: the "
+                     "model's unfused unit in the same form"})
+    return rows
+
+
 def _counters():
     from audiocodecs_tpu_torch.ops.dac_resunit import dac_resunit
     from audiocodecs_tpu_torch.ops.lstm_recurrence import lstm_recurrence
@@ -885,18 +1054,28 @@ def _counters():
 
 
 def reset_counts() -> None:
-    for f in _counters().values():
-        f.launches = 0
+    for name, f in _counters().items():
+        if name != "dac_resunit":
+            f.launches = 0
     _counters()["lstm_recurrence"].wide_launches = 0
+    by_form = _counters()["dac_resunit"].launches_by_form
+    for form in by_form:
+        by_form[form] = 0
 
 
 def read_counts() -> dict:
     """Launches by wrapper since ``reset_counts``; ``lstm_recurrence_wide``
     counts the LSTM launches of the wide instance (H > 1024) among
-    ``lstm_recurrence``'s."""
-    counts = {name: f.launches for name, f in _counters().items()}
+    ``lstm_recurrence``'s; ``dac_resunit`` counts the DAC unit's exact sin
+    form and ``dac_resunit_<form>`` each of its other forms."""
+    counts = {name: f.launches for name, f in _counters().items()
+              if name != "dac_resunit"}
     counts["lstm_recurrence_wide"] = _counters()[
         "lstm_recurrence"].wide_launches
+    by_form = _counters()["dac_resunit"].launches_by_form
+    counts["dac_resunit"] = by_form["exact"]
+    for form in _NEW_FORMS:
+        counts[f"dac_resunit_{form}"] = by_form[form]
     return counts
 
 
@@ -914,10 +1093,17 @@ def _noise(rng, shapes):
             for shape in shapes]
 
 
-def _launch_table(lstm, resblock, dac=0, wide=0):
-    return {"lstm_recurrence": lstm, "seanet_resblock": resblock,
-            "seanet_resblock_packed": 0, "dac_resunit": dac,
-            "lstm_recurrence_wide": wide}
+def _launch_table(lstm, resblock, dac=0, wide=0, **forms):
+    """The launches of a run: ``dac`` of the DAC unit's exact sin form,
+    ``forms`` (name → count) of its other forms."""
+    table = {"lstm_recurrence": lstm, "seanet_resblock": resblock,
+             "seanet_resblock_packed": 0, "dac_resunit": dac,
+             "lstm_recurrence_wide": wide}
+    for form in _NEW_FORMS:
+        table[f"dac_resunit_{form}"] = forms.pop(form, 0)
+    if forms:
+        raise ValueError(f"unknown forms {sorted(forms)}")
+    return table
 
 
 def phase_main_path(torch, rows):
@@ -1578,6 +1764,218 @@ def phase_bigcodec(torch, rows):
                 packs=(lambda: pack_resunit_weights.packs, 9))
 
 
+def _rms(t) -> float:
+    return float(t.float().pow(2).mean().sqrt())
+
+
+def _tier(torch, rows, label, exact, tier, cpu, sig, want, kind, frames,
+          exact_ms=None):
+    """A serving tier of a codec: ``sig`` through ``tier.sig_to_toks`` →
+    ``toks_to_sig`` with the launches counted (``want``, by form), tokens
+    equal bit for bit to the exact tier's, the waveform's rms and max
+    deviation from the exact tier on the same tokens; then the decode of
+    the first row's first ``frames`` token frames on the card against the
+    CPU path of the same tier (none where ``cpu`` is None), and the warm
+    roundtrip of the tier beside the exact tier's (``exact_ms``, timed here
+    where None).
+
+    For the exact forms (``kind`` "exact") the decode is held within 1e-4
+    of max|sig|. Where the tier rounds to bf16 (``kind`` "one pass": bf16
+    activations, or fp32 with bf16-rounded operands) two correct decodes
+    part wherever a sum, taken in another order, straddles a rounding
+    boundary, and every later rounding carries that on: end to end the
+    card's and the CPU's decodes are near-independent draws of the tier's
+    own error (the CPU against itself, with another conv implementation,
+    reads 0.26-1.02 of the tier's move: ``tools/tier_divergence.py``). So
+    the decode is held only to no more than the tier's move there, and the
+    tight check is ``_units_teacher_forced``: each residual unit fed the
+    CPU path's own input."""
+    from audiocodecs_tpu_torch.models.dac import residual_unit_io
+
+    reset_counts()
+    toks = tier.sig_to_toks(sig)
+    y = tier.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"{label} launches: {json.dumps(counts)}")
+    if counts != want:
+        fail(f"{label}: expected launches {want}, got {counts}")
+    _add_launches(rows, label, counts)
+    if not torch.equal(toks, exact.sig_to_toks(sig)):
+        fail(f"{label}: tokens differ from the exact tier's")
+    if y.dtype != torch.float32 or not bool(torch.isfinite(y).all()):
+        fail(f"{label}: waveform {y.dtype}, or not finite")
+    y_exact = exact.toks_to_sig(toks)
+    move_rms, move_max = _rms(y - y_exact), float((y - y_exact).abs().max())
+    sig_dev = torch.as_tensor(sig, device="cuda")
+    rt_ms = cuda_ms(torch, lambda: tier.roundtrip(sig_dev), reps=5)
+    rt_exact = exact_ms if exact_ms is not None else cuda_ms(
+        torch, lambda: exact.roundtrip(sig_dev), reps=5)
+    B, seconds = sig.shape[0], sig.shape[1] / tier.sample_rate
+    log(f"{label} B={B} x {seconds} s: roundtrip {rt_ms:.3f} ms warm "
+        f"(exact tier {rt_exact:.3f} ms, ratio {rt_ms / rt_exact:.3f}); "
+        f"tokens equal to the exact tier's; waveform off the exact tier: "
+        f"rms={move_rms:.3e} max={move_max:.3e} (max|sig| "
+        f"{float(y_exact.abs().max()):.3f})")
+    res = {"roundtrip_ms": rt_ms, "exact_roundtrip_ms": rt_exact,
+           "move_rms": move_rms, "move_max": move_max, "sig_dev": sig_dev}
+    if cpu is None:
+        return res
+    part = toks[:1, :frames]
+    y_card, y_ex = tier.toks_to_sig(part), exact.toks_to_sig(part)
+    t0 = time.perf_counter()
+    with residual_unit_io(cpu.decoder) as (ins, outs):
+        y_cpu = cpu.toks_to_sig(part.cpu())
+    cpu_s = time.perf_counter() - t0
+    diff = y_card.cpu() - y_cpu
+    part_move = _rms(y_card - y_ex)
+    scale = float(y_cpu.abs().max())
+    if kind == "one pass":
+        lim, got, ok = part_move, _rms(diff), _rms(diff) <= part_move
+    else:
+        lim, got = 1e-4 * scale, float(diff.abs().max())
+        ok = got <= lim
+    log(f"{label}: card vs CPU (same tier, {part.shape[1]} frames): "
+        f"{'rms' if kind == 'one pass' else 'max'}={got:.3e} (limit "
+        f"{lim:.3e}), max={float(diff.abs().max()):.3e} "
+        f"({float(diff.abs().max()) / scale:.3e} of max|sig|), "
+        f"cpu_seconds={cpu_s:.1f}")
+    if not ok:
+        fail(f"{label}: the card's decode is off the CPU path's by {got}, "
+             f"limit {lim}")
+    if kind == "one pass":
+        _units_teacher_forced(torch, label, tier, exact, ins, outs)
+    res["cpu_err"] = got
+    return res
+
+
+def _units_teacher_forced(torch, label, tier, exact, ins, outs):
+    """Each residual unit of the tier's decoder on the card (fused or not),
+    fed the input that the CPU path's unit got in the same tier (``ins``),
+    against that unit's CPU output (``outs``): rms(card − CPU) at most
+    ``UNIT_SHARE`` of the unit's own move, rms(card tier − card exact) on
+    the same input. The control, the card's exact unit in the tier's
+    place, must read above that share: else the check could not tell the
+    tier from exact fp32."""
+    t_units = dict(tier.decoder.named_modules())
+    e_units = dict(exact.decoder.named_modules())
+    worst, control = 0.0, math.inf
+    with torch.inference_mode():
+        for name, x in ins.items():
+            xd = x.to("cuda")
+            card = t_units[name](xd).float()
+            ex = e_units[name](xd.float())
+            move = _rms(card - ex)
+            if move == 0.0:
+                fail(f"{label}: unit {name} does not move off exact fp32")
+            want = outs[name].float()
+            worst = max(worst, _rms(card.cpu() - want) / move)
+            control = min(control, _rms(ex.cpu() - want) / move)
+    log(f"{label}: {len(ins)} residual units fed the CPU path's input: "
+        f"rms(card - CPU) at most {worst:.4f} of the unit's move off exact "
+        f"(limit {UNIT_SHARE}); control, exact fp32 in the tier's place: at "
+        f"least {control:.4f} (must exceed the limit)")
+    if not ins or worst > UNIT_SHARE or control <= UNIT_SHARE:
+        fail(f"{label}: units fed the CPU path's input: card vs CPU "
+             f"{worst} of the move, control {control}, limit {UNIT_SHARE}")
+
+
+def phase_dac_tiers(torch, rows):
+    """DAC-44.1k (9 codebooks, seeded random weights) in the serving tiers
+    of ``audiocodecs_tpu_torch.serving``: latency and fast at B = 1, the
+    throughput tier (bf16 activations, polynomial snake) at B = 4 and 8,
+    six B4 launches a decode in the tier's form; and at B = 8 the
+    throughput tier with its units unfused (bf16 cuDNN and snakes) beside
+    the fused one. Then the unit's three forms that no preset selects at
+    B = 1 through the same entry points, for their launches, tokens and
+    roundtrip only: ``phase_dac_resunit_forms`` holds them to their plain
+    versions, so no CPU decode."""
+    from audiocodecs_tpu_torch.models.dac import DAC, ResidualUnit
+    from audiocodecs_tpu_torch.ops.dac_resunit import form_name
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
+
+    sr = 44100
+    exact = DAC(sr, sr, num_codebooks=9, device="cuda",
+                generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu() for k, v in exact.state_dict().items()}
+    rng = np.random.default_rng(13)
+    T = 10 * sr
+    cases = [("latency", 1, apply_serving_preset("dac", "balanced", 1)),
+             ("fast", 1, apply_serving_preset("dac", "fast", 1)),
+             ("throughput", 4, apply_serving_preset("dac", "balanced", 4)),
+             ("throughput", 8, apply_serving_preset("dac", "balanced", 8))]
+    for form in ("exact_poly", "default_poly_f32", "default_bf16"):
+        precision, poly, dt = _NEW_FORMS[form]
+        cases.append((f"form_{form}", 1, {
+            "decode_dtype": getattr(torch, dt),
+            "decode_precision": precision, "snake_poly": poly}))
+    out, exact_ms = {}, {}
+    for name, B, kw in cases:
+        tier = DAC(sr, sr, num_codebooks=9, device="cuda", state_dict=state,
+                   **kw)
+        cpu = None if name.startswith("form_") else DAC(
+            sr, sr, num_codebooks=9, device="cpu", state_dict=state, **kw)
+        form = form_name(kw["decode_precision"], kw["snake_poly"],
+                         kw["decode_dtype"])
+        want = (_launch_table(0, 0, dac=6) if form == "exact"
+                else _launch_table(0, 0, **{form: 6}))
+        kind = "exact" if kw["decode_precision"] == "exact" else "one pass"
+        sig = _noise(rng, [(B, T)])[0]
+        label = f"dac_44k_{name}_b{B}"
+        res = _tier(torch, rows, label, exact, tier, cpu, sig, want, kind,
+                    frames=87, exact_ms=exact_ms.get(B))
+        exact_ms.setdefault(B, res["exact_roundtrip_ms"])
+        if name == "throughput" and B == 8:
+            units = [m for m in tier.modules()
+                     if isinstance(m, ResidualUnit) and m.fused]
+            for m in units:
+                m.fused = False
+            sig_dev = res["sig_dev"]
+            res["unfused_roundtrip_ms"] = cuda_ms(
+                torch, lambda: tier.roundtrip(sig_dev), reps=5)
+            for m in units:
+                m.fused = True
+            fused_ms = cuda_ms(torch, lambda: tier.roundtrip(sig_dev),
+                               reps=5)
+            log(f"{label}: units unfused (bf16 cuDNN and snakes) "
+                f"{res['unfused_roundtrip_ms']:.3f} ms against fused "
+                f"{res['roundtrip_ms']:.3f}, {fused_ms:.3f} ms (B4's "
+                f"bf16-poly form)")
+            phase_profile(torch, lambda: tier.roundtrip(sig_dev),
+                          fused_ms)
+        del res["sig_dev"]
+        out[label] = res
+        del tier, cpu
+    return out
+
+
+def phase_bigcodec_tier(torch, rows):
+    """BigCodec-16k's balanced tier (bf16 decoder activations, polynomial
+    snake, the decoder LSTM an fp32 island) at B = 8 x 10 s: four wide
+    kernel-1 launches and nine B4 launches in the bf16-poly form a
+    roundtrip, as ``_tier``; profiled."""
+    from audiocodecs_tpu_torch.models.bigcodec import BigCodec
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
+
+    sr = 16000
+    exact = BigCodec(sr, sr, latent=False, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu() for k, v in exact.state_dict().items()}
+    kw = apply_serving_preset("bigcodec")
+    tier = BigCodec(sr, sr, latent=False, device="cuda", state_dict=state,
+                    **kw)
+    cpu = BigCodec(sr, sr, latent=False, device="cpu", state_dict=state,
+                   **kw)
+    sig = _noise(np.random.default_rng(14), [(8, 10 * sr)])[0]
+    res = _tier(torch, rows, "bigcodec_16k_balanced", exact, tier, cpu, sig,
+                _launch_table(4, 0, wide=4, default_poly_bf16=9), "one pass",
+                frames=80)
+    sig_dev = res.pop("sig_dev")
+    phase_profile(torch, lambda: tier.roundtrip(sig_dev),
+                  res["roundtrip_ms"])
+    return res
+
+
 def _server_requests(sr: int, n: int = 16):
     """The JAX ``examples/serve.py`` main()'s stream: durations uniform in
     0.5-8 s from ``default_rng(0)``, request i a sine at 200 + 50 i Hz."""
@@ -1591,8 +1989,9 @@ def _server_requests(sr: int, n: int = 16):
 
 def phase_server(torch, rows):
     """``CodecServer`` (``audiocodecs_tpu_torch/examples/serve.py``) over
-    BigCodec-16k and EnCodec-24k, reached by registry name, seeded random
-    weights: buckets (1, 2, 5, 10) s, max_batch 8, max_wait_ms 5, the JAX
+    BigCodec-16k (exact, then in its balanced serving tier, as the entry
+    point builds it) and EnCodec-24k, reached by registry name, seeded
+    random weights: buckets (1, 2, 5, 10) s, max_batch 8, max_wait_ms 5, the JAX
     main()'s 16 requests submitted at once. Every reply must have its
     request's length, be finite and equal, bit for bit, the row of
     ``codec.roundtrip`` on the padded batch it ran in (the same code on the
@@ -1600,14 +1999,21 @@ def phase_server(torch, rows):
     request whose batch failed fails the phase."""
     from audiocodecs_tpu_torch.examples.serve import CodecServer
     from audiocodecs_tpu_torch.models import get_codec_class
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
 
-    per_batch = {"bigcodec": _launch_table(4, 0, dac=9, wide=4),
-                 "encodec": _launch_table(4, 8)}
-    for name, each in per_batch.items():
-        cls = get_codec_class(name)
+    # (label, family, quality): BigCodec exact and in its balanced tier, as
+    # the entry point's main() builds it by default
+    per_batch = {("bigcodec", "bigcodec", "exact"):
+                 _launch_table(4, 0, dac=9, wide=4),
+                 ("bigcodec_balanced", "bigcodec", "balanced"):
+                 _launch_table(4, 0, wide=4, default_poly_bf16=9),
+                 ("encodec", "encodec", "balanced"): _launch_table(4, 8)}
+    for (name, family, quality), each in per_batch.items():
+        cls = get_codec_class(family)
         sr = getattr(cls, "DEFAULT_ORIG_SR", 24000)
         codec = cls(sr, sr, device="cuda",
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0),
+                    **apply_serving_preset(family, quality))
         t0 = time.perf_counter()
         server = CodecServer(codec, buckets_s=(1.0, 2.0, 5.0, 10.0),
                              max_batch=8, max_wait_ms=5.0)
@@ -1923,17 +2329,41 @@ def phase_train(torch, rows, card):
         f"{json.dumps([round(t, 3) for t in step_ms])}; "
         f"audio_seconds_per_wall_second={TRAIN_B * 1.0 / (warm / 1e3):.3f}; "
         f"peak_mem_bytes={peak}")
-    before = read_counts()
-    prof = phase_profile(torch, lambda: step(state, batches[TRAIN_STEPS + 1]),
-                         warm, what=f"train step ({card})")
-    after = read_counts()
+    # the step's launches by part from the wrappers' counters, read where
+    # the step enters and leaves its own ranges (``train.record_function``)
+    from audiocodecs_tpu_torch.parallel import train as train_mod
+
+    real, by_part = train_mod.record_function, {}
+
+    @contextlib.contextmanager
+    def counted(name):
+        before = read_counts()
+        with real(name):
+            yield
+        after = read_counts()
+        by_part[name.rsplit(".", 1)[-1]] = {
+            c: after[c] - before[c] for c in _KERNEL_NAMES}
+
+    train_mod.record_function = counted
+    try:
+        before = read_counts()
+        prof = phase_profile(torch,
+                             lambda: step(state, batches[TRAIN_STEPS + 1]),
+                             warm, what=f"train step ({card})")
+        after = read_counts()
+    finally:
+        train_mod.record_function = real
     if {k: after[k] - before[k] for k in after} != _launch_table(4, 8):
         fail(f"train step: the profiled step did not launch 4 B1 and 8 B2: "
              f"{before} -> {after}")
     if prof is None:
         fail("train step: the profiler saw no device time, so the step's "
-             "split and its launches by part cannot be read")
-    _train_step_split(prof, card)
+             "split cannot be read")
+    lost = _lost_records(prof)[0]
+    if lost:
+        fail(f"train step: the profile holds no device record of {lost} "
+             f"kernel launches")
+    _train_step_split(prof, card, by_part)
 
 
 # the device name of each counted wrapper's kernel (B3 runs B2's kernel)
@@ -1943,13 +2373,14 @@ _KERNEL_NAMES = {"lstm_recurrence": "lstm_recurrence_kernel",
 _STEP_PARTS = ("forward", "backward", "update")
 
 
-def _train_step_split(prof, card):
+def _train_step_split(prof, card, by_part):
     """The profiled train step taken apart by ``make_codec_train_step``'s
     own ranges ``codec_train_step.{forward,backward,update}``: each part's
-    host time and device window, the package's kernels launched in each
-    (4 B1 and 8 B2 in the forward, none in the backward or the update),
-    and the recompute ranges of B1's and B2's Functions inside the
-    backward.
+    host time and device window, the package's kernels launched in each,
+    both by the wrappers' counters read at the ranges' edges (``by_part``)
+    and in the profile's device window: 4 B1 and 8 B2 in the forward, none
+    in the backward or the update, by both; and the recompute ranges of
+    B1's and B2's Functions inside the backward.
 
     The forward and the update launch from the calling thread, so their
     ranges' device spans hold their kernels. The backward's kernels are
@@ -1979,21 +2410,24 @@ def _train_step_split(prof, card):
     fwd = spans["codec_train_step.forward"][0]
     upd = spans["codec_train_step.update"][0]
     windows = {"forward": fwd, "backward": (fwd[1], upd[0]), "update": upd}
-    split, by_part = {}, {}
+    split, seen = {}, {}
     for part, (lo, hi) in windows.items():
         split[part] = {"host_ms": round(host[f"codec_train_step.{part}"], 3),
                        "device_window_ms": round((hi - lo) / 1e3, 3)}
-        by_part[part] = {c: sum(1 for t, n in kernels
-                                if k in n and lo <= t < hi)
-                         for c, k in _KERNEL_NAMES.items()}
+        seen[part] = {c: sum(1 for t, n in kernels
+                             if k in n and lo <= t < hi)
+                      for c, k in _KERNEL_NAMES.items()}
     log(f"train step split (the profiled step, {card}): {json.dumps(split)}")
-    log(f"train step kernel launches by part: {json.dumps(by_part)}")
+    log(f"train step kernel launches by part (counters): "
+        f"{json.dumps(by_part)}; the package's kernels the profile holds in "
+        f"each part's device window: {json.dumps(seen)}")
     want = {"lstm_recurrence": 4, "seanet_resblock": 8, "dac_resunit": 0}
     none = dict.fromkeys(want, 0)
-    if (by_part["forward"] != want or by_part["backward"] != none
-            or by_part["update"] != none):
+    expected = {"forward": want, "backward": none, "update": none}
+    if by_part != expected or seen != expected:
         fail(f"train step: expected 4 B1 and 8 B2 launches in the forward "
-             f"and none in the backward or the update, got {by_part}")
+             f"and none in the backward or the update, got {by_part} by "
+             f"the counters and {seen} in the profile")
     # each recompute range twice: on the host (its time there and its
     # kernels' device time) and on the device (the span of its kernels)
     ranges = {}
@@ -2015,6 +2449,7 @@ def _train_step_split(prof, card):
 _KERNEL_GROUPS = (("lstm_recurrence", "lstm_recurrence_kernel"),
                   ("seanet_resblock", "seanet_resblock_kernel"),
                   ("dac_resunit", "dac_resunit_kernel"),
+                  ("dac_resunit (bf16 MMA)", "dac_resunit_mma_kernel"),
                   ("fft (cuFFT)", "fft"), ("overlap-add (fold)", "col2im"),
                   ("layer_norm", "layer_norm"),
                   ("conv (cuDNN)", "cudnn"), ("conv (cuDNN)", "conv"),
@@ -2030,23 +2465,69 @@ def _device_us(evt) -> float:
     return evt.cuda_time_total if us is None else us
 
 
+# The profiler holds no device record of the first kernel launches of a
+# session: none in a fresh process, 17 after a whole run of this script
+# (H100, torch 2.11); neither 0.2 s of idle time nor a session just before
+# it changed that. So a profiled run starts after this many launches of a
+# spin kernel of its own name, and only the launches inside the run's own
+# range are its.
+PROFILE_WARMUP_LAUNCHES = 256
+_WARMUP_KERNEL = "spin_kernel"  # torch.cuda._sleep's
+_RUN_RANGE = "chip_smoke.profiled_run"
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+
+
+def _lost_records(prof):
+    """Kernel launch calls with no device record: inside the profiled run's
+    range, and before it (the warm-up's); and the launch calls inside."""
+    from torch.autograd import DeviceType
+
+    kernels, calls, run = set(), [], None
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA:
+            if not evt.is_user_annotation():
+                kernels.add(evt.correlation_id())
+        elif evt.name() == _RUN_RANGE:
+            run = (evt.start_ns(), evt.end_ns())
+        elif evt.name() in _LAUNCH_CALLS:
+            calls.append((evt.start_ns(), evt.correlation_id()))
+    inside = [c for t, c in calls if run[0] <= t <= run[1]]
+    before = [c for t, c in calls if t < run[0]]
+    return (sum(1 for c in inside if c not in kernels),
+            sum(1 for c in before if c not in kernels), len(inside))
+
+
 def phase_profile(torch, fn, wall_ms, what="roundtrip", top=12):
     """Device time of one run of ``fn`` by kernel (torch.profiler), beside
-    its wall time ``wall_ms``; returns the profile (None if it saw no
-    device time)."""
+    its wall time ``wall_ms``; the run follows ``PROFILE_WARMUP_LAUNCHES``
+    launches of a spin kernel, which the breakdown leaves out, and is
+    logged with its launch calls that the profile holds no device record
+    of (``_lost_records``). Returns the profile (None if it saw no device
+    time)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(PROFILE_WARMUP_LAUNCHES):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
+        with record_function(_RUN_RANGE):
+            fn()
+            torch.cuda.synchronize()
+    lost, warmup_lost, calls = _lost_records(prof)
+    log(f"profile ({what}): {lost} of the run's {calls} kernel launch calls "
+        f"without a device record; {warmup_lost} of the "
+        f"{PROFILE_WARMUP_LAUNCHES} warm-up launches before it")
     kernels = []
     for evt in prof.key_averages():
         # a profiler range (record_function) also shows on the device as
         # the span of its kernels; it is no kernel of its own
         if evt.device_type != DeviceType.CUDA or getattr(
-                evt, "is_user_annotation", False):
+                evt, "is_user_annotation", False) or (
+                _WARMUP_KERNEL in evt.key):
             continue
         kernels.append((_device_us(evt) / 1e3, evt.count, evt.key))
     busy = sum(k[0] for k in kernels)
@@ -2081,7 +2562,8 @@ def main() -> None:
     name, card, peaks = phase_card(torch)
     phase_build()
     rows = [*phase_lstm(torch, peaks), phase_resblock(torch, peaks),
-            phase_packed(torch, peaks), phase_dac_resunit(torch, peaks)]
+            phase_packed(torch, peaks), phase_dac_resunit(torch, peaks),
+            *phase_dac_resunit_forms(torch, peaks)]
     phase_main_path(torch, rows)
     phase_dac_path(torch, rows)
     phase_speechtokenizer(torch, rows)
@@ -2092,6 +2574,8 @@ def main() -> None:
     phase_encodec_48k(torch, rows)
     phase_past(torch, rows)
     phase_bigcodec(torch, rows)
+    phase_dac_tiers(torch, rows)
+    phase_bigcodec_tier(torch, rows)
     phase_server(torch, rows)
     phase_train(torch, rows, card)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")

@@ -11,7 +11,10 @@ magnitude (fp32 sums in another order). Full published width (ngf 48,
 H = 1536 LSTMs, 8192 × 8 codebook) on a 1 s signal (T = 80 frames), the
 reference's own init: features within 1e-4 relative, token_match ≥ 0.99.
 The recurrence's plain version at H = 1536 against the reference's
-``_scan_reference`` at atol 1e-5.
+``_scan_reference`` at atol 1e-5. The balanced serving tier (bf16 decoder
+activations, polynomial snake, the LSTM an fp32 island) against the
+reference's under the same switches, as ``tests/test_torch_dac.py`` holds
+DAC's throughput tier.
 """
 
 import dataclasses
@@ -26,6 +29,7 @@ import jax.numpy as jnp
 from audiocodecs_tpu.models.bigcodec import BigCodec as JBigCodec
 from audiocodecs_tpu.models.bigcodec import BigCodecModelConfig as JConfig
 from audiocodecs_tpu.ops.lstm_pallas import _scan_reference
+from audiocodecs_tpu_torch.serving import apply_serving_preset
 from audiocodecs_tpu_torch.models.bigcodec import (
     BigCodec,
     BigCodecModelConfig,
@@ -219,3 +223,34 @@ def test_recurrence_plain_version_at_h1536_matches_jax(rng):
         assert torch.equal(g, p)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
                                    rtol=0)
+
+
+def test_balanced_tier_matches_the_reference(small_pair, rng):
+    from test_torch_dac import check_bf16_tier, reference_tier, unfused
+
+    jc, tc = small_pair
+    sig = _sig(rng, 2, 2000)
+    toks = np.asarray(jc.sig_to_toks(sig))
+    j_exact = np.asarray(jc.toks_to_sig(toks))
+    t_exact = tc.toks_to_sig(toks).numpy()
+    kw = apply_serving_preset("bigcodec")
+
+    def port():
+        return BigCodec(16000, 16000, model_config=tc.model_config,
+                        state_dict=tc.state_dict(), device="cpu", **kw)
+
+    def reference(fused):
+        with reference_tier("bigcodec", "balanced", None, fused):
+            jt = JBigCodec(16000, 16000, model_config=jc.model_config,
+                           params=jc.params)  # a new instance: a fresh trace
+            np.testing.assert_array_equal(np.asarray(jt.sig_to_toks(sig)),
+                                          toks)
+            return np.asarray(jt.toks_to_sig(toks))
+
+    tt = port()
+    np.testing.assert_array_equal(tt.sig_to_toks(sig).numpy(), toks)
+    t_tier = tt.toks_to_sig(toks).numpy()
+    assert tt.decoder.rnn[0].w_hh.dtype == torch.float32
+    check_bf16_tier(t_tier, t_exact, reference(True), j_exact)
+    check_bf16_tier(unfused(port()).toks_to_sig(toks).numpy(), t_exact,
+                    reference(False), j_exact)

@@ -7,8 +7,10 @@ runs on a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: kernel against plain version 1e-5 (absolute for the LSTM,
-relative to max(1, max|ref|) for the blocks and the DAC unit), the limits
-``chip_smoke.py`` uses. A Function's gradient (kernel forward, backward
+relative to max(1, max|ref|) for the blocks and the DAC unit's exact
+forms), the limits ``chip_smoke.py`` uses; the DAC unit's default form (one
+bf16 pass) one rounding point at a time (``ops/dac_resunit.py::
+default_errors``). A Function's gradient (kernel forward, backward
 recomputed through the plain version) against autograd through the plain
 version: 1e-4 of the plain gradient's max|g| (cuDNN may pick another
 backward algorithm for the two, in another summation order).
@@ -50,6 +52,9 @@ from audiocodecs_tpu_torch.ops.dac_resunit import (
     dac_resunit,
     dac_resunit_info,
     dac_resunit_reference,
+    dac_resunit_stages,
+    default_errors,
+    form_name,
     pack_resunit_weights,
 )
 from audiocodecs_tpu_torch.ops.seanet_resblock import (
@@ -70,6 +75,11 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+def _dac_launches() -> int:
+    """The DAC unit's kernel launches in this process, every form."""
+    return sum(dac_resunit.launches_by_form.values())
 
 
 def _t(a, dev):
@@ -339,14 +349,14 @@ def test_dac_resunit_kernel_matches_plain_version(dev, B, C, T, d):
     rng = np.random.default_rng(B + C + T + d)
     x = _t(rng.standard_normal((B, C, T)), dev)
     args = _unit_args(rng, C, dev)
-    before = dac_resunit.launches
+    before = _dac_launches()
     with torch.inference_mode():
         packed = pack_resunit_weights(args[0], args[3])
         got = dac_resunit(x, *args, d, packed=packed)
         got_unpacked = dac_resunit(x, *args, d)
         want = dac_resunit_reference(x, *args, d)
     torch.cuda.synchronize()
-    assert dac_resunit.launches == before + 2
+    assert _dac_launches() == before + 2
     assert _close(got, want)
     assert torch.equal(got, got_unpacked)
 
@@ -366,13 +376,250 @@ def test_dac_resunit_on_the_card_refuses_widths_the_kernel_does_not_take(dev):
     rng = np.random.default_rng(0)
     C = 384
     x = torch.zeros(1, C, 16, device=dev)
-    before = dac_resunit.launches
+    before = _dac_launches()
     with pytest.raises(ValueError, match="C <= 256"):
         dac_resunit(x, *_unit_args(rng, C, dev), 1)
     with pytest.raises(TypeError):
         dac_resunit(x[:, :8].double(), *[a.double() for a in
                                           _unit_args(rng, 8, dev)], 1)
-    assert dac_resunit.launches == before
+    assert _dac_launches() == before
+
+
+# the new forms: (precision, snake_poly, dtype)
+_NEW_FORMS = [("exact", True, torch.float32),
+              ("default", False, torch.float32),
+              ("default", True, torch.float32),
+              ("default", False, torch.bfloat16),
+              ("default", True, torch.bfloat16)]
+# every tile of the default form (CP = 64, 96, 192, 256), C off the
+# 16-channel chunk, ragged T, T < 6d, the widest window it takes (d = 21)
+_FORM_SHAPES = [(2, 8, 20, 9), (1, 40, 3000, 3), (2, 96, 1001, 9),
+                (1, 120, 515, 1), (1, 192, 4099, 1), (1, 200, 700, 21),
+                (1, 256, 4097, 9)]
+# DAC-44.1k's six decoder units at B = 1 x 10 s, BigCodec-16k's nine at
+# B = 8 x 10 s
+_MODEL_UNITS = [(1, 192, 220416, d) for d in (1, 3, 9)] + [
+    (1, 96, 440832, d) for d in (1, 3, 9)] + [
+    (8, C, T, d) for C, T in ((192, 40000), (96, 80000), (48, 160000))
+    for d in (1, 3, 9)]
+
+
+def _form_case(dev, B, C, T, d, dtype):
+    rng = np.random.default_rng(B + C + T + d)
+    x = _t(rng.standard_normal((B, C, T)) * 0.5, dev).to(dtype)
+    args = [a.to(dtype) for a in _unit_args(rng, C, dev)]
+    return x, args
+
+
+def _check_form(x, args, d, precision, poly):
+    """The kernel in a form against its plain version: the exact forms as
+    the exact kernel, the default form by ``default_errors``; the launch
+    counted under its form."""
+    name = form_name(precision, poly, x.dtype)
+    before = dac_resunit.launches_by_form[name]
+    with torch.inference_mode():
+        packed = pack_resunit_weights(args[0], args[3], precision)
+        got = dac_resunit(x, *args, d, precision=precision,
+                          snake_poly=poly, packed=packed)
+        if precision == "exact":
+            want = dac_resunit_reference(x, *args, d, snake_poly=poly)
+            torch.cuda.synchronize()
+            assert _close(got, want)
+        else:
+            out, h2 = dac_resunit_stages(x, *args, d, snake_poly=poly,
+                                         packed=packed)
+            errs = default_errors(out, h2, x, *args, d, poly)
+            torch.cuda.synchronize()
+            assert errs["ok"], errs
+            assert torch.equal(got, out)  # h2's write changes nothing
+            assert got.dtype == x.dtype
+    assert dac_resunit.launches_by_form[name] - before == (
+        1 if precision == "exact" else 2)
+
+
+@pytest.mark.parametrize("precision,poly,dtype", _NEW_FORMS)
+@pytest.mark.parametrize("B,C,T,d", _FORM_SHAPES)
+def test_dac_resunit_forms_match_plain_version(dev, B, C, T, d, precision,
+                                               poly, dtype):
+    x, args = _form_case(dev, B, C, T, d, dtype)
+    _check_form(x, args, d, precision, poly)
+
+
+@pytest.mark.parametrize("precision,poly,dtype", _NEW_FORMS)
+@pytest.mark.parametrize("B,C,T,d", _MODEL_UNITS)
+def test_dac_resunit_forms_at_the_models_unit_shapes(dev, B, C, T, d,
+                                                     precision, poly, dtype):
+    x, args = _form_case(dev, B, C, T, d, dtype)
+    _check_form(x, args, d, precision, poly)
+
+
+@pytest.mark.parametrize("precision,poly,dtype", _NEW_FORMS)
+def test_dac_resunit_form_occupancy_info(dev, precision, poly, dtype):
+    """Registers, spill bytes, shared bytes and blocks an SM of every
+    instance a form launches at the decoders' widths and dilations."""
+    for C in (8, 48, 96, 120, 192, 256):
+        for d in (1, 3, 9):
+            info = dac_resunit_info(C, d, precision, poly, dtype)
+            assert info["smem_bytes"] == _smem_bytes(C, d, precision)
+            assert 0 < info["regs"] <= 255
+            assert info["local_bytes"] >= 0
+            assert info["blocks_per_sm"] >= 1
+
+
+def test_dac_resunit_default_form_refuses_what_it_does_not_take(dev):
+    x, args = _form_case(dev, 1, 16, 64, 1, torch.bfloat16)
+    before = _dac_launches()
+    with pytest.raises(TypeError, match="precision='default'"):
+        dac_resunit(x, *args, 1)  # bf16 in the exact form
+    with pytest.raises(ValueError, match="shared memory"):
+        dac_resunit(x, *args, 22, precision="default")  # window > 256
+    with pytest.raises(TypeError):  # weights of another dtype than x
+        dac_resunit(x, *[a.float() for a in args], 1, precision="default")
+    with pytest.raises(ValueError, match="packed w7"):
+        dac_resunit(x.float(), *[a.float() for a in args], 1,
+                    precision="default",
+                    packed=pack_resunit_weights(args[0].float(),
+                                                args[3].float()))
+    assert _dac_launches() == before
+
+
+def test_dac_resunit_default_form_has_no_gradient_on_the_card(dev):
+    x, args = _form_case(dev, 1, 16, 64, 1, torch.float32)
+    x.requires_grad_()
+    y = dac_resunit(x, *args, 1, precision="default")
+    with pytest.raises(RuntimeError, match="inference only"):
+        y.sum().backward()
+
+
+def _tier_pair(cls, dev, mc, preset, redraw=False, **kw):
+    """The codec exact, in a tier on the card, and in the tier on the CPU,
+    on one set of weights; ``redraw`` draws the convs' so that every layer
+    moves the output (0.5/√fan_in convs, α = |N| + 0.5, biases 0.1·N)."""
+    gpu = cls(16000, model_config=mc, device=dev,
+              generator=torch.Generator().manual_seed(0), **kw)
+    gen = torch.Generator().manual_seed(1)
+    state = {}
+    for k, v in gpu.state_dict().items():
+        leaf = k.rsplit(".", 1)[-1]
+        if not redraw:
+            pass
+        elif leaf == "w" and v.ndim == 3:
+            v = torch.randn(v.shape, generator=gen) * 0.5 / np.sqrt(
+                v.shape[1] * v.shape[2])
+        elif leaf.startswith("alpha"):
+            v = torch.randn(v.shape, generator=gen).abs() + 0.5
+        elif leaf == "b" and "conv" in k:
+            v = torch.randn(v.shape, generator=gen) * 0.1
+        state[k] = v.cpu()
+    gpu.load_state_dict(state)
+    tier = cls(16000, model_config=mc, device=dev, state_dict=state,
+               **kw, **preset)
+    cpu = cls(16000, model_config=mc, device="cpu", state_dict=state,
+              **kw, **preset)
+    return gpu, tier, cpu
+
+
+def _rms(a):
+    return float(a.float().pow(2).mean().sqrt())
+
+
+def _units_fed_cpu_input(exact, tier, cpu, toks):
+    """Each decoder residual unit of the tier on the card, fed the input its
+    CPU twin got in the CPU's decode of ``toks``: the largest rms(card −
+    CPU) as a share of the unit's own move (tier against exact on the same
+    input), and the smallest share that the exact unit in the tier's place
+    (the control) reads."""
+    from audiocodecs_tpu_torch.models.dac import residual_unit_io
+
+    with residual_unit_io(cpu.decoder) as (ins, outs):
+        cpu.toks_to_sig(toks.cpu())
+    t_units = dict(tier.decoder.named_modules())
+    e_units = dict(exact.decoder.named_modules())
+    worst, control = 0.0, float("inf")
+    with torch.inference_mode():
+        for name, x in ins.items():
+            xd = x.to(next(tier.parameters()).device)
+            card = t_units[name](xd).float()
+            ex = e_units[name](xd.float())
+            move = _rms(card - ex)
+            assert move > 0
+            want = outs[name].float()
+            worst = max(worst, _rms(card.cpu() - want) / move)
+            control = min(control, _rms(ex.cpu() - want) / move)
+    assert ins
+    return worst, control
+
+
+def test_bigcodec_balanced_tier_on_the_card_matches_cpu(dev):
+    """BigCodec's balanced preset (bf16 decoder activations, polynomial
+    snake) at the published LSTM width: four wide recurrence launches and
+    nine fused units in the bf16-poly form a roundtrip, tokens equal to the
+    exact tier's, the card's decode within the tier's own deviation of the
+    CPU's decode in the same tier (end to end the two round apart as two
+    draws of the tier's error), and each residual unit, fed the CPU's own
+    input, within a quarter of the unit's move of the CPU's output, where
+    the exact unit reads more."""
+    from audiocodecs_tpu_torch.models.bigcodec import (
+        BigCodec,
+        BigCodecModelConfig,
+    )
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
+
+    mc = BigCodecModelConfig(ngf=48, up_ratios=(2, 2, 2, 2, 2),
+                             hidden_size=64, codebook_size=256)
+    exact, tier, cpu = _tier_pair(BigCodec, dev, mc,
+                                  apply_serving_preset("bigcodec"))
+    sig = (np.random.default_rng(2).standard_normal((2, 3200)) * 0.1).astype(
+        np.float32)
+    before = _launches()
+    n0 = dict(dac_resunit.launches_by_form)
+    toks = tier.sig_to_toks(sig)
+    y = tier.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    assert _delta(before) == (4, 0, 0, 9)
+    assert dac_resunit.launches_by_form["default_poly_bf16"] - n0[
+        "default_poly_bf16"] == 9
+    assert torch.equal(toks, exact.sig_to_toks(sig))
+    y_exact = exact.toks_to_sig(toks)
+    y_cpu = cpu.toks_to_sig(toks.cpu())
+    assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    assert 0 < _rms(y.cpu() - y_cpu) <= _rms(y - y_exact)
+    worst, control = _units_fed_cpu_input(exact, tier, cpu, toks)
+    assert worst <= 0.25 < control
+
+
+@pytest.mark.parametrize("quality,batch", [("fast", 1), ("balanced", 4)])
+def test_dac_tiers_on_the_card_match_cpu(dev, quality, batch):
+    """DAC's fast tier (fp32, one bf16 pass) and throughput tier (bf16,
+    polynomial snake) on a small config: six fused units a decode in the
+    tier's form, tokens equal to the exact tier's, the card within the
+    tier's own deviation of the CPU path in the same tier (rms: the two
+    round to bf16 after sums taken in other orders), and each residual
+    unit, fed the CPU's own input, within a quarter of the unit's move of
+    the CPU's output, where the exact unit reads more."""
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
+
+    mc = DACModelConfig(encoder_hidden_size=8, downsampling_ratios=(2, 2),
+                        decoder_hidden_size=64, upsampling_ratios=(2, 2),
+                        hidden_size=16, n_codebooks=4, codebook_size=64,
+                        codebook_dim=8)
+    preset = apply_serving_preset("dac", quality, batch)
+    exact, tier, cpu = _tier_pair(DAC, dev, mc, preset, redraw=True,
+                                  num_codebooks=4)
+    sig = (np.random.default_rng(1).standard_normal((3, 4001)) * 0.3).astype(
+        np.float32)
+    name = form_name(preset["decode_precision"], preset["snake_poly"],
+                     preset["decode_dtype"])
+    n0 = dac_resunit.launches_by_form[name]
+    toks = tier.sig_to_toks(sig)
+    y = tier.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    assert dac_resunit.launches_by_form[name] - n0 == 6
+    assert torch.equal(toks, exact.sig_to_toks(sig))
+    y_exact, y_cpu = exact.toks_to_sig(toks), cpu.toks_to_sig(toks.cpu())
+    assert 0 < _rms(y.cpu() - y_cpu) <= _rms(y - y_exact)
+    worst, control = _units_fed_cpu_input(exact, tier, cpu, toks)
+    assert worst <= 0.25 < control
 
 
 @pytest.mark.parametrize("C,T", [(32, 1001), (64, 77), (64, 1024)])
@@ -406,12 +653,12 @@ def test_small_dac_roundtrip_launches_and_matches_cpu(dev):
               state_dict={k: v.cpu() for k, v in gpu.state_dict().items()})
     sig = (np.random.default_rng(1).standard_normal((3, 4001)) * 0.3).astype(
         np.float32)
-    before = dac_resunit.launches
+    before = _dac_launches()
     toks = gpu.sig_to_toks(sig)
-    assert dac_resunit.launches == before
+    assert _dac_launches() == before
     y = gpu.toks_to_sig(toks)
     torch.cuda.synchronize()
-    assert dac_resunit.launches - before == 6
+    assert _dac_launches() - before == 6
     assert (toks.cpu() == cpu.sig_to_toks(sig)).float().mean() >= 0.999
     y_cpu = cpu.toks_to_sig(toks.cpu())
     assert float((y.cpu() - y_cpu).abs().max()) <= 1e-4 * float(
@@ -432,10 +679,10 @@ def test_dac_fused_units_pack_once_across_decodes(dev):
         (1, 2001)) * 0.3).astype(np.float32))
     packs, launches = [], []
     for _ in range(2):
-        p0, n0 = pack_resunit_weights.packs, dac_resunit.launches
+        p0, n0 = pack_resunit_weights.packs, _dac_launches()
         gpu.toks_to_sig(toks)
         packs.append(pack_resunit_weights.packs - p0)
-        launches.append(dac_resunit.launches - n0)
+        launches.append(_dac_launches() - n0)
     torch.cuda.synchronize()
     assert packs == [6, 0]
     assert launches == [6, 6]
@@ -443,7 +690,7 @@ def test_dac_fused_units_pack_once_across_decodes(dev):
 
 def _launches():
     return (lstm_recurrence.launches, seanet_resblock.launches,
-            seanet_resblock_packed.launches, dac_resunit.launches)
+            seanet_resblock_packed.launches, _dac_launches())
 
 
 def _delta(before):
@@ -828,13 +1075,13 @@ def test_dac_unit_function_gradient_matches_plain_on_the_card(dev, C, T, d):
          _req(rng.standard_normal(C) * 0.1, dev),
          _req(np.abs(rng.standard_normal(C)) + 0.5, dev)]
     packed = pack_resunit_weights(w[0], w[3])
-    before = dac_resunit.launches
+    before = _dac_launches()
     fwd, err = _grads_vs_plain(
         lambda x, *w: dac_resunit(x, *w, d, packed=packed),
         lambda x, *w: dac_resunit_reference(x, *w, d),
         [x, *w], [_t(rng.standard_normal((1, C, T)), dev)])
     torch.cuda.synchronize()
-    assert dac_resunit.launches - before == 1
+    assert _dac_launches() - before == 1
     assert fwd <= 1e-5 and err <= 1e-4
 
 

@@ -56,7 +56,8 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.examples.train_codec",
               "audiocodecs_tpu_torch.models",
               "audiocodecs_tpu_torch.models.bigcodec",
-              "audiocodecs_tpu_torch.examples.serve"):
+              "audiocodecs_tpu_torch.examples.serve",
+              "audiocodecs_tpu_torch.serving"):
         assert m in mods
 
 
@@ -72,6 +73,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
         "p.PAST; p.BigCodec; p.BigCodecModelConfig\n"
         "from audiocodecs_tpu_torch.models import get_codec_class\n"
         "get_codec_class('bigcodec')\n"
+        "from audiocodecs_tpu_torch.serving import apply_serving_preset\n"
+        "apply_serving_preset('dac', 'fast')\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = {"PATH": os.environ.get("PATH", ""), "PYTHONPATH": str(REPO),
            "HOME": os.environ.get("HOME", str(REPO)),
@@ -90,6 +93,7 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.examples.train_codec" in loaded
     assert "audiocodecs_tpu_torch.models.bigcodec" in loaded
     assert "audiocodecs_tpu_torch.examples.serve" in loaded
+    assert "audiocodecs_tpu_torch.serving" in loaded
     assert not [m for m in loaded if _is_reference(m)]
 
 
@@ -139,9 +143,14 @@ def test_default_device_is_the_card(monkeypatch):
         PAST(16000)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BigCodec(16000)
-    # the server's entry point asks for the card too (before any request)
+    # the server's entry point asks for the card too (before any request),
+    # in every serving tier
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--codec", "bigcodec", "--requests", "1"])
+    for quality in ("exact", "balanced", "fast"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--codec", "dac", "--quality", quality,
+                        "--requests", "1"])
     with pytest.raises(RuntimeError):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")

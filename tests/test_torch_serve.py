@@ -10,6 +10,7 @@ reference's names for the ported families to the port's classes.
 
 import numpy as np
 import pytest
+import torch
 
 from audiocodecs_tpu.models import available_codecs as jax_available
 from audiocodecs_tpu_torch import models
@@ -109,17 +110,27 @@ def test_registry_names_and_classes():
 
 
 def test_server_main_on_the_cpu(capsys, monkeypatch):
-    """``main`` end to end on a tiny codec of the registry's class."""
+    """``main`` end to end on a tiny codec of the registry's class, built in
+    the family's balanced serving tier (BigCodec: bf16 decoder activations
+    and the polynomial snake), which it prints."""
     from audiocodecs_tpu_torch.examples import serve
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
+
+    built = []
 
     class Tiny:
         DEFAULT_ORIG_SR = 800
 
-        def __new__(cls, sr, orig_sr, device):
+        def __new__(cls, sr, orig_sr, device, **preset):
             assert (sr, orig_sr, device) == (800, 800, "cpu")
-            return _codec("bigcodec")
+            assert preset == apply_serving_preset("bigcodec")
+            built.append(BigCodec(800, 800, model_config=BIGCODEC,
+                                  device="cpu", **preset))
+            return built[-1]
 
     monkeypatch.setattr(models, "get_codec_class", lambda name: Tiny)
     assert serve.main(["--codec", "bigcodec", "--requests", "3",
                        "--batch", "2", "--device", "cpu"]) == 0
-    assert "3 requests" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "3 requests" in out and "serving preset[bigcodec]" in out
+    assert built[0].decode_form.dtype == torch.bfloat16

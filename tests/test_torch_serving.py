@@ -1,0 +1,122 @@
+"""The port's serving presets (``audiocodecs_tpu_torch.serving``) against the
+JAX package's ``audiocodecs_tpu/serving.py``, decision for decision.
+
+The reference returns environment switches; the port returns the codec's
+constructor arguments. The map between them: bf16 decoder activations
+(``ACX_ACT_DTYPE=decoder-bfloat16``) are ``decode_dtype=bfloat16`` and one
+bf16 pass; ``ACX_DEC_CONV_PRECISION=default`` is ``decode_precision=
+"default"``, its "high" (and unset) ``"exact"``; ``ACX_SNAKE_APPROX=1`` is
+``snake_poly``. The reference's fused-unit switch has no counterpart (the
+port's gate is fixed at build time). Families the port does not list get
+``{}`` in every quality.
+"""
+
+import os
+
+import pytest
+import torch
+
+from audiocodecs_tpu.serving import SERVING_PRESETS as J_PRESETS
+from audiocodecs_tpu.serving import apply_serving_preset as j_apply
+from audiocodecs_tpu_torch.models.bigcodec import BigCodec, BigCodecModelConfig
+from audiocodecs_tpu_torch.models.dac import DAC, DACModelConfig, DecodeForm
+from audiocodecs_tpu_torch.serving import (
+    SERVING_PRESETS,
+    apply_serving_preset,
+)
+
+_KNOBS = ("ACX_ACT_DTYPE", "ACX_CONV_PRECISION", "ACX_DEC_CONV_PRECISION",
+          "ACX_SNAKE_APPROX", "ACX_PALLAS_DAC_RESUNIT",
+          "ACX_PALLAS_LSTM_WIDE")
+_BATCHES = (None, 1, 2, 3, 4, 5, 7, 8, 16)
+
+
+@pytest.fixture(autouse=True)
+def clean_env():
+    """The reference writes ``os.environ``: snapshot the switches and put
+    them back, so that no later test sees them."""
+    saved = {k: os.environ.pop(k, None) for k in _KNOBS}
+    yield
+    for k in _KNOBS:
+        os.environ.pop(k, None)
+    for k, v in saved.items():
+        if v is not None:
+            os.environ[k] = v
+
+
+def _port_form(env: dict) -> dict:
+    bf16 = env.get("ACX_ACT_DTYPE", "float32") in ("bfloat16",
+                                                   "decoder-bfloat16")
+    one_pass = bf16 or env.get("ACX_DEC_CONV_PRECISION") == "default"
+    return {"decode_dtype": torch.bfloat16 if bf16 else torch.float32,
+            "decode_precision": "default" if one_pass else "exact",
+            "snake_poly": env.get("ACX_SNAKE_APPROX") == "1"}
+
+
+@pytest.mark.parametrize("quality", ["exact", "balanced", "fast"])
+@pytest.mark.parametrize("family", ["dac", "bigcodec", "encodec",
+                                    "wavtokenizer", "nosuchfamily"])
+def test_presets_agree_with_the_reference(family, quality):
+    """Every batch, the DAC crossover at 4 included: the port's arguments
+    are the reference's switches through the map above."""
+    for batch in _BATCHES:
+        env = j_apply(family, quality, batch)
+        got = apply_serving_preset(family, quality, batch)
+        if family in SERVING_PRESETS:
+            assert got == _port_form(env), (family, quality, batch)
+        else:
+            assert got == {}
+            if family not in J_PRESETS and quality != "exact":
+                assert env == {}  # the reference's rule for it too
+
+
+def test_listed_families_and_their_tiers():
+    assert sorted(SERVING_PRESETS) == ["bigcodec", "dac"]
+    bf16_poly = {"decode_dtype": torch.bfloat16,
+                 "decode_precision": "default", "snake_poly": True}
+    exact = {"decode_dtype": torch.float32, "decode_precision": "exact",
+             "snake_poly": False}
+    assert apply_serving_preset("dac") == exact  # latency: "high" ↦ exact
+    assert apply_serving_preset("dac", "fast") == {
+        **exact, "decode_precision": "default"}
+    for batch in (4, 7, 8, 64):  # throughput, with the fused unit at all
+        assert apply_serving_preset("dac", batch=batch) == bf16_poly
+        assert apply_serving_preset("dac", "fast", batch) == bf16_poly
+    assert apply_serving_preset("bigcodec") == bf16_poly
+    assert apply_serving_preset("bigcodec", "fast") == bf16_poly
+    for family in SERVING_PRESETS:
+        assert apply_serving_preset(family, "exact") == exact
+    with pytest.raises(ValueError, match="quality"):
+        apply_serving_preset("dac", "turbo")
+    with pytest.raises(ValueError, match="quality"):
+        j_apply("dac", "turbo")
+
+
+@pytest.mark.parametrize("quality,batch", [("exact", None),
+                                           ("balanced", None),
+                                           ("fast", None),
+                                           ("balanced", 8)])
+def test_every_preset_builds_its_codec(quality, batch):
+    """The arguments build DAC and BigCodec, whose decoders take the form;
+    a bf16 form without one bf16 pass is refused."""
+    dac = DAC(16000, num_codebooks=2, device="cpu",
+              model_config=DACModelConfig(
+                  encoder_hidden_size=4, downsampling_ratios=(2,),
+                  decoder_hidden_size=8, upsampling_ratios=(2,),
+                  hidden_size=8, n_codebooks=2, codebook_size=16,
+                  codebook_dim=4),
+              **apply_serving_preset("dac", quality, batch))
+    kw = apply_serving_preset("dac", quality, batch)
+    assert dac.decode_form == DecodeForm(*kw.values())
+    assert all(u.form == dac.decode_form
+               for u in dac.decoder.modules() if hasattr(u, "dilation"))
+    big = BigCodec(16000, device="cpu",
+                   model_config=BigCodecModelConfig(
+                       ngf=2, up_ratios=(2,), dilations=(1,), hidden_size=8,
+                       codebook_size=16, codebook_dim=4, rnn_layers=1),
+                   **apply_serving_preset("bigcodec", quality, batch))
+    assert big.decoder.form == big.decode_form
+    assert all(u.form == DecodeForm()
+               for u in big.encoder.modules() if hasattr(u, "dilation"))
+    with pytest.raises(ValueError, match="one bf16 pass"):
+        DecodeForm(torch.bfloat16, "exact")
