@@ -1,4 +1,6 @@
-// Fused SEANet residual block, fp32, for sm_90a:
+// Fused SEANet residual block for sm_90a, in the reference kernel's forms:
+// the exact form (fp32 on the CUDA cores, below) and the one-pass form (one
+// bf16 pass on the tensor cores, namespace mma after it):
 //
 //     out = (ws . x + bs) + (w2 . ELU(w1 *k3 ELU(x_padded) + b1) + b2)
 //
@@ -74,6 +76,10 @@
 // combined as (s + bs) + (y + b2). No TF32, no split K, no atomics, and
 // expm1f in ELU: the package is built without --use_fast_math. The kernel
 // and the plain version (cuDNN, TF32 off) agree bit for bit on the card.
+#include <cuda_bf16.h>
+
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -436,6 +442,273 @@ cudaError_t prepare(int C, int Hc, Plan* plan) {
                               (int)plan->smem);
 }
 
+
+// ---------------------------------------------------------------------------
+// The one-pass form (precision "default"): the reference kernel's DEFAULT
+// dots, one bf16 pass with fp32 sums, on the tensor cores
+// (mma.sync.m16n8k16, bf16 operands, fp32 accumulators). Rounding points:
+//
+//     h   = bf16(ELU(x_padded))                (the k3 conv's operand)
+//     h2  = bf16(ELU(sum h . bf16(w1) + b1))   (the 1x1 conv's operand)
+//     out = (sum bf16(x) . bf16(ws) + bs) + (sum h2 . bf16(w2) + b2)
+//
+// in fp32 from the sums on, written once in x's type (float, or bf16: the
+// reference's casts around its f32-only kernel, fused into the load and the
+// store). The weights come packed by the wrapper as bf16 B fragments
+// (ops/seanet_resblock.py::pack_resblock_weights, precision "default").
+//
+// Bound: 6 C^2 FLOPs a sample, one bf16 pass: at EnCodec's decoder shapes
+// (B = 8, C = 256..32) it is bound by bytes (x in, out written).
+//
+// Design: time on the MMA's M side, channels on N and K, so Hc = 16 at
+// C = 32 is two n-tiles, not a padded m-tile.
+// - One block of 256 threads (8 warps) per (time tile of TT samples,
+//   batch): TT = 128 when C and Hc are at most 128, else 64.
+// - The block first turns its window, positions t0 - 2 .. t0 + TT - 1 of
+//   every channel (t < 0 from the halo, t >= T zero), into two bf16
+//   windows in shared memory, time-major (a row holds every channel, 16
+//   spare bytes a row against bank conflicts): ELU(x) for the k3 conv and
+//   x for the shortcut. Each tap of the k3 conv is then an ldmatrix of the
+//   same window shifted by one row.
+// - k3 conv: M = TT, N = Hc, K = 3 x C. A warp takes items of one m-tile
+//   (16 samples) x four n-tiles (32 hidden channels), and reads each B
+//   fragment once per mma from global memory (L1/L2: every block reads the
+//   same weights). Its epilogue writes h2 into shared memory.
+// - 1x1 conv and shortcut: M = TT, N = C, K = Hc (over h2) and C (over the
+//   raw window), two accumulator sets, combined in the reference's order.
+// - h2_out and k3_out (null on the model's path) receive h2 and the k3
+//   conv's fp32 value before its rounding, so that a check can hold the
+//   kernel to its plain version one rounding point at a time.
+// Shared memory: 2 (TT + 2) rows of C channels and TT rows of Hc, at most
+// 153,664 bytes (C = Hc = 384). Budget on the H100 (seanet_resblock_
+// default_info, PERF.md): 64 registers, no spills, at every EnCodec width;
+// 26,944 / 47,680 / 89,152 / 87,104 shared bytes and 4 / 4 / 2 / 2 blocks
+// an SM at C = 32 / 64 / 128 / 256. Right and simple first: the loads of
+// the window are scalar, and each B fragment comes from L1 per mma.
+namespace mma {
+
+constexpr int kNW = 4;  // n-tiles of 8 channels in a warp's item
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+// bytes of a time-major row of n bf16 channels: 16 spare bytes keep the 8
+// rows an ldmatrix reads on distinct banks
+__host__ __device__ constexpr int row_bytes(int n) {
+  return 2 * round16(n) + 16;
+}
+
+inline int tile_of(int C, int Hc) { return C <= 128 && Hc <= 128 ? 128 : 64; }
+
+inline int smem_bytes(int C, int Hc) {
+  const int TT = tile_of(C, Hc);
+  return 2 * (TT + 2) * row_bytes(C) + TT * row_bytes(Hc);
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+// d += a * b: a 16 x 16 bf16 A fragment (time x input channels), a 16 x 8
+// bf16 B fragment (input x output channels), fp32 d.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// The A fragment of rows r0 .. r0 + 15 and the 16 channels of chunk q of a
+// time-major window with rows of `row` bytes: lanes 0-15 address the rows'
+// first 8 channels, lanes 16-31 their last 8 (ldmatrix's four matrices are
+// then a0..a3 of mma.m16n8k16).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4],
+                                       const unsigned char* win, int row,
+                                       int r0, int q, int lane) {
+  ldmatrix_x4(a, win + (r0 + (lane & 15)) * row + q * 32 + (lane >> 4) * 16);
+}
+
+template <typename TIn, int TT>
+__global__ void __launch_bounds__(kThreads)
+    seanet_resblock_mma_kernel(const TIn* __restrict__ x,     // [B, C, T]
+                               const TIn* __restrict__ halo,  // [B, C, 2]
+                               const uint2* __restrict__ w1f,  // fragments
+                               const TIn* __restrict__ b1,     // [Hc]
+                               const uint2* __restrict__ w2f,  // fragments
+                               const TIn* __restrict__ b2,     // [C]
+                               const uint2* __restrict__ wsf,  // fragments
+                               const TIn* __restrict__ bs,     // [C]
+                               TIn* __restrict__ out,          // [B, C, T]
+                               __nv_bfloat16* __restrict__ h2_out,  // or null
+                               float* __restrict__ k3_out,          // or null
+                               int C, int Hc, int T) {
+  constexpr int W = TT + 2, MT = TT / 16, kWarps = kThreads / 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;  // the MMA's group and thread
+  const int b = blockIdx.y, t0 = blockIdx.x * TT;
+  const int xrow = row_bytes(C), hrow = row_bytes(Hc);
+  unsigned char* win = smem;                // [W] rows: bf16(ELU(x_pad))
+  unsigned char* raw = smem + W * xrow;     // [W] rows: bf16(x_pad)
+  unsigned char* h2s = raw + W * xrow;      // [TT] rows: h2
+  const TIn* xb = x + (size_t)b * C * T;
+  const TIn* hb = halo + (size_t)b * C * 2;
+
+  // the windows, a channel pair at one position a step (consecutive
+  // threads read consecutive samples of a row); zero past C and T
+  const int npairs = round16(C) / 2;
+  for (int e = tid; e < npairs * W; e += kThreads) {
+    const int cp = e / W, j = e - cp * W, p = t0 - 2 + j;
+    float v[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int ch = 2 * cp + u;
+      v[u] = ch >= C  ? 0.f
+             : p < 0  ? to_f(hb[ch * 2 + p + 2])
+             : p < T  ? to_f(__ldg(xb + (size_t)ch * T + p))
+                      : 0.f;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(win + j * xrow + 4 * cp) =
+        __floats2bfloat162_rn(acx_elu(v[0]), acx_elu(v[1]));
+    *reinterpret_cast<__nv_bfloat162*>(raw + j * xrow + 4 * cp) =
+        __floats2bfloat162_rn(v[0], v[1]);
+  }
+  // h2's padding channels (Hc .. round16(Hc)) must read zero
+  for (int e = tid; e < TT * hrow / 16; e += kThreads)
+    reinterpret_cast<uint4*>(h2s)[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  // ---- k3 conv: acc[t][m] = sum_{c, k} h[t + k][c] w1[m][c][k]
+  const int nq1 = round16(C) / 16, nt1 = (Hc + 7) / 8;
+  const int ng1 = (nt1 + kNW - 1) / kNW;
+  for (int item = warp; item < MT * ng1; item += kWarps) {
+    const int mt = item % MT, nt0 = (item / MT) * kNW;
+    float acc[kNW][4] = {};
+    for (int q = 0; q < nq1; ++q)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        uint32_t a[4];
+        load_a(a, win, xrow, mt * 16 + k, q, lane);
+        const uint2* bf = w1f + ((size_t)(k * nq1 + q) * nt1 + nt0) * 32 + lane;
+#pragma unroll
+        for (int n = 0; n < kNW; ++n)
+          if (nt0 + n < nt1) mma_bf16(acc[n], a, __ldg(bf + n * 32));
+      }
+    // h2[t][m] = bf16(ELU(acc + b1[m])); channels m >= Hc are zero
+#pragma unroll
+    for (int n = 0; n < kNW; ++n) {
+      if (nt0 + n >= nt1) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = (nt0 + n) * 8 + 2 * tig + e;
+        const bool live = m < Hc;
+        const float bias = live ? to_f(b1[m]) : 0.f;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = mt * 16 + g + 8 * hr, t = t0 + r;
+          const float v = acc[n][2 * hr + e] + bias;
+          const __nv_bfloat16 hv = __float2bfloat16_rn(live ? acx_elu(v) : 0.f);
+          *reinterpret_cast<__nv_bfloat16*>(h2s + r * hrow + 2 * m) = hv;
+          if (live && t < T) {
+            const size_t at = ((size_t)b * Hc + m) * T + t;
+            if (h2_out != nullptr) h2_out[at] = hv;
+            if (k3_out != nullptr) k3_out[at] = v;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // h2 complete
+
+  // ---- the 1x1 conv over h2 and the shortcut over raw x
+  const int nqh = round16(Hc) / 16, nt2 = (C + 7) / 8;
+  const int ng2 = (nt2 + kNW - 1) / kNW;
+  for (int item = warp; item < MT * ng2; item += kWarps) {
+    const int mt = item % MT, nt0 = (item / MT) * kNW;
+    float accy[kNW][4] = {}, accs[kNW][4] = {};
+    for (int q = 0; q < nqh; ++q) {
+      uint32_t a[4];
+      load_a(a, h2s, hrow, mt * 16, q, lane);
+      const uint2* bf = w2f + ((size_t)q * nt2 + nt0) * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < kNW; ++n)
+        if (nt0 + n < nt2) mma_bf16(accy[n], a, __ldg(bf + n * 32));
+    }
+    for (int q = 0; q < nq1; ++q) {
+      uint32_t a[4];
+      load_a(a, raw, xrow, mt * 16 + 2, q, lane);
+      const uint2* bf = wsf + ((size_t)q * nt2 + nt0) * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < kNW; ++n)
+        if (nt0 + n < nt2) mma_bf16(accs[n], a, __ldg(bf + n * 32));
+    }
+    // out = (s + bs) + (y + b2), rounded once to x's type
+#pragma unroll
+    for (int n = 0; n < kNW; ++n) {
+      if (nt0 + n >= nt2) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int o = (nt0 + n) * 8 + 2 * tig + e;
+        if (o >= C) continue;
+        const float sb = to_f(bs[o]), yb = to_f(b2[o]);
+        TIn* orow = out + ((size_t)b * C + o) * T;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int t = t0 + mt * 16 + g + 8 * hr;
+          if (t < T)
+            orow[t] = from_f<TIn>((accs[n][2 * hr + e] + sb) +
+                                  (accy[n][2 * hr + e] + yb));
+        }
+      }
+    }
+  }
+}
+
+// The instance for (C, Hc, bf16), its shared bytes a block and its time
+// tile, and the attribute that lets it take its shared memory.
+cudaError_t prepare(int C, int Hc, bool bf16, const void** kernel,
+                    size_t* smem, int* tile) {
+  if (C < 1 || Hc < 1 || C > kMaxChannels || Hc > kMaxChannels)
+    return cudaErrorInvalidValue;
+  *tile = tile_of(C, Hc);
+  *smem = (size_t)smem_bytes(C, Hc);
+  if (bf16)
+    *kernel = *tile == 128
+        ? reinterpret_cast<const void*>(
+              seanet_resblock_mma_kernel<__nv_bfloat16, 128>)
+        : reinterpret_cast<const void*>(
+              seanet_resblock_mma_kernel<__nv_bfloat16, 64>);
+  else
+    *kernel = *tile == 128
+        ? reinterpret_cast<const void*>(seanet_resblock_mma_kernel<float, 128>)
+        : reinterpret_cast<const void*>(seanet_resblock_mma_kernel<float, 64>);
+  return cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+}  // namespace mma
+
 }  // namespace
 
 ACX_EXPORT int seanet_resblock_f32(const float* x, const float* halo,
@@ -473,6 +746,54 @@ ACX_EXPORT int seanet_resblock_info(int C, int Hc, int* regs,
   *local_bytes = (int)attr.localSizeBytes;
   *smem_bytes = (int)plan.smem;
   *tile = plan.tile;
+  return cudaSuccess;
+}
+
+// The one-pass form: x, halo, b1, b2, bs and out are float, or bf16 when
+// bf16 != 0; w1f, w2f and wsf are the packed B fragments; h2_out (bf16
+// [B, Hc, T]) and k3_out (float [B, Hc, T]) may be null.
+ACX_EXPORT int seanet_resblock_default(const void* x, const void* halo,
+                                       const void* w1f, const void* b1,
+                                       const void* w2f, const void* b2,
+                                       const void* wsf, const void* bs,
+                                       void* out, void* h2_out, void* k3_out,
+                                       int B, int C, int Hc, int T, int bf16,
+                                       void* stream) {
+  if (B < 1 || T < 1) return cudaErrorInvalidValue;
+  const void* kernel = nullptr;
+  size_t smem = 0;
+  int tile = 0;
+  const cudaError_t err =
+      mma::prepare(C, Hc, bf16 != 0, &kernel, &smem, &tile);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&x,  &halo, &w1f,    &b1,     &w2f, &b2, &wsf,
+                  &bs, &out,  &h2_out, &k3_out, &C,   &Hc, &T};
+  const dim3 grid((T + tile - 1) / tile, B);
+  const cudaError_t launch = cudaLaunchKernel(
+      kernel, grid, dim3(kThreads), args, smem, (cudaStream_t)stream);
+  return launch != cudaSuccess ? launch : cudaGetLastError();
+}
+
+// Registers and local (spill) bytes a thread, shared bytes a block,
+// resident blocks an SM and time samples a block of the one-pass instance
+// for (C, Hc) on float (bf16 = 0) or bf16 operands.
+ACX_EXPORT int seanet_resblock_default_info(int C, int Hc, int bf16,
+                                            int* regs, int* local_bytes,
+                                            int* smem_bytes,
+                                            int* blocks_per_sm, int* tile) {
+  const void* kernel = nullptr;
+  size_t smem = 0;
+  cudaError_t err = mma::prepare(C, Hc, bf16 != 0, &kernel, &smem, tile);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *smem_bytes = (int)smem;
   return cudaSuccess;
 }
 

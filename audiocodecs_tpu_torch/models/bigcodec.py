@@ -52,7 +52,6 @@ from audiocodecs_tpu_torch.codec import (
     prune_params_for_mode,
 )
 from audiocodecs_tpu_torch.models.dac import (
-    DecodeForm,
     ResidualUnit,
     _conv,
     fused_resunit,
@@ -61,6 +60,7 @@ from audiocodecs_tpu_torch.models.dac import (
 from audiocodecs_tpu_torch.nn.layers import (
     Conv1d,
     ConvTranspose1d,
+    DecodeForm,
     exact_fp32,
     unit_norm,
 )

@@ -49,14 +49,14 @@ from audiocodecs_tpu_torch.codec import (
 from audiocodecs_tpu_torch.nn.layers import (
     Conv1d,
     ConvTranspose1d,
+    DecodeForm,
+    _cached,
     conv1d,
-    conv_transpose1d,
     exact_fp32,
     unit_norm,
 )
 from audiocodecs_tpu_torch.ops.dac_resunit import (
     MAX_CHANNELS,
-    PRECISIONS,
     dac_resunit,
     dac_resunit_reference,
     pack_resunit_weights,
@@ -104,92 +104,6 @@ def snake(x: torch.Tensor, alpha: torch.Tensor,
     if poly:
         return x + _snake_sin2_poly(a * x) / (a + 1e-9)
     return x + torch.sin(a * x) ** 2 / (a + 1e-9)
-
-
-def _cached(module: nn.Module, name: str, tag, make, params=None):
-    """``make`` of ``params`` (by default ``module``'s parameter ``name``)
-    detached, kept outside the state dict under ``name``: built once and
-    again only when ``tag`` or a parameter's (device, data_ptr, version)
-    changes (a move, ``load_state_dict`` or an optimizer's step)."""
-    params = (getattr(module, name),) if params is None else params
-    key = (tag, *((p.device, p.data_ptr(), p._version) for p in params))
-    cache = module.__dict__.setdefault("_form_cache", {})
-    hit = cache.get(name)
-    if hit is None or hit[0] != key:
-        with torch.no_grad():
-            hit = (key, make(*(p.detach() for p in params)))
-        cache[name] = hit
-    return hit[1]
-
-
-@dataclasses.dataclass(frozen=True)
-class DecodeForm:
-    """How a decoder computes: a serving tier (the reference's
-    ``apply_dac_decoder`` under its environment switches).
-
-    * ``dtype``: the activations' dtype, float32 or bfloat16
-      (``ACX_ACT_DTYPE=decoder-bfloat16``). The input and the weights are
-      cast to it (each weight once, again only when it changes); bf16 convs
-      run in bf16 (cuDNN on the card), and need ``precision="default"``.
-    * ``precision``: ``"exact"`` (fp32, TF32 off) or ``"default"``, one
-      bf16 pass: with fp32 activations every conv takes bf16-rounded
-      operands and sums in fp32 (``ACX_DEC_CONV_PRECISION=default``).
-    * ``snake_poly``: the polynomial snake (``ACX_SNAKE_APPROX=1``).
-
-    The fused units take the same form (:func:`..ops.dac_resunit.
-    dac_resunit`'s ``precision`` and ``snake_poly``). ``tanh`` runs in the
-    activations' dtype and the waveform comes out float32."""
-
-    dtype: torch.dtype = torch.float32
-    precision: str = "exact"
-    snake_poly: bool = False
-
-    def __post_init__(self):
-        if self.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"decode_dtype must be float32 or bfloat16, "
-                             f"got {self.dtype}")
-        if self.precision not in PRECISIONS:
-            raise ValueError(f"decode_precision must be one of {PRECISIONS},"
-                             f" got {self.precision!r}")
-        if self.dtype == torch.bfloat16 and self.precision != "default":
-            raise ValueError("bf16 activations run one bf16 pass: "
-                             "decode_precision='default'")
-
-    @property
-    def exact(self) -> bool:
-        return self == DecodeForm()
-
-    def param(self, module: nn.Module, name: str) -> torch.Tensor:
-        """``module.<name>`` (a weight, bias or α) in the activations'
-        dtype."""
-        if self.dtype == torch.float32:
-            return getattr(module, name)
-        return _cached(module, name, self.dtype, lambda t: t.to(self.dtype))
-
-    def _conv(self, fn, x, conv, **kw):
-        w = self.param(conv, "w")
-        if self.dtype == torch.float32 and self.precision == "default":
-            w = _cached(conv, "w", "rounded",
-                        lambda t: t.to(torch.bfloat16).float())
-            x = x.to(torch.bfloat16).float()
-        b = None if conv.b is None else self.param(conv, "b")
-        if self.dtype == torch.float32:
-            return fn(x, w, b, **kw)
-        # bf16: the conv's output is rounded, then the bias added in bf16,
-        # as the reference's conv1d does
-        y = fn(x, w, None, **kw)
-        return y if b is None else y + b[:, None]
-
-    def conv1d(self, x, conv: Conv1d, *, stride: int = 1, dilation: int = 1,
-               pad: int = 0):
-        """Symmetric zero pad, then a valid conv in this form."""
-        if pad:
-            x = F.pad(x, (pad, pad))
-        return self._conv(conv1d, x, conv, stride=stride, dilation=dilation)
-
-    def conv_transpose1d(self, x, conv: ConvTranspose1d, *, stride: int):
-        """Full transposed conv in this form."""
-        return self._conv(conv_transpose1d, x, conv, stride=stride)
 
 
 @dataclasses.dataclass(frozen=True)

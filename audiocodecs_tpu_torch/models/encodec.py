@@ -47,6 +47,7 @@ from audiocodecs_tpu_torch.nn.seanet import (
     init_stream_state,
     seanet_decoder_plan,
     seanet_encoder_plan,
+    stack_forms,
 )
 from audiocodecs_tpu_torch.nn.vocos import (
     Vocos,
@@ -185,6 +186,15 @@ class Encodec(SEANetStreaming, Codec):
     default) and, with ``use_vocos``, the head's from a generator of its
     own seeded 1, as the reference draws them from ``PRNGKey(1)``.
     ``device=None`` means the card.
+
+    ``decode_dtype`` and ``decode_precision`` set the decoder stack's form
+    (:class:`..nn.layers.DecodeForm`: the reference's serving tiers, which
+    :mod:`audiocodecs_tpu_torch.serving` picks by family) and
+    ``encode_precision`` the encoder stack's (:func:`..nn.seanet.
+    stack_forms`). The quantizer and the LSTMs stay exact fp32 in every
+    form, as the reference fixes them at HIGHEST. The Vocos head reads no
+    form (the reference's Vocos reads no activation dtype), so with
+    ``use_vocos`` the decoder's form changes nothing.
     """
 
     def __init__(
@@ -199,6 +209,9 @@ class Encodec(SEANetStreaming, Codec):
         state_dict: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
         device=None,
+        decode_dtype: torch.dtype = torch.float32,
+        decode_precision: str = "exact",
+        encode_precision: str = "exact",
     ):
         mc = model_config or EncodecModelConfig(sampling_rate=orig_sample_rate)
         bandwidth_id = 0
@@ -227,13 +240,17 @@ class Encodec(SEANetStreaming, Codec):
         self.vocos_config = vocos_config if use_vocos else None
         self._bandwidth_id = bandwidth_id  # the AdaLN row
         sea = mc.seanet()
+        self.encode_form, self.decode_form = stack_forms(
+            decode_dtype, decode_precision, encode_precision)
         if mode != "decode":
-            self.encoder = SEANet(sea, seanet_encoder_plan(sea))
+            self.encoder = SEANet(sea, seanet_encoder_plan(sea),
+                                  self.encode_form)
         if mode != "encode":
             if use_vocos:
                 self.vocos = Vocos(self.vocos_config)
             else:
-                self.decoder = SEANet(sea, seanet_decoder_plan(sea))
+                self.decoder = SEANet(sea, seanet_decoder_plan(sea),
+                                      self.decode_form)
         self.codebooks = nn.Parameter(torch.empty(
             mc.num_quantizers, mc.codebook_size, mc.codebook_dim))
         if state_dict is None:

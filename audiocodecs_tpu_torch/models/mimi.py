@@ -37,7 +37,6 @@ from audiocodecs_tpu_torch.codec import Codec, CodecConfig, _serving
 from audiocodecs_tpu_torch.nn.layers import (
     Conv1d,
     ConvTranspose1d,
-    causal_conv1d,
     conv_transpose1d,
     exact_fp32,
 )
@@ -49,6 +48,7 @@ from audiocodecs_tpu_torch.nn.seanet import (
     init_stream_state,
     seanet_decoder_plan,
     seanet_encoder_plan,
+    stack_forms,
 )
 from audiocodecs_tpu_torch.nn.streaming import (
     apply_transformer_streaming,
@@ -203,7 +203,19 @@ class Mimi(Codec):
     """Mimi with the standardized ``[B,T]`` ↔ ``[B,N,K]`` contract.
     ``state_dict`` is loaded strictly; without it the weights are drawn by
     :func:`init_mimi_params` from ``generator`` (seed 0 by default).
-    ``device=None`` means the card."""
+    ``device=None`` means the card.
+
+    ``decode_dtype`` and ``decode_precision`` set the decoder stack's form
+    (:class:`..nn.layers.DecodeForm`: the reference's serving tiers, which
+    :mod:`audiocodecs_tpu_torch.serving` picks by family) and
+    ``encode_precision`` the encoder stack's (:func:`..nn.seanet.
+    stack_forms`). The quantizer and the LSTMs stay exact fp32 in every
+    form, as the reference fixes them at HIGHEST. The encoder's form also
+    covers the downsample conv (the reference runs it at
+    ``ACX_CONV_PRECISION``); the transformers stay exact fp32 and the
+    decoder's form covers its SEANet stack only, as the reference casts
+    only that stack.
+    """
 
     @classmethod
     def default_model_config(cls, orig_sample_rate: int = 24000):
@@ -219,6 +231,9 @@ class Mimi(Codec):
         state_dict: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
         device=None,
+        decode_dtype: torch.dtype = torch.float32,
+        decode_precision: str = "exact",
+        encode_precision: str = "exact",
     ):
         mc = model_config or MimiModelConfig(sampling_rate=orig_sample_rate)
         super().__init__(
@@ -230,12 +245,16 @@ class Mimi(Codec):
         self.model_config = mc
         sea, tcfg = mc.seanet(), mc.transformer()
         H, kernel = mc.hidden_size, 2 * mc.downsample_stride
+        self.encode_form, self.decode_form = stack_forms(
+            decode_dtype, decode_precision, encode_precision)
         if mode != "decode":
-            self.encoder = SEANet(sea, seanet_encoder_plan(sea))
+            self.encoder = SEANet(sea, seanet_encoder_plan(sea),
+                                  self.encode_form)
             self.encoder_transformer = Transformer(tcfg)
             self.downsample = Conv1d(H, H, kernel, bias=False)
         if mode != "encode":
-            self.decoder = SEANet(sea, seanet_decoder_plan(sea))
+            self.decoder = SEANet(sea, seanet_decoder_plan(sea),
+                                  self.decode_form)
             self.decoder_transformer = Transformer(tcfg)
             self.upsample = ConvTranspose1d(H, H, kernel, bias=False,
                                             groups=mc.upsample_groups)
@@ -257,9 +276,9 @@ class Mimi(Codec):
         mc = self.model_config
         x = self.encoder(sig[:, None, :])
         x = self.encoder_transformer(x.transpose(1, 2))
-        x = causal_conv1d(x.transpose(1, 2), self.downsample.w, None,
-                          stride=mc.downsample_stride,
-                          causal=mc.use_causal_conv, pad_mode="replicate")
+        x = self.encode_form.causal_conv1d(
+            x.transpose(1, 2), self.downsample, stride=mc.downsample_stride,
+            causal=mc.use_causal_conv, pad_mode="replicate")
         return x.transpose(1, 2)
 
     def _decode_tower(self, q):

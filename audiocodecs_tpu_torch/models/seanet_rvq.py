@@ -32,6 +32,7 @@ from audiocodecs_tpu_torch.nn.seanet import (
     init_seanet_params,
     seanet_decoder_plan,
     seanet_encoder_plan,
+    stack_forms,
 )
 from audiocodecs_tpu_torch.quant.rvq import rvq_decode, rvq_encode
 
@@ -89,6 +90,13 @@ class SEANetRVQCodec(SEANetStreaming, Codec):
     :func:`init_seanet_rvq_params` from ``generator`` (seed 0 by default).
     Encode mode drops the decoder and ``out_proj``, decode mode the encoder
     and ``in_proj``. ``device=None`` means the card.
+
+    ``decode_dtype`` and ``decode_precision`` set the decoder stack's form
+    (:class:`..nn.layers.DecodeForm`: the reference's serving tiers, which
+    :mod:`audiocodecs_tpu_torch.serving` picks by family) and
+    ``encode_precision`` the encoder stack's (:func:`..nn.seanet.
+    stack_forms`). The quantizer and the LSTMs stay exact fp32 in every
+    form, as the reference fixes them at HIGHEST.
     """
 
     DEFAULT_ORIG_SR = 16000
@@ -108,6 +116,9 @@ class SEANetRVQCodec(SEANetStreaming, Codec):
         state_dict: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
         device=None,
+        decode_dtype: torch.dtype = torch.float32,
+        decode_precision: str = "exact",
+        encode_precision: str = "exact",
     ):
         orig_sample_rate = orig_sample_rate or self.DEFAULT_ORIG_SR
         mc = model_config or self.default_model_config(orig_sample_rate)
@@ -120,12 +131,16 @@ class SEANetRVQCodec(SEANetStreaming, Codec):
         self.model_config = mc
         sea = mc.seanet()
         H, D = mc.hidden_size, mc.codebook_dim
+        self.encode_form, self.decode_form = stack_forms(
+            decode_dtype, decode_precision, encode_precision)
         if mode != "decode":
-            self.encoder = SEANet(sea, seanet_encoder_plan(sea))
+            self.encoder = SEANet(sea, seanet_encoder_plan(sea),
+                                  self.encode_form)
             if mc.has_projector:
                 self.in_proj = Conv1d(H, D, 1)
         if mode != "encode":
-            self.decoder = SEANet(sea, seanet_decoder_plan(sea))
+            self.decoder = SEANet(sea, seanet_decoder_plan(sea),
+                                  self.decode_form)
             if mc.has_projector:
                 self.out_proj = Conv1d(D, H, 1)
         self.codebooks = nn.Parameter(torch.empty(

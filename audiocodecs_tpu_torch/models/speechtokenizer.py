@@ -33,6 +33,7 @@ from audiocodecs_tpu_torch.nn.seanet import (
     init_seanet_params,
     seanet_decoder_plan,
     seanet_encoder_plan,
+    stack_forms,
 )
 from audiocodecs_tpu_torch.quant.rvq import rvq_decode, rvq_encode
 
@@ -84,7 +85,15 @@ class SpeechTokenizer(Codec):
     """SpeechTokenizer with the standardized ``[B,T]`` ↔ ``[B,N,K]``
     contract. ``state_dict`` is loaded strictly; without it the weights are
     drawn by :func:`init_speechtokenizer_params` from ``generator`` (seed 0
-    by default). ``device=None`` means the card."""
+    by default). ``device=None`` means the card.
+
+    ``decode_dtype`` and ``decode_precision`` set the decoder stack's form
+    (:class:`..nn.layers.DecodeForm`: the reference's serving tiers, which
+    :mod:`audiocodecs_tpu_torch.serving` picks by family) and
+    ``encode_precision`` the encoder stack's (:func:`..nn.seanet.
+    stack_forms`). The quantizer and the LSTMs stay exact fp32 in every
+    form, as the reference fixes them at HIGHEST.
+    """
 
     @classmethod
     def default_model_config(cls, orig_sample_rate: int = 16000):
@@ -100,6 +109,9 @@ class SpeechTokenizer(Codec):
         state_dict: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
         device=None,
+        decode_dtype: torch.dtype = torch.float32,
+        decode_precision: str = "exact",
+        encode_precision: str = "exact",
     ):
         mc = model_config or SpeechTokenizerModelConfig(
             sampling_rate=orig_sample_rate)
@@ -110,12 +122,16 @@ class SpeechTokenizer(Codec):
                         vocab_size=mc.codebook_size),
             device=device)
         self.model_config = mc
+        self.encode_form, self.decode_form = stack_forms(
+            decode_dtype, decode_precision, encode_precision)
         if mode != "decode":
             enc = mc.seanet(True)
-            self.encoder = SEANet(enc, seanet_encoder_plan(enc))
+            self.encoder = SEANet(enc, seanet_encoder_plan(enc),
+                                  self.encode_form)
         if mode != "encode":
             dec = mc.seanet(False)
-            self.decoder = SEANet(dec, seanet_decoder_plan(dec))
+            self.decoder = SEANet(dec, seanet_decoder_plan(dec),
+                                  self.decode_form)
         self.codebooks = nn.Parameter(torch.empty(
             mc.num_quantizers, mc.codebook_size, mc.codebook_dim))
         if state_dict is None:

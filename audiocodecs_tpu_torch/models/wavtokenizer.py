@@ -26,6 +26,7 @@ from audiocodecs_tpu_torch.nn.seanet import (
     SEANetConfig,
     init_seanet_params,
     seanet_encoder_plan,
+    stack_forms,
 )
 from audiocodecs_tpu_torch.nn.vocos import (
     Vocos,
@@ -100,6 +101,12 @@ class WavTokenizer(Codec):
     :func:`init_wavtokenizer_params` from ``generator`` (seed 0 by
     default). Encode mode drops the head, decode mode the encoder.
     ``device=None`` means the card.
+
+    ``decode_dtype`` and ``decode_precision`` are taken, and checked, as
+    the other SEANet families take them, but change nothing: the decoder is
+    the Vocos head, and the reference's Vocos reads no activation dtype, so
+    its serving tier decodes as its exact one. ``encode_precision`` sets
+    the encoder stack's form (:func:`..nn.seanet.stack_forms`).
     """
 
     @classmethod
@@ -116,6 +123,9 @@ class WavTokenizer(Codec):
         state_dict: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
         device=None,
+        decode_dtype: torch.dtype = torch.float32,
+        decode_precision: str = "exact",
+        encode_precision: str = "exact",
     ):
         if num_codebooks != 1:
             raise ValueError("WavTokenizer is single-codebook (K=1)")
@@ -127,9 +137,12 @@ class WavTokenizer(Codec):
                         num_codebooks=1, vocab_size=mc.codebook_size),
             device=device)
         self.model_config = mc
+        self.encode_form, self.decode_form = stack_forms(
+            decode_dtype, decode_precision, encode_precision)
         if mode != "decode":
             sea = mc.seanet()
-            self.encoder = SEANet(sea, seanet_encoder_plan(sea))
+            self.encoder = SEANet(sea, seanet_encoder_plan(sea),
+                                  self.encode_form)
         if mode != "encode":
             self.vocos = Vocos(mc.vocos())
         self.codebook = nn.Parameter(torch.empty(mc.codebook_size,

@@ -13,10 +13,16 @@ The convs are library calls (``F.conv1d``/``F.conv_transpose1d``), as the
 reference leaves them to XLA outside any Pallas kernel. They run in exact
 fp32: cuDNN's TF32 default keeps ~3 decimal digits and flips argmin-marginal
 tokens (:func:`exact_fp32`).
+
+:class:`DecodeForm` is the counterpart of the reference's numeric switches
+(``act_dtype``, ``conv_role`` and ``conv_precision``): how a conv stack
+computes, given to a model when it is built instead of read from the
+environment.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import threading
 from contextlib import contextmanager
@@ -37,7 +43,11 @@ __all__ = [
     "exact_fp32",
     "Conv1d",
     "ConvTranspose1d",
+    "DecodeForm",
+    "PRECISIONS",
 ]
+
+PRECISIONS = ("exact", "default")  # a form's conv precision
 
 
 class _ExactFP32:
@@ -161,19 +171,25 @@ def extra_padding_for_frames(length: int, kernel_size: int, stride: int,
     return max(0, ideal - length)
 
 
-def causal_conv1d(x, w, b=None, *, stride: int = 1, dilation: int = 1,
-                  causal: bool = True, pad_mode: str = "reflect"):
-    """Conv with the reference codecs' framing: causal-left (or asymmetric)
-    padding plus right extra-padding to a whole frame count."""
-    k = w.shape[-1]
+def frame_pad(x, k: int, *, stride: int = 1, dilation: int = 1,
+              causal: bool = True, pad_mode: str = "reflect"):
+    """The padding of the reference codecs' framed conv of ``k`` taps:
+    causal-left (or asymmetric) padding plus right extra-padding to a whole
+    frame count."""
     eff_k = (k - 1) * dilation + 1
     padding_total = eff_k - stride
     extra = extra_padding_for_frames(x.shape[-1], eff_k, stride, padding_total)
     if causal:
-        x = pad1d(x, padding_total, extra, mode=pad_mode)
-    else:
-        right = padding_total // 2
-        x = pad1d(x, padding_total - right, right + extra, mode=pad_mode)
+        return pad1d(x, padding_total, extra, mode=pad_mode)
+    right = padding_total // 2
+    return pad1d(x, padding_total - right, right + extra, mode=pad_mode)
+
+
+def causal_conv1d(x, w, b=None, *, stride: int = 1, dilation: int = 1,
+                  causal: bool = True, pad_mode: str = "reflect"):
+    """Conv with the reference codecs' framing (:func:`frame_pad`)."""
+    x = frame_pad(x, w.shape[-1], stride=stride, dilation=dilation,
+                  causal=causal, pad_mode=pad_mode)
     return conv1d(x, w, b, stride=stride, dilation=dilation)
 
 
@@ -182,3 +198,99 @@ def streaming_conv_frames(length: int, kernel_size: int, stride: int) -> int:
     padding_total = kernel_size - stride
     extra = extra_padding_for_frames(length, kernel_size, stride, padding_total)
     return (length + padding_total + extra - kernel_size) // stride + 1
+
+
+def _cached(module: nn.Module, name: str, tag, make, params=None):
+    """``make`` of ``params`` (by default ``module``'s parameter ``name``)
+    detached, kept outside the state dict under ``name``: built once and
+    again only when ``tag`` or a parameter's (device, data_ptr, version)
+    changes (a move, ``load_state_dict`` or an optimizer's step)."""
+    params = (getattr(module, name),) if params is None else params
+    key = (tag, *((p.device, p.data_ptr(), p._version) for p in params))
+    cache = module.__dict__.setdefault("_form_cache", {})
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            hit = (key, make(*(p.detach() for p in params)))
+        cache[name] = hit
+    return hit[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeForm:
+    """How a conv stack computes: a serving tier (the reference's stacks
+    under its environment switches, ``audiocodecs_tpu/nn/layers.py:39-107``).
+
+    * ``dtype``: the activations' dtype, float32 or bfloat16
+      (``ACX_ACT_DTYPE=decoder-bfloat16``). The input and the weights are
+      cast to it (each weight once, again only when it changes); bf16 convs
+      run in bf16 (cuDNN on the card), and need ``precision="default"``.
+    * ``precision``: ``"exact"`` (fp32, TF32 off) or ``"default"``, one
+      bf16 pass: with fp32 activations every conv takes bf16-rounded
+      operands and sums in fp32 (``ACX_DEC_CONV_PRECISION=default``, or
+      ``ACX_CONV_PRECISION=default`` for an encoder).
+    * ``snake_poly``: the polynomial snake (``ACX_SNAKE_APPROX=1``).
+
+    The fused kernels take the same form (``precision``, the operands'
+    dtype, and B4's ``snake_poly``). A model's stack casts its output back
+    to float32."""
+
+    dtype: torch.dtype = torch.float32
+    precision: str = "exact"
+    snake_poly: bool = False
+
+    def __post_init__(self):
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"decode_dtype must be float32 or bfloat16, "
+                             f"got {self.dtype}")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"decode_precision must be one of {PRECISIONS},"
+                             f" got {self.precision!r}")
+        if self.dtype == torch.bfloat16 and self.precision != "default":
+            raise ValueError("bf16 activations run one bf16 pass: "
+                             "decode_precision='default'")
+
+    @property
+    def exact(self) -> bool:
+        return self == DecodeForm()
+
+    def param(self, module: nn.Module, name: str) -> torch.Tensor:
+        """``module.<name>`` (a weight, bias or α) in the activations'
+        dtype."""
+        if self.dtype == torch.float32:
+            return getattr(module, name)
+        return _cached(module, name, self.dtype, lambda t: t.to(self.dtype))
+
+    def _conv(self, fn, x, conv, **kw):
+        w = self.param(conv, "w")
+        if self.dtype == torch.float32 and self.precision == "default":
+            w = _cached(conv, "w", "rounded",
+                        lambda t: t.to(torch.bfloat16).float())
+            x = x.to(torch.bfloat16).float()
+        b = None if conv.b is None else self.param(conv, "b")
+        if self.dtype == torch.float32:
+            return fn(x, w, b, **kw)
+        # bf16: the conv's output is rounded, then the bias added in bf16,
+        # as the reference's conv1d does
+        y = fn(x, w, None, **kw)
+        return y if b is None else y + b[:, None]
+
+    def conv1d(self, x, conv: Conv1d, *, stride: int = 1, dilation: int = 1,
+               pad: int = 0):
+        """Symmetric zero pad, then a valid conv in this form."""
+        if pad:
+            x = F.pad(x, (pad, pad))
+        return self._conv(conv1d, x, conv, stride=stride, dilation=dilation)
+
+    def causal_conv1d(self, x, conv: Conv1d, *, stride: int = 1,
+                      dilation: int = 1, causal: bool = True,
+                      pad_mode: str = "reflect"):
+        """The reference codecs' framed conv (:func:`causal_conv1d`) in
+        this form."""
+        x = frame_pad(x, conv.w.shape[-1], stride=stride, dilation=dilation,
+                      causal=causal, pad_mode=pad_mode)
+        return self._conv(conv1d, x, conv, stride=stride, dilation=dilation)
+
+    def conv_transpose1d(self, x, conv: ConvTranspose1d, *, stride: int):
+        """Full transposed conv in this form."""
+        return self._conv(conv_transpose1d, x, conv, stride=stride)

@@ -6,13 +6,22 @@ forward pass and name the state-dict keys (``<layer_index>.w`` …), so the
 weight bridge maps the reference's param tree key for key. Inside the stacks
 the layout is PyTorch's ``[B, C, T]``.
 
+A stack computes in a :class:`..nn.layers.DecodeForm`, fixed when it is
+built: the reference's ``_apply_plan`` under its switches
+(``ACX_ACT_DTYPE``, ``ACX_CONV_PRECISION``). A bf16 form casts the input
+to bf16 and the output back to the input's dtype; convs, transposed convs,
+residual blocks and ELUs run in the form; each LSTM is an fp32 island whose
+residual sum is cast back to the activations' dtype.
+
 The residual blocks that the fused kernel covers (causal, dilations (1, 1),
 k3 then 1×1 conv, conv shortcut: all of EnCodec's) go to
-:func:`..ops.seanet_resblock.seanet_resblock` on every device — it launches
-the CUDA kernel for CUDA tensors and runs its plain version for CPU
-tensors. Other blocks take the general path (:func:`_resnet_plain`): the
-non-causal, reflect-padded blocks of SpeechTokenizer and Mimi's blocks
-without a conv shortcut run cuDNN, as the reference runs them on XLA.
+:func:`..ops.seanet_resblock.seanet_resblock` in the stack's form on every
+device: it launches the CUDA kernel for CUDA tensors and runs its plain
+version for CPU tensors. The gate is fixed when a block is built. Other
+blocks take the general path (:func:`_resnet_plain`) in the form: the
+non-causal, reflect-padded blocks of SpeechTokenizer and EnCodec-48k and
+Mimi's blocks without a conv shortcut run cuDNN, as the reference runs them
+on XLA.
 
 The ``"bilstm"`` kind (SpeechTokenizer's encoder) is a bidirectional LSTM
 whose output, 2H wide, is added to the input duplicated over channels.
@@ -20,7 +29,9 @@ whose output, 2H wide, is added to the input duplicated over channels.
 Streaming (:func:`init_stream_state`, :func:`apply_plan_streaming`) runs
 each conv of a causal plan over one chunk with its carried left context
 (:mod:`..nn.streaming`), residual blocks conv by conv as the reference does,
-and carries the LSTM's ``(h, c)``.
+and carries the LSTM's ``(h, c)``. It runs fp32 activations whatever the
+stack's form, as the reference's streaming path reads no activation dtype;
+a stack with fp32 activations at one bf16 pass raises there.
 """
 
 from __future__ import annotations
@@ -34,8 +45,8 @@ from torch import nn
 from audiocodecs_tpu_torch.nn.layers import (
     Conv1d,
     ConvTranspose1d,
-    causal_conv1d,
-    conv_transpose1d,
+    DecodeForm,
+    _cached,
     elu,
     pad1d,
 )
@@ -56,7 +67,7 @@ from audiocodecs_tpu_torch.ops.seanet_resblock import (
     seanet_resblock,
 )
 
-__all__ = ["SEANetConfig", "SEANet", "apply_plan_streaming",
+__all__ = ["SEANetConfig", "SEANet", "apply_plan_streaming", "stack_forms",
            "init_seanet_params", "init_stream_state", "seanet_decoder_plan",
            "seanet_encoder_plan"]
 
@@ -149,9 +160,11 @@ def seanet_decoder_plan(cfg: SEANetConfig):
 class ResBlock(nn.Module):
     """ELU → conv(k_res) → ELU → conv(1), plus a conv or identity shortcut.
 
-    A block that the fused kernel takes keeps its conv weights in the
-    kernel's layout (:func:`..ops.seanet_resblock.pack_resblock_weights`),
-    built on its first forward on the card and again only when a conv
+    A block that the fused kernel takes (:func:`_fused_eligible`: its
+    config, dilations and conv shapes, all fixed when it is built) keeps its
+    conv weights in the kernel's layout for a precision
+    (:func:`..ops.seanet_resblock.pack_resblock_weights`), built on its
+    first forward on the card and again only when the precision or a conv
     weight changes: moves to another device, or is written in place
     (``load_state_dict`` and an optimizer's step bump the tensor's
     version, so a training step repacks each block once). The packed
@@ -167,18 +180,15 @@ class ResBlock(nn.Module):
                    ch if bi == len(ks) - 1 else hidden, k)
             for bi, k in enumerate(ks))
         self.shortcut = Conv1d(ch, ch, 1) if cfg.use_conv_shortcut else None
-        self._packed = None
-        self._packed_key = None
 
-    def packed_weights(self):
-        """The kernel's layout of (block.0.w, block.1.w, shortcut.w),
-        rebuilt only when a weight's (device, data_ptr, version) changed."""
+    def packed_weights(self, precision: str = "exact"):
+        """The kernel's layout of (block.0.w, block.1.w, shortcut.w) for
+        ``precision``, rebuilt only when it or a weight's (device,
+        data_ptr, version) changed."""
         ws = (self.block[0].w, self.block[1].w, self.shortcut.w)
-        key = tuple((w.device, w.data_ptr(), w._version) for w in ws)
-        if key != self._packed_key:
-            self._packed = pack_resblock_weights(*ws)
-            self._packed_key = key
-        return self._packed
+        return _cached(self, "packed", precision,
+                       lambda *w: pack_resblock_weights(*w, precision),
+                       params=ws)
 
 
 def _fused_eligible(p: ResBlock, cfg: SEANetConfig, dilations) -> bool:
@@ -188,35 +198,39 @@ def _fused_eligible(p: ResBlock, cfg: SEANetConfig, dilations) -> bool:
             and p.shortcut.w.shape[-1] == 1)
 
 
-def _resnet_plain(x, p: ResBlock, cfg: SEANetConfig, dilations):
+def _resnet_plain(x, p: ResBlock, cfg: SEANetConfig, dilations,
+                  form: DecodeForm = DecodeForm()):
     """ELU→conv(k_res, dilation)→ELU→conv(1) with (conv|identity) shortcut,
-    each conv a library call (the reference's XLA form)."""
+    each conv a library call in ``form`` (the reference's XLA form)."""
     h = x
     for conv, dil in zip(p.block, dilations):
-        h = causal_conv1d(elu(h), conv.w, conv.b, dilation=dil,
-                          causal=cfg.causal, pad_mode=cfg.pad_mode)
+        h = form.causal_conv1d(elu(h), conv, dilation=dil, causal=cfg.causal,
+                               pad_mode=cfg.pad_mode)
     if p.shortcut is not None:
-        x = causal_conv1d(x, p.shortcut.w, p.shortcut.b, causal=cfg.causal,
-                          pad_mode=cfg.pad_mode)
+        x = form.causal_conv1d(x, p.shortcut, causal=cfg.causal,
+                               pad_mode=cfg.pad_mode)
     return x + h
 
 
-def _apply_resnet(x, p: ResBlock, cfg: SEANetConfig, dilations):
+def _apply_resnet(x, p: ResBlock, cfg: SEANetConfig, dilations,
+                  form: DecodeForm = DecodeForm()):
     if not _fused_eligible(p, cfg, dilations):
-        return _resnet_plain(x, p, cfg, dilations)
+        return _resnet_plain(x, p, cfg, dilations, form)
     x = x.contiguous()
     # the two causal samples before t=0, padded as the k3 conv would pad
     halo = pad1d(x[..., :3], 2, 0, mode=cfg.pad_mode)[..., :2].contiguous()
     c1, c2, s = p.block[0], p.block[1], p.shortcut
     # the CPU path runs the plain version, which takes no packed weights
-    packed = p.packed_weights() if x.device.type == "cuda" else None
-    return seanet_resblock(x, halo, c1.w, c1.b, c2.w, c2.b, s.w, s.b,
-                           packed=packed)
+    packed = (p.packed_weights(form.precision) if x.device.type == "cuda"
+              else None)
+    return seanet_resblock(
+        x, halo, *(form.param(c, n) for c in (c1, c2, s) for n in ("w", "b")),
+        packed=packed, precision=form.precision)
 
 
 def _apply_convtr(x, p: ConvTranspose1d, cfg: SEANetConfig, kernel: int,
-                  stride: int):
-    y = conv_transpose1d(x, p.w, p.b, stride=stride)
+                  stride: int, form: DecodeForm = DecodeForm()):
+    y = form.conv_transpose1d(x, p, stride=stride)
     padding_total = kernel - stride
     if cfg.causal:
         right = math.ceil(padding_total * cfg.trim_right_ratio)
@@ -226,14 +240,31 @@ def _apply_convtr(x, p: ConvTranspose1d, cfg: SEANetConfig, kernel: int,
     return y[..., left: y.shape[-1] - right]
 
 
-class SEANet(nn.Module):
-    """One SEANet stack built from a plan; the layer with plan index ``i``
-    is the submodule ``str(i)``. ``forward``: [B, Cin, T] → [B, Cout, T']."""
+def stack_forms(decode_dtype=torch.float32, decode_precision: str = "exact",
+                encode_precision: str = "exact"):
+    """The forms of a codec's two stacks from its constructor's arguments:
+    ``(encoder form, decoder form)``. The encoder keeps fp32 activations
+    (the reference's ``decoder-bfloat16`` casts only the decoder);
+    ``encode_precision`` "default" is its ``ACX_CONV_PRECISION=default``,
+    one bf16 pass in every conv and block of the encoder stack."""
+    if encode_precision not in ("exact", "default"):
+        raise ValueError(f"encode_precision must be 'exact' or 'default', "
+                         f"got {encode_precision!r}")
+    return (DecodeForm(precision=encode_precision),
+            DecodeForm(decode_dtype, decode_precision))
 
-    def __init__(self, cfg: SEANetConfig, plan):
+
+class SEANet(nn.Module):
+    """One SEANet stack built from a plan, computing in ``form``; the layer
+    with plan index ``i`` is the submodule ``str(i)``. ``forward``:
+    [B, Cin, T] → [B, Cout, T'], in and out in the input's dtype."""
+
+    def __init__(self, cfg: SEANetConfig, plan,
+                 form: DecodeForm = DecodeForm()):
         super().__init__()
         self.cfg = cfg
         self.plan = list(plan)
+        self.form = form
         for spec in self.plan:
             kind, idx = spec[0], str(spec[1])
             if kind == "conv":
@@ -254,29 +285,37 @@ class SEANet(nn.Module):
                 raise NotImplementedError(f"plan kind {kind!r} is not ported")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, form = self.cfg, self.form
+        in_dtype = x.dtype
+        # bf16 activations in a bf16 form; fp32 forms keep the input's
+        # dtype (float64 in the training tests), as does each LSTM island
+        dt = form.dtype if form.dtype == torch.bfloat16 else in_dtype
+        island = torch.float32 if dt == torch.bfloat16 else dt
+        x = x.to(dt)
         for spec in self.plan:
             kind, idx = spec[0], str(spec[1])
             if kind == "elu":
                 x = elu(x)
             elif kind == "conv":
                 _, _, _cin, _cout, k, stride, dil = spec
-                p = getattr(self, idx)
-                x = causal_conv1d(x, p.w, p.b, stride=stride, dilation=dil,
-                                  causal=cfg.causal, pad_mode=cfg.pad_mode)
+                x = form.causal_conv1d(x, getattr(self, idx), stride=stride,
+                                       dilation=dil, causal=cfg.causal,
+                                       pad_mode=cfg.pad_mode)
             elif kind == "convtr":
                 _, _, _cin, _cout, k, stride = spec
-                x = _apply_convtr(x, getattr(self, idx), cfg, k, stride)
+                x = _apply_convtr(x, getattr(self, idx), cfg, k, stride, form)
             elif kind == "resnet":
-                x = _apply_resnet(x, getattr(self, idx), cfg, spec[3])
+                x = _apply_resnet(x, getattr(self, idx), cfg, spec[3], form)
             elif kind == "lstm":
-                # residual LSTM in fp32 over [B, T, C]
-                y, _ = getattr(self, idx)(x.transpose(1, 2))
-                x = x + y.transpose(1, 2)
+                # residual LSTM over [B, T, C], an fp32 island
+                xf = x.to(island)
+                y, _ = getattr(self, idx)(xf.transpose(1, 2))
+                x = (xf + y.transpose(1, 2)).to(dt)
             elif kind == "bilstm":
-                y = getattr(self, idx)(x.transpose(1, 2))
-                x = torch.cat([x, x], dim=1) + y.transpose(1, 2)
-        return x
+                xf = x.to(island)
+                y = getattr(self, idx)(xf.transpose(1, 2))
+                x = (torch.cat([xf, xf], dim=1) + y.transpose(1, 2)).to(dt)
+        return x.to(in_dtype)
 
 
 # ----------------------------------------------------------------------- #
@@ -327,7 +366,15 @@ def init_stream_state(model: SEANet, batch: int) -> dict:
 
 def apply_plan_streaming(x: torch.Tensor, model: SEANet, state: dict):
     """One chunk ``[B, C, L]`` through ``model``'s plan with carried state →
-    (y, new state)."""
+    (y, new state), in fp32 activations whatever ``model.form`` (the
+    reference's streaming path reads no activation dtype). A stack whose
+    form runs fp32 activations at one bf16 pass raises
+    ``NotImplementedError``: the reference would stream its convs at that
+    precision, which is not ported."""
+    if model.form.dtype == torch.float32 and model.form.precision != "exact":
+        raise NotImplementedError(
+            "streaming in a one-pass form (fp32 activations, "
+            f"precision={model.form.precision!r}) is not ported")
     new_state = dict(state)
     for spec in model.plan:
         kind, idx = spec[0], str(spec[1])

@@ -8,18 +8,39 @@ one pass over ``x`` per block of (batch, time tile) computes
 
 and writes the tile once. The source's header states its bound and design.
 
+It comes in the reference kernel's forms (its ``precision_name``):
+
+* ``precision="exact"``: fp32 throughout, on the CUDA cores (the
+  reference's ``"highest"``, and its ``"high"``, which Mosaic lowers to the
+  same). ``x`` is float32.
+* ``precision="default"``: one bf16 pass with fp32 sums, on the tensor
+  cores. ``x`` is float32 (the reference's only input dtype) or bfloat16
+  (the reference's caller casts a bf16 block input to f32 and the result
+  back, ``audiocodecs_tpu/nn/seanet.py:156-167``; the kernel fuses both
+  casts into its load and its store). The halo, weights and biases have
+  ``x``'s dtype, and so has the output.
+
+The default form rounds where the TPU's one pass rounds: the k3 conv's
+operand h = ELU(x_padded) to bf16, and w1; the k3 sums in fp32, then + b1,
+ELU in fp32, then h2 to bf16, and w2; the 1×1 sums in fp32, then + b2; the
+shortcut sums bf16(x) · bf16(ws) in fp32, then + bs; out = (s + bs) +
+(y + b2) in fp32, rounded once to ``x``'s dtype.
+
 Layout is PyTorch's ``[B, C, T]``. The two causal samples before ``t = 0``
 come in as ``halo [B, C, 2]`` (reflect or zero, per the model's pad mode), so
 ``x`` is never copied into a padded buffer. Weights are conv weights in
 PyTorch's ``[Cout, Cin, K]``: ``w1 [Hc, C, 3]``, ``w2 [C, Hc, 1]``,
 ``ws [C, C, 1]``. The kernel reads the three conv weights in its own
-layout, :func:`pack_resblock_weights`, which a caller builds once and
-passes as ``packed``.
+layout for the form, :func:`pack_resblock_weights`, which a caller builds
+once and passes as ``packed``.
 
 :func:`seanet_resblock` launches the kernel for CUDA tensors and runs
 :func:`seanet_resblock_reference` for CPU tensors; there is no other path.
-Its gradient recomputes through the plain version (:class:`_Block`), on
-both devices.
+Its gradient recomputes through the plain version in the same form
+(:class:`_Block`), on both devices. Launches are counted by form:
+``seanet_resblock.launches`` (exact) and
+``seanet_resblock.launches_by_form`` (``"default_f32"``,
+``"default_bf16"``).
 
 :func:`seanet_resblock_packed` is the entry point that replaces the TPU
 kernel ``audiocodecs_tpu/ops/seanet_block_packed.py::seanet_resblock_packed``
@@ -27,8 +48,8 @@ with that function's contract: channel-last ``x [B, T, C]``, a zero causal
 pad, ``C <= 64``. The TPU kernel packs ``128 // C`` time samples into the
 lanes of its matrix unit; that has no meaning on Hopper, whose kernel here
 already walks time across threads. So the entry point converts the layout
-and launches the same kernel as :func:`seanet_resblock`, with a zero halo,
-and counts its launches apart.
+and launches the same kernel as :func:`seanet_resblock`, in either form,
+with a zero halo, and counts its launches apart.
 """
 
 from __future__ import annotations
@@ -42,11 +63,17 @@ from audiocodecs_tpu_torch.nn.layers import elu, exact_fp32
 from audiocodecs_tpu_torch.ops import _build
 from audiocodecs_tpu_torch.ops._autograd import recompute_vjp
 
-__all__ = ["pack_resblock_weights", "seanet_resblock",
+__all__ = ["DEFAULT_FORMS", "PRECISIONS", "default_errors", "default_head",
+           "default_k3", "default_tail", "form_name",
+           "pack_resblock_weights", "seanet_resblock",
            "seanet_resblock_info", "seanet_resblock_reference",
-           "seanet_resblock_packed", "seanet_resblock_packed_reference"]
+           "seanet_resblock_packed", "seanet_resblock_packed_reference",
+           "seanet_resblock_stages"]
 
 MAX_CHANNELS = 384  # the widest tile the kernel is built with (C and Hc)
+PRECISIONS = ("exact", "default")
+# the one-pass form by its operands' dtype, as ``launches_by_form`` keys it
+DEFAULT_FORMS = ("default_f32", "default_bf16")
 # The kernel's layout (csrc/seanet_resblock.cu: kChunk, kRT and the tile
 # table in ``prepare``): input channels go in chunks of 8; a block's 8 warps
 # are WM channel groups x 8 / WM time groups of 64 samples, a warp 4 channel
@@ -71,6 +98,11 @@ def _lib():
         lib.seanet_resblock_f32.restype = _I
         lib.seanet_resblock_info.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 5
         lib.seanet_resblock_info.restype = _I
+        lib.seanet_resblock_default.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+        lib.seanet_resblock_default.restype = _I
+        lib.seanet_resblock_default_info.argtypes = (
+            [_I] * 3 + [ctypes.POINTER(_I)] * 5)
+        lib.seanet_resblock_default_info.restype = _I
         lib.seanet_resblock_error_string.argtypes = [_I]
         lib.seanet_resblock_error_string.restype = ctypes.c_char_p
         _lib_cache.append(lib)
@@ -108,33 +140,131 @@ def _smem_bytes(C: int, Hc: int) -> int:
     return 4 * (resident + max(_STAGES * stage1, M1p * TT + _STAGES * stage2))
 
 
+def form_name(precision: str, dtype=torch.float32) -> str:
+    """The form's name: ``"exact"``, or one of :data:`DEFAULT_FORMS`."""
+    if precision == "exact":
+        return "exact"
+    return "default_bf16" if dtype == torch.bfloat16 else "default_f32"
+
+
+def _b_fragment_index():
+    """Row (k) and column (n) in a 16 × 8 tile of the 4 bf16 values that
+    lane l holds of mma.m16n8k16's B fragment (PTX ISA: b0 holds rows
+    2·(l % 4) and + 1, b1 the same + 8, all of column l // 4), as two
+    [32, 4] tensors."""
+    lane = torch.arange(32)[:, None]
+    e = torch.arange(4)[None, :]
+    return 2 * (lane % 4) + e % 2 + 8 * (e // 2), (lane // 4).expand(32, 4)
+
+
+def _round16(n: int) -> int:
+    return 16 * -(-n // 16)
+
+
+def _b_fragments(mat: torch.Tensor) -> torch.Tensor:
+    """``mat [..., K, N]`` (K input channels, N output channels) as bf16 B
+    fragments ``[..., K/16, N/8, 32, 4]``: zero-padded to K a multiple of
+    16 and N of 8; chunk q, n-tile t, lane l holds the 4 values of
+    :func:`_b_fragment_index` of the tile ``mat[16q:, 8t:]``."""
+    *lead, K, N = mat.shape
+    kp, np_ = _round16(K), 8 * -(-N // 8)
+    padded = mat.new_zeros(*lead, kp, np_, dtype=torch.bfloat16)
+    padded[..., :K, :N] = mat.to(torch.bfloat16)
+    rows, cols = (t.to(mat.device) for t in _b_fragment_index())
+    tiles = padded.view(*lead, kp // 16, 16, np_ // 8, 8)
+    tiles = tiles.movedim(-3, -2)  # [..., K/16, N/8, 16, 8]
+    return tiles[..., rows, cols].contiguous()
+
+
 def pack_resblock_weights(w1: torch.Tensor, w2: torch.Tensor,
-                          ws: torch.Tensor):
-    """The conv weights in the kernel's layout, on ``w1``'s device,
-    detached: ``w1p [Kp, 3, M1p]`` with ``w1p[c, k, m] = w1[m, c, k]``,
+                          ws: torch.Tensor, precision: str = "exact"):
+    """The conv weights in the kernel's layout for ``precision``, on
+    ``w1``'s device, detached.
+
+    Exact: ``w1p [Kp, 3, M1p]`` with ``w1p[c, k, m] = w1[m, c, k]``,
     ``w2p [Khp, Cp]`` with ``w2p[m, o] = w2[o, m, 0]`` and ``wsp [Kp, Cp]``
-    with ``wsp[c, o] = ws[o, c, 0]``. Input channels are zero-padded to
-    multiples of 8 (``Kp``, ``Khp``), output channels to the tile's
-    ``M1p`` and ``Cp``."""
-    Hc, C = w1.shape[:2]
-    Kp, Khp, M1p, Cp = _layout(C, Hc)
+    with ``wsp[c, o] = ws[o, c, 0]``, float32. Input channels are
+    zero-padded to multiples of 8 (``Kp``, ``Khp``), output channels to the
+    tile's ``M1p`` and ``Cp``.
+
+    Default: bf16 (rounded to nearest even) B fragments of mma.m16n8k16
+    (:func:`_b_fragments`): ``w1f [3, ⌈C/16⌉, ⌈Hc/8⌉, 32, 4]`` of the
+    matrices ``w1[:, :, k].T`` (tap k), ``w2f [⌈Hc/16⌉, ⌈C/8⌉, 32, 4]`` of
+    ``w2[:, :, 0].T`` and ``wsf [⌈C/16⌉, ⌈C/8⌉, 32, 4]`` of
+    ``ws[:, :, 0].T``."""
     with torch.no_grad():
-        w1p = w1.new_zeros(Kp, 3, M1p)
-        w1p[:C, :, :Hc] = w1.permute(1, 2, 0)
-        w2p = w2.new_zeros(Khp, Cp)
-        w2p[:Hc, :C] = w2[:, :, 0].T
-        wsp = ws.new_zeros(Kp, Cp)
-        wsp[:C, :C] = ws[:, :, 0].T
+        if precision == "default":
+            packed = (_b_fragments(w1.permute(2, 1, 0)),
+                      _b_fragments(w2[:, :, 0].T), _b_fragments(ws[:, :, 0].T))
+        else:
+            Hc, C = w1.shape[:2]
+            Kp, Khp, M1p, Cp = _layout(C, Hc)
+            w1p = w1.new_zeros(Kp, 3, M1p)
+            w1p[:C, :, :Hc] = w1.permute(1, 2, 0)
+            w2p = w2.new_zeros(Khp, Cp)
+            w2p[:Hc, :C] = w2[:, :, 0].T
+            wsp = ws.new_zeros(Kp, Cp)
+            wsp[:C, :C] = ws[:, :, 0].T
+            packed = (w1p, w2p, wsp)
     pack_resblock_weights.packs += 1
-    return w1p, w2p, wsp
+    return packed
 
 
 pack_resblock_weights.packs = 0  # layouts built in this process
 
 
-def seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs):
-    """Plain block: ELU → k3 conv → ELU → 1×1 conv, plus a 1×1 shortcut,
-    with ``F.conv1d`` (TF32 off). ``x`` [B, C, T], ``halo`` [B, C, 2]."""
+def _packed_shapes(C: int, Hc: int, precision: str):
+    if precision == "default":
+        nq, nh, t1, t2 = -(-C // 16), -(-Hc // 16), -(-Hc // 8), -(-C // 8)
+        return (3, nq, t1, 32, 4), (nh, t2, 32, 4), (nq, t2, 32, 4)
+    Kp, Khp, M1p, Cp = _layout(C, Hc)
+    return (Kp, 3, M1p), (Khp, Cp), (Kp, Cp)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even), as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def default_k3(x, halo, w1, b1):
+    """The default form's k3 conv before its rounding point: ``(v, mag)``,
+    v = Σ bf16(ELU(x_padded)) · bf16(w1) + b1 in fp32 and mag = Σ|terms| +
+    |b1|, the scale of v's summation error, both float32 [B, Hc, T]. The
+    conv is ``F.conv1d`` on the rounded operands (TF32 off), whose products
+    are exact in fp32."""
+    h = _bf16(elu(torch.cat([halo, x], dim=-1).float()))
+    w = _bf16(w1.float())
+    with exact_fp32():
+        v = F.conv1d(h, w) + b1.float()[:, None]
+        mag = F.conv1d(h.abs(), w.abs()) + b1.float().abs()[:, None]
+    return v, mag
+
+
+def default_head(x, halo, w1, b1) -> torch.Tensor:
+    """The default form up to its last rounding point: h2 =
+    bf16(ELU(:func:`default_k3`)), bf16 [B, Hc, T]."""
+    return elu(default_k3(x, halo, w1, b1)[0]).to(torch.bfloat16)
+
+
+def default_tail(x, h2, w2, b2, ws, bs) -> torch.Tensor:
+    """The default form from h2 on: (Σ bf16(x) · bf16(ws) + bs) +
+    (Σ h2 · bf16(w2) + b2) in fp32, rounded once to ``x``'s dtype."""
+    with exact_fp32():
+        y = F.conv1d(h2.float(), _bf16(w2.float()))
+        s = F.conv1d(_bf16(x.float()), _bf16(ws.float()))
+    out = (s + bs.float()[:, None]) + (y + b2.float()[:, None])
+    return out.to(x.dtype)
+
+
+def seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs, *,
+                              precision: str = "exact"):
+    """Plain block. Exact: ELU → k3 conv → ELU → 1×1 conv, plus a 1×1
+    shortcut, with ``F.conv1d`` (TF32 off). Default: :func:`default_tail`
+    of :func:`default_head`, the rounding points of the one bf16 pass.
+    ``x`` [B, C, T], ``halo`` [B, C, 2]."""
+    if precision == "default":
+        h2 = default_head(x, halo, w1, b1)
+        return default_tail(x, h2, w2, b2, ws, bs)
     with exact_fp32():
         h = elu(torch.cat([halo, x], dim=-1))
         h = elu(F.conv1d(h, w1, b1))
@@ -142,7 +272,20 @@ def seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs):
         return F.conv1d(x, ws, bs) + y
 
 
-def _check(x, halo, w1, b1, w2, b2, ws, bs, packed=None):
+def _check_form(x, precision):
+    """The form's rules, on every device: a known precision, and bf16
+    operands only in the default form."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    if x.dtype == torch.bfloat16 and precision != "default":
+        raise TypeError("bf16 operands take precision='default' (one bf16 "
+                        "pass); 'exact' is fp32 only")
+
+
+def _check(x, halo, w1, b1, w2, b2, ws, bs, packed=None, precision="exact"):
+    """What the kernel does not take raises here, before any launch."""
+    _check_form(x, precision)
     if x.ndim != 3:
         raise ValueError(f"x must be [B, C, T], got {tuple(x.shape)}")
     B, C, T = x.shape
@@ -152,42 +295,56 @@ def _check(x, halo, w1, b1, w2, b2, ws, bs, packed=None):
     if C > MAX_CHANNELS or Hc > MAX_CHANNELS:
         raise ValueError(f"kernel takes C <= {MAX_CHANNELS} (and Hc <= "
                          f"{MAX_CHANNELS}), got C={C}, Hc={Hc}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x: kernel takes float32 or bfloat16, got {x.dtype}")
     shapes = {"x": (x, (B, C, T)), "halo": (halo, (B, C, 2)),
               "w1": (w1, (Hc, C, 3)), "b1": (b1, (Hc,)),
               "w2": (w2, (C, Hc, 1)), "b2": (b2, (C,)),
               "ws": (ws, (C, C, 1)), "bs": (bs, (C,))}
+    dtypes = dict.fromkeys(shapes, x.dtype)
     if packed is not None:
-        Kp, Khp, M1p, Cp = _layout(C, Hc)
         for name, t, shape in zip(("w1", "w2", "ws"), packed,
-                                  ((Kp, 3, M1p), (Khp, Cp), (Kp, Cp))):
+                                  _packed_shapes(C, Hc, precision)):
             shapes[f"packed {name}"] = (t, shape)
+            dtypes[f"packed {name}"] = (torch.bfloat16
+                                        if precision == "default"
+                                        else torch.float32)
             if t.data_ptr() % 16:  # the kernel copies it in 16-byte pieces
                 raise ValueError(f"packed {name} must be 16-byte aligned")
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")
+        if t.dtype != dtypes[name]:
+            raise TypeError(f"{name}: kernel takes {dtypes[name]} here, got "
+                            f"{t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(x, halo, w1, b1, w2, b2, ws, bs, packed=None):
-    _check(x, halo, w1, b1, w2, b2, ws, bs, packed)
+def _launch(x, halo, w1, b1, w2, b2, ws, bs, packed=None, precision="exact",
+            h2=None, k3=None):
+    _check(x, halo, w1, b1, w2, b2, ws, bs, packed, precision)
     if packed is None:
-        packed = pack_resblock_weights(w1, w2, ws)
+        packed = pack_resblock_weights(w1, w2, ws, precision)
     w1p, w2p, wsp = packed
     B, C, T = x.shape
     out = torch.empty_like(x)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.seanet_resblock_f32(
-            x.data_ptr(), halo.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
-            w2p.data_ptr(), b2.data_ptr(), wsp.data_ptr(), bs.data_ptr(),
-            out.data_ptr(), B, C, w1.shape[0], T, stream)
+        ptrs = (x.data_ptr(), halo.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
+                w2p.data_ptr(), b2.data_ptr(), wsp.data_ptr(), bs.data_ptr(),
+                out.data_ptr())
+        if precision == "default":
+            err = lib.seanet_resblock_default(
+                *ptrs, None if h2 is None else h2.data_ptr(),
+                None if k3 is None else k3.data_ptr(), B, C, w1.shape[0], T,
+                int(x.dtype == torch.bfloat16), stream)
+        else:
+            err = lib.seanet_resblock_f32(*ptrs, B, C, w1.shape[0], T,
+                                          stream)
     if err:
         raise RuntimeError("seanet_resblock kernel launch failed: "
                            + lib.seanet_resblock_error_string(err).decode())
@@ -196,61 +353,160 @@ def _launch(x, halo, w1, b1, w2, b2, ws, bs, packed=None):
 
 class _Block(torch.autograd.Function):
     """The block with a recompute gradient rule: the forward launches the
-    kernel (CUDA tensors; ``counter``, the entry point, counts the launch)
-    or runs the plain version (CPU tensors); the backward recomputes through
-    :func:`seanet_resblock_reference` and returns the VJP for ``x``,
-    ``halo`` (which the caller built from ``x``, so its gradient flows back
-    into ``x`` there) and the six weights. ``packed`` is a detached side
-    input: it gets no gradient and is not saved."""
+    kernel (CUDA tensors; ``counter``, the entry point, counts the launch
+    by form) or runs the plain version (CPU tensors); the backward
+    recomputes through :func:`seanet_resblock_reference` in the same form
+    and returns the VJP for ``x``, ``halo`` (which the caller built from
+    ``x``, so its gradient flows back into ``x`` there) and the six
+    weights. ``packed`` is a detached side input: it gets no gradient and
+    is not saved."""
 
     @staticmethod
-    def forward(ctx, counter, x, halo, w1, b1, w2, b2, ws, bs, packed):
+    def forward(ctx, counter, x, halo, w1, b1, w2, b2, ws, bs, packed,
+                precision):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, halo, w1, b1, w2, b2, ws, bs)
+        ctx.precision = precision
         if x.device.type == "cpu":
-            return seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs)
-        out = _launch(x, halo, w1, b1, w2, b2, ws, bs, packed)
-        counter.launches += 1
+            return seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs,
+                                             precision=precision)
+        out = _launch(x, halo, w1, b1, w2, b2, ws, bs, packed, precision)
+        if precision == "exact":
+            counter.launches += 1
+        else:
+            counter.launches_by_form[form_name(precision, x.dtype)] += 1
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_out):
-        grads = recompute_vjp(seanet_resblock_reference,
-                              "seanet_resblock.backward", ctx.saved_tensors,
-                              (g_out,), ctx.needs_input_grad[1:9])
-        return (None, *grads, None)
+        def plain(*args):
+            return seanet_resblock_reference(*args, precision=ctx.precision)
+
+        grads = recompute_vjp(plain, "seanet_resblock.backward",
+                              ctx.saved_tensors, (g_out,),
+                              ctx.needs_input_grad[1:9])
+        return (None, *grads, None, None)
 
 
-def _apply(counter, x, halo, w1, b1, w2, b2, ws, bs, packed):
+def _apply(counter, x, halo, w1, b1, w2, b2, ws, bs, packed, precision):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {x.device}")
-    return _Block.apply(counter, x, halo, w1, b1, w2, b2, ws, bs, packed)
+    _check_form(x, precision)
+    return _Block.apply(counter, x, halo, w1, b1, w2, b2, ws, bs, packed,
+                        precision)
 
 
-def seanet_resblock(x, halo, w1, b1, w2, b2, ws, bs, *, packed=None):
+def seanet_resblock(x, halo, w1, b1, w2, b2, ws, bs, *, packed=None,
+                    precision: str = "exact"):
     """The fused block: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Returns ``[B, C, T]`` float32. On the card the kernel
-    takes contiguous float32 tensors and ``C <= 384``; anything else
-    raises. ``packed`` is :func:`pack_resblock_weights` of ``(w1, w2, ws)``;
-    without it the kernel's layout is built for this call. The CPU path
-    ignores it. Differentiable on both devices (:class:`_Block`): the
-    backward recomputes through the plain version and launches no
-    kernel."""
-    return _apply(seanet_resblock, x, halo, w1, b1, w2, b2, ws, bs, packed)
+    for CPU tensors. Returns ``[B, C, T]`` of ``x``'s dtype. ``precision``
+    "exact" takes float32; "default" (one bf16 pass) float32 or bfloat16,
+    the halo, weights and biases of ``x``'s dtype. On the card the kernel
+    takes contiguous tensors and ``C, Hc <= 384``; anything else raises.
+    ``packed`` is :func:`pack_resblock_weights` of ``(w1, w2, ws)`` for
+    ``precision``; without it the kernel's layout is built for this call.
+    The CPU path ignores it. Differentiable on both devices
+    (:class:`_Block`): the backward recomputes through the plain version in
+    the same form and launches no kernel."""
+    return _apply(seanet_resblock, x, halo, w1, b1, w2, b2, ws, bs, packed,
+                  precision)
 
 
-seanet_resblock.launches = 0  # kernel launches in this process
+seanet_resblock.launches = 0  # exact-form kernel launches in this process
+# one-pass kernel launches in this process, by the operands' dtype
+seanet_resblock.launches_by_form = dict.fromkeys(DEFAULT_FORMS, 0)
 
 
-def seanet_resblock_info(C: int, Hc: int) -> dict:
-    """The kernel's budget for a block of C channels and Hc hidden ones on
-    the current card: registers and local (spill) bytes a thread, shared
-    bytes a block, resident blocks an SM (CUDA's attribute and occupancy
-    queries) and time samples a block."""
+def seanet_resblock_stages(x, halo, w1, b1, w2, b2, ws, bs, *, packed=None):
+    """The default form with its rounding points written out: returns
+    ``(out, h2, k3)``, ``h2`` the bf16 input of the 1×1 conv and ``k3`` the
+    fp32 value it was rounded from (after ``+ b1``, before ELU). For CUDA
+    tensors the kernel writes all three in one launch (not counted as a
+    model's launch); for CPU tensors they come from the plain version. A
+    check can then hold the kernel to its plain version one rounding point
+    at a time (:func:`default_errors`)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    with torch.no_grad():
+        if x.device.type == "cpu":
+            k3 = default_k3(x, halo, w1, b1)[0]
+            h2 = elu(k3).to(torch.bfloat16)
+            return default_tail(x, h2, w2, b2, ws, bs), h2, k3
+        _check(x, halo, w1, b1, w2, b2, ws, bs, packed, "default")
+        shape = (x.shape[0], w1.shape[0], x.shape[2])
+        h2 = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+        k3 = torch.empty(shape, dtype=torch.float32, device=x.device)
+        out = _launch(x, halo, w1, b1, w2, b2, ws, bs, packed, "default",
+                      h2=h2, k3=k3)
+    return out, h2, k3
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |t| (8 significant bits)."""
+    e = torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def default_errors(out, h2, k3, x, halo, w1, b1, w2, b2, ws, bs) -> dict:
+    """The default form's kernel (``out``, ``h2``, ``k3`` from
+    :func:`seanet_resblock_stages`) against its plain version, one rounding
+    point at a time:
+
+    * k3, the fp32 sum before its rounding, within 1e-5 · Σ|terms| of the
+      plain version's, elementwise (fp32 sums in another order);
+    * h2 within one bf16 ulp of :func:`default_head`'s, plus what the k3
+      bound lets through (ELU is 1-Lipschitz): two correct implementations
+      disagree wherever their k3 sums straddle a rounding boundary, by one
+      ulp, and near zero, where the ulp is finer than the sums' error, by
+      more; the share of elements that differ is reported;
+    * ``out`` against :func:`default_tail` of the kernel's own h2: fp32
+      within 1e-5 · max|tail|; bf16 within one bf16 ulp plus 1e-5 ·
+      max|tail| (fp32 sums in another order near a boundary).
+
+    Returns the errors as shares of their limits (``*_ratio``), ``ok``, the
+    share of h2 elements that differ and max|out − plain| end to end."""
+    with torch.no_grad():
+        k3_plain, mag = default_k3(x, halo, w1, b1)
+        k3_ratio = float(((k3 - k3_plain).abs() / (1e-5 * mag)).max())
+        hp = elu(k3_plain).to(torch.bfloat16).float()
+        h2_diff = (h2.float() - hp).abs()
+        h2_lim = (torch.maximum(_bf16_ulp(hp), _bf16_ulp(h2.float()))
+                  + 1e-5 * mag)
+        tail = default_tail(x, h2, w2, b2, ws, bs)
+        scale = float(tail.float().abs().max())
+        diff = (out.float() - tail.float()).abs()
+        if out.dtype == torch.bfloat16:
+            ulp = torch.maximum(_bf16_ulp(tail), _bf16_ulp(out))
+            out_ratio = float((diff / (ulp + 1e-5 * scale)).max())
+        else:
+            out_ratio = float(diff.max()) / (1e-5 * scale)
+        plain = default_tail(x, hp.to(torch.bfloat16), w2, b2, ws, bs)
+        res = {"k3_ratio": k3_ratio,
+               "h2_ratio": float((h2_diff / h2_lim).max()),
+               "h2_differ": float((h2_diff > 0).float().mean()),
+               "tail_err": float(diff.max()), "tail_ratio": out_ratio,
+               "max_abs_err": float((out.float() - plain.float()).abs()
+                                    .max()),
+               "scale": scale}
+    res["ok"] = all(res[k] <= 1.0 for k in ("k3_ratio", "h2_ratio",
+                                             "tail_ratio"))
+    return res
+
+
+def seanet_resblock_info(C: int, Hc: int, precision: str = "exact",
+                         dtype=torch.float32) -> dict:
+    """The kernel's budget for a block of C channels and Hc hidden ones in
+    a form on the current card: registers and local (spill) bytes a thread,
+    shared bytes a block, resident blocks an SM (CUDA's attribute and
+    occupancy queries) and time samples a block."""
     lib = _lib()
     out = [_I() for _ in range(5)]
-    err = lib.seanet_resblock_info(C, Hc, *map(ctypes.byref, out))
+    if precision == "default":
+        err = lib.seanet_resblock_default_info(
+            C, Hc, int(dtype == torch.bfloat16), *map(ctypes.byref, out))
+    else:
+        err = lib.seanet_resblock_info(C, Hc, *map(ctypes.byref, out))
     if err:
         raise RuntimeError("seanet_resblock_info failed: "
                            + lib.seanet_resblock_error_string(err).decode())
@@ -276,23 +532,29 @@ def _packed_args(x, w1, b1, w2, b2, ws, bs):
             w2.T.contiguous()[..., None], b2, ws.T.contiguous()[..., None], bs)
 
 
-def seanet_resblock_packed_reference(x, w1, b1, w2, b2, ws, bs):
+def seanet_resblock_packed_reference(x, w1, b1, w2, b2, ws, bs, *,
+                                     precision: str = "exact"):
     """Plain version of :func:`seanet_resblock_packed`: the block's plain
-    version on the converted layout. Returns ``[B, T, C]``."""
+    version in the form on the converted layout. Returns ``[B, T, C]``."""
     args = _packed_args(x, w1, b1, w2, b2, ws, bs)
-    return seanet_resblock_reference(*args).transpose(1, 2)
+    return seanet_resblock_reference(*args,
+                                     precision=precision).transpose(1, 2)
 
 
-def seanet_resblock_packed(x, w1, b1, w2, b2, ws, bs):
+def seanet_resblock_packed(x, w1, b1, w2, b2, ws, bs, *,
+                           precision: str = "exact"):
     """The SEANet block with the packed TPU kernel's contract: ``x``
     [B, T, C] unpadded (the causal left side is zero), ``w1`` [3, C, H],
-    ``w2`` [H, C], ``ws`` [C, C]; returns [B, T, C]. Raises ``ValueError``
-    for C > 64. CUDA tensors launch the block kernel, CPU tensors run its
-    plain version; both through :class:`_Block` after the layout copies,
-    so the gradient flows back through them to the caller's layouts."""
+    ``w2`` [H, C], ``ws`` [C, C]; returns [B, T, C]. ``precision`` as
+    :func:`seanet_resblock`'s (the reference's ``precision_name``). Raises
+    ``ValueError`` for C > 64. CUDA tensors launch the block kernel, CPU
+    tensors run its plain version; both through :class:`_Block` after the
+    layout copies, so the gradient flows back through them to the caller's
+    layouts."""
     out = _apply(seanet_resblock_packed,
-                 *_packed_args(x, w1, b1, w2, b2, ws, bs), None)
+                 *_packed_args(x, w1, b1, w2, b2, ws, bs), None, precision)
     return out.transpose(1, 2)
 
 
-seanet_resblock_packed.launches = 0  # kernel launches in this process
+seanet_resblock_packed.launches = 0  # exact-form kernel launches
+seanet_resblock_packed.launches_by_form = dict.fromkeys(DEFAULT_FORMS, 0)

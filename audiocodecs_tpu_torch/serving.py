@@ -3,12 +3,21 @@
 Counterpart of ``audiocodecs_tpu/serving.py``, decision by decision. The
 reference sets environment switches before its first trace; the port has
 none, so a preset is the keyword arguments of the codec's constructor
-(``decode_dtype``, ``decode_precision``, ``snake_poly``: the decoder's
-:class:`audiocodecs_tpu_torch.models.dac.DecodeForm`). Tokens are the same
-in every tier: the encoder and the quantizer run exact fp32 whatever the
-decoder does.
+(``decode_dtype``, ``decode_precision`` and, for DAC and BigCodec,
+``snake_poly``: the decoder's :class:`audiocodecs_tpu_torch.nn.layers.
+DecodeForm`). Tokens are the same in every tier: the encoder and the
+quantizer run exact fp32 whatever the decoder does.
 
-Two of the reference's settings have no counterpart on the card:
+The EnCodec-style tier (``encodec``, ``mimi``, ``past``,
+``speechtokenizer``, ``wavtokenizer``) is bf16 decoder activations
+(``ACX_ACT_DTYPE=decoder-bfloat16``): every decoder conv one bf16 pass, the
+fused SEANet blocks in their one-pass form on bf16 operands, the LSTMs fp32
+islands. Its ``"fast"`` quality is its ``"balanced"`` one (the reference
+sets no decoder precision of its own there), ``batch`` selects nothing for
+it, and ``"exact"`` is fp32. WavTokenizer's decoder, a Vocos head, reads no
+activation dtype, so its tier decodes as its exact one.
+
+Three of the reference's settings have no counterpart on the card:
 
 * its ``"high"`` decoder precision (three bf16 passes) maps to ``"exact"``:
   cuDNN has no three-pass bf16 conv, and TF32 cannot be scoped to the
@@ -16,11 +25,12 @@ Two of the reference's settings have no counterpart on the card:
   the process-wide switch while a codec runs;
 * its gate of the fused unit by batch (``ACX_PALLAS_DAC_RESUNIT`` for
   4 ≤ batch < 8 only) selects nothing: the port's kernel gate is fixed when
-  a unit is built, so the fused unit runs at every batch.
+  a unit is built, so the fused unit runs at every batch;
+* SpeechTokenizer's ``ACX_PALLAS_LSTM_WIDE=decoder`` selects nothing: the
+  port's recurrence kernel takes its H = 1024 LSTMs in every tier.
 
-Only DAC and BigCodec are listed so far; any other family gets ``{}``, its
-constructor's exact default, the reference's rule for a family it does not
-list.
+A family not listed gets ``{}``, its constructor's exact default, the
+reference's rule for a family it does not list.
 """
 
 from __future__ import annotations
@@ -38,9 +48,18 @@ _DAC_STYLE = dict(_EXACT)
 # throughput tier and BigCodec's preset
 _BF16_POLY = {"decode_dtype": torch.bfloat16, "decode_precision": "default",
               "snake_poly": True}
+# the SEANet families: bf16 decoder activations, one bf16 pass
+_ENCODEC_STYLE = {"decode_dtype": torch.bfloat16,
+                  "decode_precision": "default"}
+_SEANET_EXACT = {"decode_dtype": torch.float32, "decode_precision": "exact"}
 
 # family → the decoder's form under quality "balanced"
 SERVING_PRESETS: dict[str, dict] = {
+    "encodec": _ENCODEC_STYLE,
+    "mimi": _ENCODEC_STYLE,
+    "past": _ENCODEC_STYLE,
+    "speechtokenizer": _ENCODEC_STYLE,
+    "wavtokenizer": _ENCODEC_STYLE,
     "dac": _DAC_STYLE,
     "bigcodec": _BF16_POLY,
 }
@@ -52,10 +71,11 @@ def apply_serving_preset(family: str, quality: str = "balanced",
 
     ``quality``: ``"exact"`` (fp32 everywhere), ``"balanced"`` (the
     family's preset) or ``"fast"`` (one bf16 pass where the preset sets a
-    decoder precision of its own: DAC's latency tier). ``batch``: the
-    expected serving batch; DAC takes its throughput tier (bf16 activations
-    and the polynomial snake) at ``batch >= 4``, its latency tier below or
-    at ``None``. A family not listed gets ``{}`` in every quality."""
+    decoder precision of its own: DAC's latency tier; the preset itself
+    elsewhere). ``batch``: the expected serving batch; DAC takes its
+    throughput tier (bf16 activations and the polynomial snake) at
+    ``batch >= 4``, its latency tier below or at ``None``; other families
+    ignore it. A family not listed gets ``{}`` in every quality."""
     if quality not in ("exact", "balanced", "fast"):
         raise ValueError(
             f"quality must be exact|balanced|fast, got {quality!r}")
@@ -63,7 +83,7 @@ def apply_serving_preset(family: str, quality: str = "balanced",
     if preset is None:
         return {}
     if quality == "exact":
-        return dict(_EXACT)
+        return dict(_SEANET_EXACT if preset is _ENCODEC_STYLE else _EXACT)
     kwargs = dict(preset)
     if batch is not None and batch >= 4 and preset is _DAC_STYLE:
         kwargs = dict(_BF16_POLY)

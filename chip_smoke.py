@@ -102,8 +102,8 @@ it fails:
    rms no larger than the tier's move), and at B = 8 the throughput tier
    with its units unfused;
 18. the server: ``CodecServer`` (``audiocodecs_tpu_torch/examples/
-   serve.py``) over BigCodec-16k (exact, and in its balanced tier as the
-   entry point builds it) and EnCodec-24k by registry name,
+   serve.py``) over BigCodec-16k and EnCodec-24k by registry name (each
+   exact, and in its balanced tier as the entry point builds it),
    buckets (1, 2, 5, 10) s, 8 rows a batch, 5 ms to gather, the JAX
    ``examples/serve.py`` main()'s 16 requests at once: every reply of its
    request's length, finite and equal, bit for bit, to the row of
@@ -126,7 +126,26 @@ it fails:
    ranges' edges and in the profile's device window of each part (all in
    the forward, none in the backward, by both), and the time of the
    kernels' recompute inside the backward. Every profile follows 256
-   spin-kernel launches (``PROFILE_WARMUP_LAUNCHES``).
+   spin-kernel launches (``PROFILE_WARMUP_LAUNCHES``);
+20. kernel 2's one-pass form (one bf16 pass on the tensor cores) at the
+   EnCodec-24k decoder's four (C, T) shapes (B = 8 x 10 s), on fp32 and on
+   bf16 operands, and the packed entry point in the form at (32, 240000)
+   and (64, 120000): each held to its plain version one rounding point at
+   a time (``ops/seanet_resblock.py::default_errors``), timed on weights
+   packed once beside its plain version, the block unfused in bf16 and in
+   fp32 on bf16-rounded operands, with its bound at 989 TFLOP/s bf16 or
+   the HBM rate, registers, spills and shared bytes: a kernel row each;
+21. the EnCodec-style serving tier (bf16 decoder activations) of
+   EnCodec-24k, PAST-16k (4 kernel-1, 4 exact and 4 one-pass bf16 kernel-2
+   launches a roundtrip), Mimi-24k (none) and SpeechTokenizer-16k (6
+   kernel-1) at B = 8 x 10 s beside the exact tier, as in 17: tokens equal,
+   the move off exact, the first second of one row against the CPU path
+   of the same tier (rms no more than the move), both roundtrips;
+22. the certify run: EnCodec-24k's encoder exact and at one bf16 pass
+   (``encode_precision="default"``, 4 one-pass fp32 kernel-2 launches an
+   encode) at B = 4 x 10 s through ``quant/certify.py::certify_codec``:
+   the certified share, the real token match, and a failure if any
+   certified frame's tokens differ from the exact path's.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -141,6 +160,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -194,6 +214,13 @@ _NEW_FORMS = {"exact_poly": ("exact", True, "float32"),
               "default_bf16": ("default", False, "bfloat16"),
               "default_poly_bf16": ("default", True, "bfloat16")}
 BF16_PEAK = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
+# the SEANet block's one-pass form by entry point and operands' dtype (the
+# rows and launch counts of B2's and B3's "default" form)
+B2_FORMS = ("seanet_resblock_default_f32", "seanet_resblock_default_bf16",
+            "seanet_resblock_packed_default_f32",
+            "seanet_resblock_packed_default_bf16")
+# the EnCodec-style tier's certify run: EnCodec-24k's encoder at B = 4 x 10 s
+CERTIFY_B, CERTIFY_SECONDS = 4, 10.0
 # A one-pass tier's residual unit on the card, fed the CPU path's input, at
 # most this share of the unit's own move off exact fp32 away from the CPU
 # path's output (tools/tier_divergence.py reads at most 0.04 between two
@@ -1057,6 +1084,9 @@ def reset_counts() -> None:
     for name, f in _counters().items():
         if name != "dac_resunit":
             f.launches = 0
+        if name.startswith("seanet_resblock"):
+            for form in f.launches_by_form:
+                f.launches_by_form[form] = 0
     _counters()["lstm_recurrence"].wide_launches = 0
     by_form = _counters()["dac_resunit"].launches_by_form
     for form in by_form:
@@ -1067,7 +1097,9 @@ def read_counts() -> dict:
     """Launches by wrapper since ``reset_counts``; ``lstm_recurrence_wide``
     counts the LSTM launches of the wide instance (H > 1024) among
     ``lstm_recurrence``'s; ``dac_resunit`` counts the DAC unit's exact sin
-    form and ``dac_resunit_<form>`` each of its other forms."""
+    form and ``dac_resunit_<form>`` each of its other forms;
+    ``seanet_resblock`` (and ``_packed``) the SEANet block's exact form and
+    ``seanet_resblock[_packed]_default_{f32,bf16}`` its one-pass form."""
     counts = {name: f.launches for name, f in _counters().items()
               if name != "dac_resunit"}
     counts["lstm_recurrence_wide"] = _counters()[
@@ -1076,6 +1108,9 @@ def read_counts() -> dict:
     counts["dac_resunit"] = by_form["exact"]
     for form in _NEW_FORMS:
         counts[f"dac_resunit_{form}"] = by_form[form]
+    for name in ("seanet_resblock", "seanet_resblock_packed"):
+        for form, n in _counters()[name].launches_by_form.items():
+            counts[f"{name}_{form}"] = n
     return counts
 
 
@@ -1095,12 +1130,15 @@ def _noise(rng, shapes):
 
 def _launch_table(lstm, resblock, dac=0, wide=0, **forms):
     """The launches of a run: ``dac`` of the DAC unit's exact sin form,
-    ``forms`` (name → count) of its other forms."""
+    ``forms`` (name → count) of its other forms and of the SEANet block's
+    one-pass form (``B2_FORMS``)."""
     table = {"lstm_recurrence": lstm, "seanet_resblock": resblock,
              "seanet_resblock_packed": 0, "dac_resunit": dac,
              "lstm_recurrence_wide": wide}
     for form in _NEW_FORMS:
         table[f"dac_resunit_{form}"] = forms.pop(form, 0)
+    for name in B2_FORMS:
+        table[name] = forms.pop(name, 0)
     if forms:
         raise ValueError(f"unknown forms {sorted(forms)}")
     return table
@@ -1769,7 +1807,7 @@ def _rms(t) -> float:
 
 
 def _tier(torch, rows, label, exact, tier, cpu, sig, want, kind, frames,
-          exact_ms=None):
+          exact_ms=None, units=True):
     """A serving tier of a codec: ``sig`` through ``tier.sig_to_toks`` →
     ``toks_to_sig`` with the launches counted (``want``, by form), tokens
     equal bit for bit to the exact tier's, the waveform's rms and max
@@ -1788,8 +1826,10 @@ def _tier(torch, rows, label, exact, tier, cpu, sig, want, kind, frames,
     own error (the CPU against itself, with another conv implementation,
     reads 0.26-1.02 of the tier's move: ``tools/tier_divergence.py``). So
     the decode is held only to no more than the tier's move there, and the
-    tight check is ``_units_teacher_forced``: each residual unit fed the
-    CPU path's own input."""
+    tight check is ``_units_teacher_forced``: each of a DAC-style
+    decoder's residual units fed the CPU path's own input (``units``; the
+    SEANet blocks' kernel is held to its plain version one rounding point
+    at a time in ``phase_resblock_default`` instead)."""
     from audiocodecs_tpu_torch.models.dac import residual_unit_io
 
     reset_counts()
@@ -1824,7 +1864,8 @@ def _tier(torch, rows, label, exact, tier, cpu, sig, want, kind, frames,
     part = toks[:1, :frames]
     y_card, y_ex = tier.toks_to_sig(part), exact.toks_to_sig(part)
     t0 = time.perf_counter()
-    with residual_unit_io(cpu.decoder) as (ins, outs):
+    with (residual_unit_io(cpu.decoder) if units
+          else contextlib.nullcontext(({}, {}))) as (ins, outs):
         y_cpu = cpu.toks_to_sig(part.cpu())
     cpu_s = time.perf_counter() - t0
     diff = y_card.cpu() - y_cpu
@@ -1843,7 +1884,7 @@ def _tier(torch, rows, label, exact, tier, cpu, sig, want, kind, frames,
     if not ok:
         fail(f"{label}: the card's decode is off the CPU path's by {got}, "
              f"limit {lim}")
-    if kind == "one pass":
+    if kind == "one pass" and units:
         _units_teacher_forced(torch, label, tier, exact, ins, outs)
     res["cpu_err"] = got
     return res
@@ -1989,8 +2030,8 @@ def _server_requests(sr: int, n: int = 16):
 
 def phase_server(torch, rows):
     """``CodecServer`` (``audiocodecs_tpu_torch/examples/serve.py``) over
-    BigCodec-16k (exact, then in its balanced serving tier, as the entry
-    point builds it) and EnCodec-24k, reached by registry name, seeded
+    BigCodec-16k and EnCodec-24k (each exact, then in its balanced serving
+    tier, as the entry point builds it), reached by registry name, seeded
     random weights: buckets (1, 2, 5, 10) s, max_batch 8, max_wait_ms 5, the JAX
     main()'s 16 requests submitted at once. Every reply must have its
     request's length, be finite and equal, bit for bit, the row of
@@ -2001,13 +2042,15 @@ def phase_server(torch, rows):
     from audiocodecs_tpu_torch.models import get_codec_class
     from audiocodecs_tpu_torch.serving import apply_serving_preset
 
-    # (label, family, quality): BigCodec exact and in its balanced tier, as
-    # the entry point's main() builds it by default
+    # (label, family, quality): each codec exact and in its balanced tier,
+    # as the entry point's main() builds it by default
     per_batch = {("bigcodec", "bigcodec", "exact"):
                  _launch_table(4, 0, dac=9, wide=4),
                  ("bigcodec_balanced", "bigcodec", "balanced"):
                  _launch_table(4, 0, wide=4, default_poly_bf16=9),
-                 ("encodec", "encodec", "balanced"): _launch_table(4, 8)}
+                 ("encodec", "encodec", "exact"): _launch_table(4, 8),
+                 ("encodec_balanced", "encodec", "balanced"):
+                 _launch_table(4, 4, seanet_resblock_default_bf16=4)}
     for (name, family, quality), each in per_batch.items():
         cls = get_codec_class(family)
         sr = getattr(cls, "DEFAULT_ORIG_SR", 24000)
@@ -2448,6 +2491,8 @@ def _train_step_split(prof, card, by_part):
 
 _KERNEL_GROUPS = (("lstm_recurrence", "lstm_recurrence_kernel"),
                   ("seanet_resblock", "seanet_resblock_kernel"),
+                  ("seanet_resblock (bf16 MMA)",
+                   "seanet_resblock_mma_kernel"),
                   ("dac_resunit", "dac_resunit_kernel"),
                   ("dac_resunit (bf16 MMA)", "dac_resunit_mma_kernel"),
                   ("fft (cuFFT)", "fft"), ("overlap-add (fold)", "col2im"),
@@ -2548,6 +2593,291 @@ def phase_profile(torch, fn, wall_ms, what="roundtrip", top=12):
     return prof
 
 
+def _resblock_module(torch, C, cfg, w):
+    """A ``ResBlock`` on the card holding ``w`` (w1, b1, w2, b2, ws, bs)."""
+    from audiocodecs_tpu_torch.nn.seanet import ResBlock
+
+    blk = ResBlock(C, cfg).cuda()
+    with torch.no_grad():
+        for conv, (wt, bt) in zip((*blk.block, blk.shortcut),
+                                  ((w[0], w[1]), (w[2], w[3]), (w[4], w[5]))):
+            conv.w.copy_(wt)
+            conv.b.copy_(bt)
+    return blk
+
+
+def _b2_default_check(torch, args, packed, label):
+    """One shape of B2's one-pass form: the kernel's stages against its
+    plain version one rounding point at a time (``default_errors``), and
+    the model's launch equal to the stages launch bit for bit."""
+    from audiocodecs_tpu_torch.ops.seanet_resblock import (
+        default_errors, seanet_resblock, seanet_resblock_stages)
+
+    with torch.inference_mode():
+        out, h2, k3 = seanet_resblock_stages(*args, packed=packed)
+        got = seanet_resblock(*args, packed=packed, precision="default")
+        check = default_errors(out, h2, k3, *args)
+        same = torch.equal(out, got)
+    del out, h2, k3
+    if not (check["ok"] and same):
+        fail(f"{label}: one-pass kernel off its plain version: {check}, "
+             f"model launch equal to the stages launch: {same}")
+    return got, check
+
+
+def phase_resblock_default(torch, peaks, rows):
+    """B2's one-pass form (``precision="default"``) at the four EnCodec-24k
+    decoder shapes (B = 8 x 10 s), on fp32 and on bf16 operands, and B3's
+    entry in the form at (C, T) = (32, 240000) and (64, 120000): each
+    held to its plain version one rounding point at a time (the k3 sum
+    within 1e-5 of Σ|terms|, h2 within one bf16 ulp plus that, with the
+    share that differs, the tail on the kernel's own h2 within 1e-5
+    relative), timed on weights packed once beside its plain version and
+    two library references of the same block unfused: in bf16 (cuDNN's
+    bf16 convs, ELU and add: the reference's XLA path in the tier) and in
+    fp32 on bf16-rounded operands; with its bound (one bf16 pass at 989
+    TFLOP/s, or the bytes at the HBM rate). Fills each form's row of
+    ``rows`` (made before the paths ran, so that it holds their
+    launches)."""
+    from audiocodecs_tpu_torch.nn.layers import DecodeForm, pad1d
+    from audiocodecs_tpu_torch.nn.seanet import SEANetConfig, _resnet_plain
+    from audiocodecs_tpu_torch.ops.seanet_resblock import (
+        pack_resblock_weights, seanet_resblock, seanet_resblock_info,
+        seanet_resblock_packed, seanet_resblock_reference)
+
+    gen = torch.Generator().manual_seed(15)
+    cfg = SEANetConfig()
+    by_name = {row["name"]: row for row in rows}
+    for dt_name in ("f32", "bf16"):
+        dtype = torch.float32 if dt_name == "f32" else torch.bfloat16
+        tot = dict.fromkeys(("ms", "plain_ms", "library_ms",
+                             "library_f32_rounded_ms", "flops", "bytes"),
+                            0.0)
+        worst, per_shape = 0.0, []
+        for B, C, T in RESBLOCK_SHAPES:
+            x, w = _resblock_inputs(torch, gen, B, C, T, "cuda")
+            halo = pad1d(x[..., :3], 2, 0, mode="reflect")[..., :2]
+            args = [t.to(dtype).contiguous() for t in (x, halo, *w)]
+            packed = pack_resblock_weights(w[0], w[2], w[4], "default")
+            label = f"seanet_resblock default {dt_name} B={B} C={C} T={T}"
+            got, check = _b2_default_check(torch, args, packed, label)
+            blk = _resblock_module(torch, C, cfg, w)
+            bf16_form = DecodeForm(torch.bfloat16, "default")
+            f32_form = DecodeForm(torch.float32, "default")
+            xb, xf = args[0].to(torch.bfloat16), args[0].float()
+            with torch.inference_mode():
+                plain = seanet_resblock_reference(*args, precision="default")
+                err = float((got.float() - plain.float()).abs().max())
+                del got, plain
+                ms = cuda_ms(torch, lambda: seanet_resblock(
+                    *args, packed=packed, precision="default"), reps=5)
+                plain_ms = cuda_ms(torch, lambda: seanet_resblock_reference(
+                    *args, precision="default"), reps=5)
+                lib_ms = cuda_ms(torch, lambda: _resnet_plain(
+                    xb, blk, cfg, (1, 1), bf16_form), reps=5)
+                lib32_ms = cuda_ms(torch, lambda: _resnet_plain(
+                    xf, blk, cfg, (1, 1), f32_form), reps=5)
+            Hc = C // 2
+            flops = 2.0 * B * T * (3 * C * Hc + Hc * C + C * C)
+            esize = args[0].element_size()
+            nbytes = (2 * B * C * T + 2 * B * C) * esize + 2 * (
+                3 * C * Hc + Hc * C + C * C) + esize * (Hc + 2 * C)
+            b_ms, b_by = bound(flops, nbytes, (BF16_PEAK, peaks[1]))
+            info = seanet_resblock_info(C, Hc, "default", dtype)
+            log(f"{label}: max_abs_err={err:.3e} check={json.dumps(check)} "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms(unfused bf16 block)={lib_ms:.4f} "
+                f"library_ms(unfused fp32 on bf16-rounded operands)="
+                f"{lib32_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                f"kernel/bound={ms / b_ms:.2f} {json.dumps(info)}")
+            per_shape.append({"B": B, "C": C, "T": T, "ms": ms,
+                              "plain_ms": plain_ms, "library_ms": lib_ms,
+                              "library_f32_rounded_ms": lib32_ms,
+                              "bound_ms": b_ms, "max_abs_err": err, **info,
+                              **{k: v for k, v in check.items()
+                                 if k != "ok"}})
+            worst = max(worst, err)
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms),
+                         ("library_f32_rounded_ms", lib32_ms),
+                         ("flops", flops), ("bytes", nbytes)):
+                tot[k] += v
+            del x, w, args, packed, blk, xb, xf
+        b_ms, b_by = bound(tot["flops"], tot["bytes"], (BF16_PEAK, peaks[1]))
+        log(f"seanet_resblock default {dt_name}, four EnCodec-24k shapes: "
+            f"kernel_ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+            f"library_ms(bf16)={tot['library_ms']:.4f} library_ms(fp32 "
+            f"rounded)={tot['library_f32_rounded_ms']:.4f} bound_ms="
+            f"{b_ms:.4f} ({b_by})")
+        by_name[f"seanet_resblock_default_{dt_name}"].update({
+            "status": "ported", "route": "cuda",
+            "source": "audiocodecs_tpu_torch/csrc/seanet_resblock.cu",
+            "replaces": "audiocodecs_tpu/ops/seanet_block_pallas.py:96",
+            "max_abs_err": worst, "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": tot["library_ms"],
+            "library_f32_rounded_ms": tot["library_f32_rounded_ms"],
+            "per_shape": per_shape,
+            "shape": f"sum over the four EnCodec-24k (C, T) shapes at B=8, "
+                     f"{dt_name} operands, weights packed once; library: "
+                     f"the block unfused in bf16 (library_f32_rounded_ms: "
+                     f"in fp32 on bf16-rounded operands)"})
+
+    # B3's entry in the one-pass form: the converted layout through the
+    # same kernel, bit for bit the stages launch on that layout
+    from audiocodecs_tpu_torch.ops.seanet_resblock import (
+        _packed_args, seanet_resblock_packed_reference)
+
+    for dt_name in ("f32", "bf16"):
+        dtype = torch.float32 if dt_name == "f32" else torch.bfloat16
+        tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "flops",
+                             "bytes"), 0.0)
+        worst = 0.0
+        for B, C, T in PACKED_SHAPES:
+            x, w = _resblock_inputs(torch, gen, B, C, T, "cuda")
+            xt = x.transpose(1, 2).contiguous().to(dtype)
+            pargs = [xt, *(t.to(dtype) for t in (
+                w[0].permute(2, 1, 0).contiguous(), w[1],
+                w[2][..., 0].T.contiguous(), w[3],
+                w[4][..., 0].T.contiguous(), w[5]))]
+            label = f"seanet_resblock_packed default {dt_name} B={B} C={C} " \
+                    f"T={T}"
+            conv = [t.contiguous() for t in _packed_args(*pargs)]
+            want, _ = _b2_default_check(torch, conv, None, label)
+            zcfg = SEANetConfig(pad_mode="constant")
+            blk = _resblock_module(torch, C, zcfg, w)
+            bf16_form = DecodeForm(torch.bfloat16, "default")
+            with torch.inference_mode():
+                got = seanet_resblock_packed(*pargs, precision="default")
+                if not torch.equal(got, want.transpose(1, 2)):
+                    fail(f"{label}: the entry's launch differs from the "
+                         "block kernel's on the converted layout")
+                plain = seanet_resblock_packed_reference(
+                    *pargs, precision="default")
+                err = float((got.float() - plain.float()).abs().max())
+                del got, want, plain
+                ms = cuda_ms(torch, lambda: seanet_resblock_packed(
+                    *pargs, precision="default"), reps=5)
+                plain_ms = cuda_ms(torch, lambda: (
+                    seanet_resblock_packed_reference(
+                        *pargs, precision="default")), reps=5)
+                lib_ms = cuda_ms(torch, lambda: _resnet_plain(
+                    xt.to(torch.bfloat16).transpose(1, 2), blk, zcfg, (1, 1),
+                    bf16_form).transpose(1, 2), reps=5)
+            Hc = C // 2
+            flops = 2.0 * B * T * (3 * C * Hc + Hc * C + C * C)
+            esize = xt.element_size()
+            nbytes = 2 * B * C * T * esize + 2 * (
+                3 * C * Hc + Hc * C + C * C) + esize * (Hc + 2 * C)
+            b_ms, b_by = bound(flops, nbytes, (BF16_PEAK, peaks[1]))
+            log(f"{label}: max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms(unfused bf16 block)="
+                f"{lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+            worst = max(worst, err)
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("flops", flops),
+                         ("bytes", nbytes)):
+                tot[k] += v
+            del x, w, xt, pargs, conv, blk
+        b_ms, b_by = bound(tot["flops"], tot["bytes"], (BF16_PEAK, peaks[1]))
+        by_name[f"seanet_resblock_packed_default_{dt_name}"].update({
+            "status": "ported", "route": "cuda",
+            "source": "audiocodecs_tpu_torch/csrc/seanet_resblock.cu",
+            "replaces": "audiocodecs_tpu/ops/seanet_block_packed.py:123",
+            "max_abs_err": worst, "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": tot["library_ms"],
+            "shape": f"sum over (C, T) = (32, 240000), (64, 120000) at B=8, "
+                     f"{dt_name} operands; no model calls it"})
+
+
+def phase_seanet_tiers(torch, rows):
+    """The EnCodec-style serving tier (``apply_serving_preset``: bf16
+    decoder activations, one bf16 pass) of EnCodec-24k, PAST-16k, Mimi-24k
+    and SpeechTokenizer-16k at B = 8 x 10 s, each beside its exact tier in
+    the same call, as ``_tier``: tokens equal to the exact tier's bit for
+    bit, the waveform's move off it, one row's first second decoded on the
+    card against the CPU path of the same tier (rms no larger than the
+    tier's move), and the two roundtrips. EnCodec-24k and PAST-16k launch
+    4 exact B2 (encoder) and 4 one-pass bf16 B2 (decoder) and 4 LSTM a
+    roundtrip; Mimi none; SpeechTokenizer 6 LSTM. EnCodec-24k's tier is
+    profiled."""
+    from audiocodecs_tpu_torch.models.encodec import Encodec
+    from audiocodecs_tpu_torch.models.mimi import Mimi
+    from audiocodecs_tpu_torch.models.past import PAST
+    from audiocodecs_tpu_torch.models.speechtokenizer import SpeechTokenizer
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
+
+    fused = _launch_table(4, 4, seanet_resblock_default_bf16=4)
+    cases = (("encodec_24k", Encodec, "encodec", 24000, fused, 75),
+             ("past_16k", PAST, "past", 16000, fused, 50),
+             ("mimi_24k", Mimi, "mimi", 24000, _launch_table(0, 0), 13),
+             ("speechtokenizer_16k", SpeechTokenizer, "speechtokenizer",
+              16000, _launch_table(6, 0), 50))
+    rng = np.random.default_rng(16)
+    for name, cls, family, sr, want, frames in cases:
+        kw = apply_serving_preset(family)
+        exact = cls(sr, sr, num_codebooks=8, device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+        state = {k: v.detach().cpu() for k, v in exact.state_dict().items()}
+        tier = cls(sr, sr, num_codebooks=8, device="cuda", state_dict=state,
+                   **kw)
+        cpu = cls(sr, sr, num_codebooks=8, device="cpu", state_dict=state,
+                  **kw)
+        sig = _noise(rng, [(8, 10 * sr)])[0]
+        res = _tier(torch, rows, f"{name}_balanced", exact, tier, cpu, sig,
+                    want, "one pass", frames=frames, units=False)
+        sig_dev = res.pop("sig_dev")
+        if name == "encodec_24k":
+            phase_profile(torch, lambda: tier.roundtrip(sig_dev),
+                          res["roundtrip_ms"])
+        del exact, tier, cpu, sig_dev
+
+
+def phase_certify(torch, rows):
+    """The reduced-precision encoder that ``quant/certify.py`` certifies:
+    EnCodec-24k (seeded random weights, 8 codebooks) at B = 4 x 10 s with
+    ``encode_precision="default"`` beside the exact encoder, through
+    ``certify_codec`` (features and real tokens of both; each encode 2
+    LSTM launches and 4 B2 launches, exact or one-pass fp32). Fails if a
+    certified frame's real tokens differ from the exact path's. Prints the
+    certified share, the real token match and both encodes' times."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    try:
+        import certify_torch
+    finally:
+        sys.path.pop(0)
+    from audiocodecs_tpu_torch.quant.certify import certify_codec
+
+    exact = certify_torch.build("encodec", "cuda")
+    fast = certify_torch.build("encodec", "cuda", encode_precision="default")
+    sig = certify_torch.signal(CERTIFY_B, CERTIFY_SECONDS, 24000)
+    reset_counts()
+    with torch.inference_mode():
+        res = certify_codec(exact, fast, sig)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # two encodes a codec (features, then tokens)
+    want = _launch_table(8, 8, seanet_resblock_default_f32=8)
+    log(f"certify launches: {json.dumps(counts)}")
+    if counts != want:
+        fail(f"certify: expected launches {want}, got {counts}")
+    _add_launches(rows, "certify_encodec_24k", counts)
+    sig_dev = torch.as_tensor(sig, device="cuda")
+    with torch.inference_mode():
+        exact_ms = cuda_ms(torch, lambda: exact.sig_to_toks(sig_dev), reps=5)
+        fast_ms = cuda_ms(torch, lambda: fast.sig_to_toks(sig_dev), reps=5)
+    log(f"certify encodec_24k B={CERTIFY_B} x {CERTIFY_SECONDS} s, "
+        f"encode_precision='default' against exact: {json.dumps(res)}; "
+        f"encode (sig_to_toks) {fast_ms:.3f} ms one-pass against "
+        f"{exact_ms:.3f} ms exact")
+    if res["certified_but_real_mismatch"]:
+        fail(f"certify: {res['certified_but_real_mismatch']} certified "
+             "frames whose real tokens differ from the exact path's")
+    if not 0.0 < res["max_delta"]:
+        fail("certify: the one-pass encoder did not move the features")
+
+
 def main() -> None:
     import torch
 
@@ -2563,7 +2893,9 @@ def main() -> None:
     phase_build()
     rows = [*phase_lstm(torch, peaks), phase_resblock(torch, peaks),
             phase_packed(torch, peaks), phase_dac_resunit(torch, peaks),
-            *phase_dac_resunit_forms(torch, peaks)]
+            *phase_dac_resunit_forms(torch, peaks),
+            # B2's one-pass rows, filled by phase_resblock_default
+            *({"name": name, "launches": 0} for name in B2_FORMS)]
     phase_main_path(torch, rows)
     phase_dac_path(torch, rows)
     phase_speechtokenizer(torch, rows)
@@ -2578,6 +2910,9 @@ def main() -> None:
     phase_bigcodec_tier(torch, rows)
     phase_server(torch, rows)
     phase_train(torch, rows, card)
+    phase_resblock_default(torch, peaks, rows)
+    phase_seanet_tiers(torch, rows)
+    phase_certify(torch, rows)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))
     log(f"card: {card}")

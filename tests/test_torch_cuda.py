@@ -8,11 +8,12 @@ runs on a machine that has only PyTorch:
 
 Tolerances: kernel against plain version 1e-5 (absolute for the LSTM,
 relative to max(1, max|ref|) for the blocks and the DAC unit's exact
-forms), the limits ``chip_smoke.py`` uses; the DAC unit's default form (one
-bf16 pass) one rounding point at a time (``ops/dac_resunit.py::
-default_errors``). A Function's gradient (kernel forward, backward
-recomputed through the plain version) against autograd through the plain
-version: 1e-4 of the plain gradient's max|g| (cuDNN may pick another
+forms), the limits ``chip_smoke.py`` uses; the DAC unit's and the SEANet
+block's default form (one bf16 pass) one rounding point at a time
+(``ops/dac_resunit.py::default_errors``,
+``ops/seanet_resblock.py::default_errors``). A Function's gradient (kernel
+forward, backward recomputed through the plain version) against autograd
+through the plain version: 1e-4 of the plain gradient's max|g| (cuDNN may pick another
 backward algorithm for the two, in another summation order).
 """
 
@@ -59,8 +60,10 @@ from audiocodecs_tpu_torch.ops.dac_resunit import (
 )
 from audiocodecs_tpu_torch.ops.seanet_resblock import (
     _smem_bytes as _resblock_smem_bytes,
+    default_errors as resblock_default_errors,
     pack_resblock_weights,
     seanet_resblock,
+    seanet_resblock_stages,
     seanet_resblock_info,
     seanet_resblock_packed,
     seanet_resblock_packed_reference,
@@ -1157,3 +1160,152 @@ def test_full_width_encodec_training_step_on_the_card(dev):
         plain = _resnet_plain(x, blk, cfg, (1, 1))
     assert float((fused - plain).abs().max()) <= 1e-5 * max(
         1.0, float(plain.abs().max()))
+
+
+
+# ---- B2/B3's one-pass form --------------------------------------------
+
+# every time tile (C, Hc <= 128: 128 samples; wider: 64), widths off the
+# 16-channel chunk and the 8-channel n-tile, ragged and short T, B = 1
+_B2_DEFAULT_SHAPES = [
+    (2, 32, 1001, "reflect"), (1, 8, 5, "reflect"), (3, 64, 257, "constant"),
+    (2, 128, 300, "reflect"), (1, 256, 130, "constant"),
+    (1, 384, 77, "reflect"), (2, 48, 33, "reflect"), (1, 20, 3, "constant"),
+    (1, 32, 1, "reflect"), (2, 200, 129, "reflect")]
+# EnCodec-24k's four decoder blocks at B = 8 x 10 s
+_B2_MODEL_SHAPES = [(8, 32, 240000, "reflect"), (8, 64, 120000, "reflect"),
+                    (8, 128, 30000, "reflect"), (8, 256, 6000, "reflect")]
+
+
+def _b2_case(dev, B, C, T, pad_mode, dtype):
+    rng = np.random.default_rng(B + C + T)
+    Hc = C // 2
+    x = _t(rng.standard_normal((B, C, T)) * 0.5, dev)
+    halo = pad1d(x[..., :3], 2, 0, mode=pad_mode)[..., :2]
+    weights = [_t(rng.standard_normal(s) / np.sqrt(f), dev) for s, f in (
+        ((Hc, C, 3), 3 * C), ((Hc,), 3 * C), ((C, Hc, 1), Hc), ((C,), Hc),
+        ((C, C, 1), C), ((C,), C))]
+    return [t.to(dtype).contiguous() for t in (x, halo, *weights)]
+
+
+def _check_b2_default(args):
+    """The one-pass kernel against its plain version one rounding point at
+    a time; the model's launch equal to the stages launch; the model's
+    launch counted under its form, the check's stages launch not."""
+    name = "default_bf16" if args[0].dtype == torch.bfloat16 else \
+        "default_f32"
+    before = seanet_resblock.launches_by_form[name]
+    with torch.inference_mode():
+        packed = pack_resblock_weights(args[2], args[4], args[6], "default")
+        got = seanet_resblock(*args, packed=packed, precision="default")
+        out, h2, k3 = seanet_resblock_stages(*args, packed=packed)
+        errs = resblock_default_errors(out, h2, k3, *args)
+        torch.cuda.synchronize()
+    assert errs["ok"], errs
+    assert torch.equal(got, out) and got.dtype == args[0].dtype
+    assert seanet_resblock.launches_by_form[name] - before == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,T,pad_mode", _B2_DEFAULT_SHAPES)
+def test_resblock_default_form_matches_plain_version(dev, B, C, T, pad_mode,
+                                                     dtype):
+    _check_b2_default(_b2_case(dev, B, C, T, pad_mode, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,T,pad_mode", _B2_MODEL_SHAPES)
+def test_resblock_default_form_at_the_models_shapes(dev, B, C, T, pad_mode,
+                                                    dtype):
+    _check_b2_default(_b2_case(dev, B, C, T, pad_mode, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resblock_default_form_info(dev, dtype):
+    """Registers, spills, shared bytes, blocks an SM and the time tile of
+    each one-pass instance."""
+    for C in (8, 32, 64, 128, 256, 384):
+        info = seanet_resblock_info(C, C // 2, "default", dtype)
+        assert info["tile"] == (128 if C <= 128 else 64)
+        row = lambda n: 2 * (-(-n // 16) * 16) + 16  # noqa: E731
+        assert info["smem_bytes"] == (2 * (info["tile"] + 2) * row(C)
+                                      + info["tile"] * row(C // 2))
+        assert info["local_bytes"] == 0
+        assert 0 < info["regs"] <= 255 and info["blocks_per_sm"] >= 1
+
+
+def test_resblock_default_form_refuses_what_it_does_not_take(dev):
+    args = _b2_case(dev, 1, 32, 64, "reflect", torch.bfloat16)
+    before = dict(seanet_resblock.launches_by_form)
+    with pytest.raises(TypeError, match="precision='default'"):
+        seanet_resblock(*args)  # bf16 in the exact form
+    with pytest.raises(TypeError):  # weights of another dtype than x
+        seanet_resblock(args[0], args[1], *[a.float() for a in args[2:]],
+                        precision="default")
+    f32 = [a.float() for a in args]
+    with pytest.raises(ValueError, match="packed w1"):
+        seanet_resblock(*f32, precision="default",
+                        packed=pack_resblock_weights(f32[2], f32[4], f32[6]))
+    assert seanet_resblock.launches_by_form == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,T", [(32, 1001), (64, 77)])
+def test_packed_entry_in_the_default_form(dev, C, T, dtype):
+    """B3's entry in the one-pass form launches the block kernel on the
+    converted layout: bit for bit the block's launch there, counted
+    apart."""
+    rng = np.random.default_rng(C + T)
+    Hc = C // 2
+    x = _t(rng.standard_normal((2, T, C)), dev).to(dtype)
+    weights = [_t(rng.standard_normal(s) / np.sqrt(f), dev).to(dtype)
+               for s, f in (((3, C, Hc), 3 * C), ((Hc,), 3 * C),
+                            ((Hc, C), Hc), ((C,), Hc), ((C, C), C),
+                            ((C,), C))]
+    name = "default_bf16" if dtype == torch.bfloat16 else "default_f32"
+    before = seanet_resblock_packed.launches_by_form[name]
+    with torch.inference_mode():
+        got = seanet_resblock_packed(x, *weights, precision="default")
+        xc = x.transpose(1, 2).contiguous()
+        want = seanet_resblock(
+            xc, torch.zeros_like(xc[..., :2]),
+            weights[0].permute(2, 1, 0).contiguous(), weights[1],
+            weights[2].T.contiguous()[..., None], weights[3],
+            weights[4].T.contiguous()[..., None], weights[5],
+            precision="default")
+    assert seanet_resblock_packed.launches_by_form[name] == before + 1
+    assert torch.equal(got, want.transpose(1, 2))
+
+
+def test_encodec_tier_launches_and_matches_cpu(dev):
+    """A small EnCodec in its balanced tier on the card: 2 exact and 2
+    one-pass bf16 B2 launches a roundtrip (encoder, decoder), tokens equal
+    to the exact codec's, the decode within the tier's move of the CPU
+    path's in the same tier."""
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
+
+    mc = EncodecModelConfig(num_filters=8, hidden_size=16,
+                            upsampling_ratios=(4, 2), codebook_size=64,
+                            codebook_dim=16, num_quantizers=4)
+    kw = apply_serving_preset("encodec")
+    exact = Encodec(24000, num_codebooks=4, model_config=mc, device=dev,
+                    generator=torch.Generator().manual_seed(0))
+    state = {k: v.cpu() for k, v in exact.state_dict().items()}
+    tier = Encodec(24000, num_codebooks=4, model_config=mc, device=dev,
+                   state_dict=state, **kw)
+    cpu = Encodec(24000, num_codebooks=4, model_config=mc, device="cpu",
+                  state_dict=state, **kw)
+    sig = (np.random.default_rng(1).standard_normal((2, 4000)) * 0.3).astype(
+        np.float32)
+    n0 = seanet_resblock.launches
+    b0 = seanet_resblock.launches_by_form["default_bf16"]
+    toks = tier.sig_to_toks(sig)
+    y = tier.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    assert seanet_resblock.launches - n0 == 2
+    assert seanet_resblock.launches_by_form["default_bf16"] - b0 == 2
+    assert torch.equal(toks, exact.sig_to_toks(sig))
+    move = float((y - exact.toks_to_sig(toks)).pow(2).mean().sqrt())
+    gap = float((y.cpu() - cpu.toks_to_sig(toks.cpu())).pow(2).mean()
+                .sqrt())
+    assert move > 0 and gap <= move

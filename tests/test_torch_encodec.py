@@ -221,3 +221,39 @@ def test_full_width_features_and_tokens(rng):
     tt = tc.sig_to_toks(sig).numpy()
     assert tt.shape == jt.shape == (1, 38, 8)
     assert (tt == jt).mean() >= 0.99
+
+
+def _same_weights(jc, tc):
+    """Makers of a fresh reference codec (a new trace) and of the port's
+    with ``tc``'s weights and the given constructor arguments."""
+    def make_j():
+        return JEncodec(24000, 24000, num_codebooks=4,
+                        model_config=jc.model_config, params=jc.params)
+
+    def make_t(**kw):
+        return Encodec(24000, 24000, num_codebooks=4,
+                       model_config=tc.model_config,
+                       state_dict=tc.state_dict(), device="cpu", **kw)
+
+    return make_j, make_t
+
+
+def test_serving_tier_matches_the_reference(small_pair, rng):
+    """EnCodec's balanced tier (bf16 decoder, its causal blocks on B2's
+    one-pass form) against the reference's under ``_ENCODEC_STYLE``'s
+    switches (``tests/seanet_tier.py``); the LSTM stays an fp32 island."""
+    from seanet_tier import check_family_tier
+
+    jc, tc = small_pair
+    tt, _ = check_family_tier("encodec", jc, tc, *_same_weights(jc, tc),
+                              _sig(rng, 2, 2000), fused=True)
+    assert tt.decoder.form.dtype == torch.bfloat16
+    assert tt.encoder.form.exact
+    assert getattr(tt.decoder, "1")[0].w_hh.dtype == torch.float32
+
+
+def test_encode_precision_default_matches_the_reference(small_pair, rng):
+    from seanet_tier import check_encode_precision
+
+    jc, tc = small_pair
+    check_encode_precision(jc, *_same_weights(jc, tc), _sig(rng, 2, 2000))

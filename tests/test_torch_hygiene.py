@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``audiocodecs_tpu_torch`` (nor
-``chip_smoke.py``) imports ``jax`` or ``audiocodecs_tpu``, and its entry
-points run on the card unless the caller asks for the CPU."""
+``chip_smoke.py``, nor ``tools/certify_torch.py``) imports ``jax`` or
+``audiocodecs_tpu``, and its entry points run on the card unless the caller
+asks for the CPU."""
 
 import ast
 import json
@@ -57,7 +58,8 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.models",
               "audiocodecs_tpu_torch.models.bigcodec",
               "audiocodecs_tpu_torch.examples.serve",
-              "audiocodecs_tpu_torch.serving"):
+              "audiocodecs_tpu_torch.serving",
+              "audiocodecs_tpu_torch.quant.certify"):
         assert m in mods
 
 
@@ -94,10 +96,12 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.models.bigcodec" in loaded
     assert "audiocodecs_tpu_torch.examples.serve" in loaded
     assert "audiocodecs_tpu_torch.serving" in loaded
+    assert "audiocodecs_tpu_torch.quant.certify" in loaded
     assert not [m for m in loaded if _is_reference(m)]
 
 
-@pytest.mark.parametrize("path", ["audiocodecs_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("path", ["audiocodecs_tpu_torch", "chip_smoke.py",
+                                  "tools/certify_torch.py"])
 def test_no_import_statement_names_jax_or_reference(path):
     files = [REPO / path] if path.endswith(".py") else sorted(
         (REPO / path).rglob("*.py"))
@@ -147,6 +151,8 @@ def test_default_device_is_the_card(monkeypatch):
     # in every serving tier
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--codec", "bigcodec", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--codec", "encodec", "--requests", "1"])
     for quality in ("exact", "balanced", "fast"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.main(["--codec", "dac", "--quality", quality,
@@ -156,6 +162,33 @@ def test_default_device_is_the_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device(None) == torch.device("cuda")
+
+
+def test_certify_tool_stands_alone_and_defaults_to_the_card():
+    """``tools/certify_torch.py`` in a fresh interpreter without CUDA: it
+    asks for the card and raises, having imported neither jax nor the
+    reference package."""
+    code = (
+        "import json, sys\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import certify_torch\n"
+        "try:\n"
+        "    certify_torch.main(['--batch', '1', '--seconds', '0.1'])\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', e)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = {"PATH": os.environ.get("PATH", ""), "PYTHONPATH": str(REPO),
+           "HOME": os.environ.get("HOME", str(REPO)),
+           "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         cwd=str(REPO), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("raised") and "CUDA" in lines[0]
+    loaded = json.loads(lines[-1])
+    assert "audiocodecs_tpu_torch.quant.certify" in loaded
+    assert not [m for m in loaded if _is_reference(m)]
 
 
 def test_train_entry_point_defaults_to_the_card(monkeypatch, tmp_path):

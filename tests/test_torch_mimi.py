@@ -307,3 +307,41 @@ def test_full_width_features_and_tokens(rng):
     tt = tc.sig_to_toks(sig).numpy()
     assert tt.shape == jt.shape == (1, 7, 8)
     assert (tt == jt).mean() >= 0.99
+
+
+def _same_weights(jc, tc, K):
+    """Makers of a fresh reference codec (a new trace) and of the port's,
+    with ``tc``'s weights and the given constructor arguments."""
+    sr = tc.sample_rate
+
+    def make_j():
+        return type(jc)(sr, sr, num_codebooks=K, model_config=jc.model_config,
+                        params=jc.params)
+
+    def make_t(**kw):
+        return type(tc)(sr, sr, num_codebooks=K, model_config=tc.model_config,
+                        state_dict=tc.state_dict(), device="cpu", **kw)
+
+    return make_j, make_t
+
+
+def test_serving_tier_matches_the_reference(small_pair, rng):
+    """Mimi's balanced tier: its SEANet decoder in bf16 (blocks without a
+    conv shortcut: the unfused path, no kernel), the transformers and the
+    upsample conv exact, against the reference's under ``_ENCODEC_STYLE``'s
+    switches (``tests/seanet_tier.py``)."""
+    from seanet_tier import check_family_tier
+
+    jc, tc = small_pair
+    sig = rng.standard_normal((2, tc.frame_size * 12)).astype(np.float32)
+    tt, _ = check_family_tier("mimi", jc, tc, *_same_weights(jc, tc, 4), sig)
+    assert tt.decoder.form.dtype == torch.bfloat16 and tt.encoder.form.exact
+
+
+def test_encode_precision_default_matches_the_reference(small_pair, rng):
+    """The encoder stack and the downsample conv at one bf16 pass."""
+    from seanet_tier import check_encode_precision
+
+    jc, tc = small_pair
+    sig = rng.standard_normal((2, tc.frame_size * 12)).astype(np.float32)
+    check_encode_precision(jc, *_same_weights(jc, tc, 4), sig)

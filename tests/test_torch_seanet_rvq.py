@@ -209,3 +209,62 @@ def test_past_full_width(rng):
     assert tt.shape == jt.shape == (1, 25, 8)
     assert (tt == jt).mean() >= 0.99
     _close(tc.toks_to_sig(jt).numpy(), jc.toks_to_sig(jt), 1e-4)
+
+
+def _same_weights(jc, tc, K):
+    """Makers of a fresh reference codec (a new trace) and of the port's,
+    with ``tc``'s weights and the given constructor arguments."""
+    sr = tc.sample_rate
+
+    def make_j():
+        return type(jc)(sr, sr, num_codebooks=K, model_config=jc.model_config,
+                        params=jc.params)
+
+    def make_t(**kw):
+        return type(tc)(sr, sr, num_codebooks=K, model_config=tc.model_config,
+                        state_dict=tc.state_dict(), device="cpu", **kw)
+
+    return make_j, make_t
+
+
+@pytest.mark.parametrize("streamable", [True, False])
+def test_past_serving_tier_matches_the_reference(rng, streamable):
+    """PAST's balanced tier (bf16 decoder; the streamable variant's causal
+    blocks on B2's one-pass form, the other's unfused) against the
+    reference's under ``_ENCODEC_STYLE``'s switches
+    (``tests/seanet_tier.py``)."""
+    from seanet_tier import check_family_tier
+
+    jc, tc = _pair(_past_small(streamable), cls=(JPAST, PAST), seed=3)
+    sig = (rng.standard_normal((2, 400)) * 0.3).astype(np.float32)
+    tt, _ = check_family_tier("past", jc, tc, *_same_weights(jc, tc, 3), sig,
+                              fused=streamable)
+    assert tt.decoder.form.dtype == torch.bfloat16 and tt.encoder.form.exact
+
+
+def test_past_encode_precision_default_matches_the_reference(rng):
+    from seanet_tier import check_encode_precision
+
+    jc, tc = _pair(_past_small(), cls=(JPAST, PAST), seed=3)
+    sig = (rng.standard_normal((2, 400)) * 0.3).astype(np.float32)
+    check_encode_precision(jc, *_same_weights(jc, tc, 3), sig)
+
+
+def test_past_streaming_in_a_tier(rng):
+    """Streaming reads no activation dtype (the reference's streaming path
+    neither): the bf16 tier streams as the exact codec does; a one-pass
+    fp32 encoder refuses to stream."""
+    jc, tc = _pair(dict(_past_small(), pad_mode="constant"),
+                   cls=(JPAST, PAST), seed=3)
+    make_t = _same_weights(jc, tc, 3)[1]
+    sig = (rng.standard_normal((1, 4 * tc.frame_size)) * 0.3).astype(
+        np.float32)
+    tier = make_t(decode_dtype=torch.bfloat16, decode_precision="default")
+    state_t, state_e = (c.init_streaming_state(1) for c in (tier, tc))
+    toks, _ = tc.encode_chunk(sig, state_e)
+    y_t, _ = tier.decode_chunk(toks, state_t)
+    y_e, _ = tc.decode_chunk(toks, state_e)
+    assert torch.equal(y_t, y_e)
+    one_pass = make_t(encode_precision="default")
+    with pytest.raises(NotImplementedError, match="one-pass"):
+        one_pass.encode_chunk(sig, one_pass.init_streaming_state(1))

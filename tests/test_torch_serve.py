@@ -134,3 +134,34 @@ def test_server_main_on_the_cpu(capsys, monkeypatch):
     out = capsys.readouterr().out
     assert "3 requests" in out and "serving preset[bigcodec]" in out
     assert built[0].decode_form.dtype == torch.bfloat16
+
+
+def test_server_main_serves_encodec_in_its_tier(capsys, monkeypatch):
+    """``main --quality balanced`` builds EnCodec in the EnCodec-style tier
+    (bf16 decoder activations, one bf16 pass), which it prints; the
+    encoder stays exact."""
+    from audiocodecs_tpu_torch.examples import serve
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
+
+    built = []
+    mc = EncodecModelConfig(sampling_rate=800, num_filters=4, hidden_size=8,
+                            upsampling_ratios=(4, 2), codebook_size=16,
+                            codebook_dim=8, num_quantizers=2)
+
+    class Tiny:
+        DEFAULT_ORIG_SR = 800
+
+        def __new__(cls, sr, orig_sr, device, **preset):
+            assert preset == apply_serving_preset("encodec", "balanced")
+            built.append(Encodec(800, 800, num_codebooks=2, model_config=mc,
+                                 device=device, **preset))
+            return built[-1]
+
+    monkeypatch.setattr(models, "get_codec_class", lambda name: Tiny)
+    assert serve.main(["--codec", "encodec", "--quality", "balanced",
+                       "--requests", "2", "--batch", "2", "--device",
+                       "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "2 requests" in out and "serving preset[encodec]" in out
+    assert built[0].decoder.form.dtype == torch.bfloat16
+    assert built[0].encoder.form.exact

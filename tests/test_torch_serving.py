@@ -6,9 +6,10 @@ constructor arguments. The map between them: bf16 decoder activations
 (``ACX_ACT_DTYPE=decoder-bfloat16``) are ``decode_dtype=bfloat16`` and one
 bf16 pass; ``ACX_DEC_CONV_PRECISION=default`` is ``decode_precision=
 "default"``, its "high" (and unset) ``"exact"``; ``ACX_SNAKE_APPROX=1`` is
-``snake_poly``. The reference's fused-unit switch has no counterpart (the
-port's gate is fixed at build time). Families the port does not list get
-``{}`` in every quality.
+``snake_poly`` (DAC and BigCodec only: the SEANet families take no
+snake). The reference's fused-unit switch and its wide-LSTM switch have no
+counterpart (the port's gates are fixed at build time). Families the port
+does not list get ``{}`` in every quality.
 """
 
 import os
@@ -44,18 +45,27 @@ def clean_env():
             os.environ[k] = v
 
 
-def _port_form(env: dict) -> dict:
+SEANET_FAMILIES = ("encodec", "mimi", "past", "speechtokenizer",
+                   "wavtokenizer")
+
+
+def _port_form(env: dict, family: str) -> dict:
     bf16 = env.get("ACX_ACT_DTYPE", "float32") in ("bfloat16",
                                                    "decoder-bfloat16")
     one_pass = bf16 or env.get("ACX_DEC_CONV_PRECISION") == "default"
-    return {"decode_dtype": torch.bfloat16 if bf16 else torch.float32,
-            "decode_precision": "default" if one_pass else "exact",
-            "snake_poly": env.get("ACX_SNAKE_APPROX") == "1"}
+    form = {"decode_dtype": torch.bfloat16 if bf16 else torch.float32,
+            "decode_precision": "default" if one_pass else "exact"}
+    if family not in SEANET_FAMILIES:
+        form["snake_poly"] = env.get("ACX_SNAKE_APPROX") == "1"
+    else:  # the EnCodec-style env sets no snake and no encoder precision
+        assert env.get("ACX_SNAKE_APPROX", "") == ""
+        assert env.get("ACX_CONV_PRECISION", "highest") == "highest"
+    return form
 
 
 @pytest.mark.parametrize("quality", ["exact", "balanced", "fast"])
-@pytest.mark.parametrize("family", ["dac", "bigcodec", "encodec",
-                                    "wavtokenizer", "nosuchfamily"])
+@pytest.mark.parametrize("family", ["dac", "bigcodec", *SEANET_FAMILIES,
+                                    "nosuchfamily"])
 def test_presets_agree_with_the_reference(family, quality):
     """Every batch, the DAC crossover at 4 included: the port's arguments
     are the reference's switches through the map above."""
@@ -63,7 +73,7 @@ def test_presets_agree_with_the_reference(family, quality):
         env = j_apply(family, quality, batch)
         got = apply_serving_preset(family, quality, batch)
         if family in SERVING_PRESETS:
-            assert got == _port_form(env), (family, quality, batch)
+            assert got == _port_form(env, family), (family, quality, batch)
         else:
             assert got == {}
             if family not in J_PRESETS and quality != "exact":
@@ -71,7 +81,8 @@ def test_presets_agree_with_the_reference(family, quality):
 
 
 def test_listed_families_and_their_tiers():
-    assert sorted(SERVING_PRESETS) == ["bigcodec", "dac"]
+    assert sorted(SERVING_PRESETS) == sorted(["bigcodec", "dac",
+                                              *SEANET_FAMILIES])
     bf16_poly = {"decode_dtype": torch.bfloat16,
                  "decode_precision": "default", "snake_poly": True}
     exact = {"decode_dtype": torch.float32, "decode_precision": "exact",
@@ -84,8 +95,15 @@ def test_listed_families_and_their_tiers():
         assert apply_serving_preset("dac", "fast", batch) == bf16_poly
     assert apply_serving_preset("bigcodec") == bf16_poly
     assert apply_serving_preset("bigcodec", "fast") == bf16_poly
-    for family in SERVING_PRESETS:
+    for family in ("dac", "bigcodec"):
         assert apply_serving_preset(family, "exact") == exact
+    bf16 = {"decode_dtype": torch.bfloat16, "decode_precision": "default"}
+    for family in SEANET_FAMILIES:  # fast is balanced; batch selects nothing
+        for quality in ("balanced", "fast"):
+            for batch in _BATCHES:
+                assert apply_serving_preset(family, quality, batch) == bf16
+        assert apply_serving_preset(family, "exact") == {
+            "decode_dtype": torch.float32, "decode_precision": "exact"}
     with pytest.raises(ValueError, match="quality"):
         apply_serving_preset("dac", "turbo")
     with pytest.raises(ValueError, match="quality"):
@@ -120,3 +138,50 @@ def test_every_preset_builds_its_codec(quality, batch):
                for u in big.encoder.modules() if hasattr(u, "dilation"))
     with pytest.raises(ValueError, match="one bf16 pass"):
         DecodeForm(torch.bfloat16, "exact")
+
+
+def _small_codec(family, **kw):
+    """``family`` at a small config on the CPU, built with ``kw``."""
+    from audiocodecs_tpu_torch.models import get_codec_class
+
+    cls = get_codec_class(family)
+    small = dict(num_filters=4, upsampling_ratios=(2, 2), hidden_size=8,
+                 num_lstm_layers=1)
+    if family == "encodec":
+        from audiocodecs_tpu_torch.models.encodec import EncodecModelConfig
+
+        mc = EncodecModelConfig(codebook_size=16, codebook_dim=8,
+                                num_quantizers=2, **small)
+        return cls(24000, 24000, num_codebooks=2, model_config=mc,
+                   device="cpu", **kw)
+    if family == "past":
+        from audiocodecs_tpu_torch.models.seanet_rvq import SEANetRVQConfig
+
+        mc = SEANetRVQConfig(codebook_size=16, codebook_dim=8,
+                             num_quantizers=2, **small)
+        return cls(16000, 16000, num_codebooks=2, model_config=mc,
+                   device="cpu", **kw)
+    if family == "speechtokenizer":
+        from audiocodecs_tpu_torch.models.speechtokenizer import (
+            SpeechTokenizerModelConfig)
+
+        mc = SpeechTokenizerModelConfig(codebook_size=16, codebook_dim=8,
+                                        num_quantizers=2, **small)
+        return cls(16000, 16000, num_codebooks=2, model_config=mc,
+                   device="cpu", **kw)
+    return cls(cls.default_model_config().sampling_rate, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("quality", ["exact", "balanced"])
+@pytest.mark.parametrize("family", ["encodec", "past", "speechtokenizer"])
+def test_every_seanet_preset_builds_its_codec(family, quality):
+    """The arguments build the SEANet families: the decoder stack takes the
+    tier's form, the encoder stack stays exact fp32; an unknown encoder
+    precision is refused."""
+    kw = apply_serving_preset(family, quality)
+    codec = _small_codec(family, **kw)
+    assert codec.decode_form == DecodeForm(*kw.values())
+    assert codec.decoder.form == codec.decode_form
+    assert codec.encoder.form == DecodeForm() == codec.encode_form
+    with pytest.raises(ValueError, match="encode_precision"):
+        _small_codec(family, encode_precision="high")

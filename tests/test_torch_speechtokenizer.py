@@ -179,3 +179,40 @@ def test_full_width_features_and_tokens(rng):
     tt = tc.sig_to_toks(sig).numpy()
     assert tt.shape == jt.shape == (1, 25, 8)
     assert (tt == jt).mean() >= 0.99
+
+
+def _same_weights(jc, tc, K):
+    """Makers of a fresh reference codec (a new trace) and of the port's,
+    with ``tc``'s weights and the given constructor arguments."""
+    sr = tc.sample_rate
+
+    def make_j():
+        return type(jc)(sr, sr, num_codebooks=K, model_config=jc.model_config,
+                        params=jc.params)
+
+    def make_t(**kw):
+        return type(tc)(sr, sr, num_codebooks=K, model_config=tc.model_config,
+                        state_dict=tc.state_dict(), device="cpu", **kw)
+
+    return make_j, make_t
+
+
+def test_serving_tier_matches_the_reference(small_pair, rng):
+    """SpeechTokenizer's balanced tier: a bf16 decoder whose non-causal
+    blocks take the unfused path and whose LSTM is an fp32 island, against
+    the reference's under its switches (``_ENCODEC_STYLE`` and the wide
+    decoder LSTM, which the port's recurrence kernel covers in every tier;
+    ``tests/seanet_tier.py``)."""
+    from seanet_tier import check_family_tier
+
+    jc, tc = small_pair
+    tt, _ = check_family_tier("speechtokenizer", jc, tc,
+                              *_same_weights(jc, tc, 4), _sig(rng, 2, 2000))
+    assert tt.decoder.form.dtype == torch.bfloat16 and tt.encoder.form.exact
+
+
+def test_encode_precision_default_matches_the_reference(small_pair, rng):
+    from seanet_tier import check_encode_precision
+
+    jc, tc = small_pair
+    check_encode_precision(jc, *_same_weights(jc, tc, 4), _sig(rng, 2, 2000))

@@ -313,3 +313,40 @@ def test_bridge_layouts_of_the_head(rng):
                       ("blocks.0.gamma", jp["blocks"][0]["gamma"]),
                       ("adanorm_in.scale", jp["adanorm_in"]["scale"])):
         np.testing.assert_array_equal(sd[key].numpy(), leaf)
+
+
+@pytest.mark.parametrize("family", ["wavtokenizer", "encodec"])
+def test_encodec_style_tier_changes_nothing_under_vocos(encodec_vocos, rng,
+                                                        family):
+    """WavTokenizer and EnCodec + Vocos decode through a Vocos head, which
+    reads no activation dtype in the reference: under ``_ENCODEC_STYLE``'s
+    switches the reference's decode is its exact one, bit for bit, and the
+    port's tier codec decodes as its exact one, bit for bit, within 1e-4 of
+    the reference."""
+    from seanet_tier import reference_tier
+
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
+
+    jc, tc = _wt_pair() if family == "wavtokenizer" else encodec_vocos
+    sig = (rng.standard_normal((2, 400)) * 0.3).astype(np.float32)
+    toks = np.asarray(jc.sig_to_toks(sig))
+    j_exact = np.asarray(jc.toks_to_sig(toks))
+    kw = apply_serving_preset(family)
+    assert kw["decode_dtype"] == torch.bfloat16
+    sr = tc.sample_rate
+    extra = {} if family == "wavtokenizer" else dict(
+        num_codebooks=8, use_vocos=True, vocos_config=tc.vocos_config)
+    tier = type(tc)(sr, sr, model_config=tc.model_config, device="cpu",
+                    state_dict=tc.state_dict(), **extra, **kw)
+    with reference_tier(family):
+        jt = type(jc)(sr, sr, model_config=jc.model_config, params=jc.params,
+                      **({} if family == "wavtokenizer" else dict(
+                          num_codebooks=8, use_vocos=True,
+                          vocos_config=jc.vocos_config)))
+        np.testing.assert_array_equal(np.asarray(jt.sig_to_toks(sig)), toks)
+        j_tier = np.asarray(jt.toks_to_sig(toks))
+    np.testing.assert_array_equal(j_tier, j_exact)
+    np.testing.assert_array_equal(tier.sig_to_toks(sig).numpy(), toks)
+    got = tier.toks_to_sig(toks)
+    assert torch.equal(got, tc.toks_to_sig(toks))
+    _close(got.numpy(), j_tier, 1e-4)
