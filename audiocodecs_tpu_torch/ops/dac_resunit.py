@@ -56,7 +56,7 @@ from audiocodecs_tpu_torch.ops._autograd import recompute_vjp
 
 __all__ = ["FORMS", "PRECISIONS", "dac_resunit", "dac_resunit_info",
            "dac_resunit_reference", "dac_resunit_stages", "default_errors",
-           "default_head", "default_tail", "form_name",
+           "default_head", "default_tail", "form_name", "operand_offsets",
            "pack_resunit_weights", "snake"]
 
 MAX_CHANNELS = 256  # the widest unit the kernel takes
@@ -72,9 +72,13 @@ FORMS = ("exact", "exact_poly", "default_f32", "default_poly_f32",
 # 232448 bytes on Hopper.
 _TILE, _CHUNK, _STAGES, _SMEM_LIMIT = 128, 8, 2, 232448
 # The default form's (mma::Layout): chunks of 16 input channels, output
-# channels padded to one of _MMA_CHANNELS, a window of at most 256 rows.
+# channels padded to one of _MMA_CHANNELS, a window of at most 256 rows,
+# a weight ring of _MMA_STAGES[cp] stages, two consumer warpgroups, and a
+# window ring in the rest of the block's shared memory (at most 16).
 _MMA_CHUNK, _MMA_MAX_WINDOW = 16, 256
-_MMA_CHANNELS = (64, 96, 192, 256)
+_MMA_CHANNELS = (48, 96, 192, 256)
+_MMA_STAGES = {48: 4, 96: 4, 192: 3, 256: 2}
+_MMA_CONSUMERS, _MMA_MAX_WINDOWS = 2, 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -120,29 +124,43 @@ def _padded_inputs(C: int) -> int:
     return _CHUNK * -(-C // _CHUNK)
 
 
+def _window_rows(dilation: int) -> int:
+    """Rows of a window plane of the default form's ring: 128 + 6d rounded
+    up to whole 8-row core matrices (csrc: ``mma::Layout::rows``)."""
+    return (_TILE + 6 * dilation + 7) // 8 * 8
+
+
 def _smem_bytes(C: int, dilation: int, precision: str = "exact") -> int:
     """Shared memory of a block. Exact (csrc: ``Layout::floats``): the k7
     ring or h plus the w1 ring, whichever is larger. Default (csrc:
-    ``mma::Layout::bytes``): two stages of k7 fragments and two windows, or
-    h2 and the w1 ring."""
+    ``mma::Layout::bytes``): biases and alphas as fp32 and the barriers,
+    the weight ring (a chunk's 7 taps a stage), a staging buffer of 64
+    samples x CP bf16 for each consumer warpgroup, and as many window
+    stages (two planes of 16-byte rows each) as the rest holds, at most
+    16."""
     if precision == "default":
         cp = _mma_channels(C)
-        ring = 2 * 7 * cp * 32 + 2 * (_TILE + 6 * dilation) * 32
-        return max(ring, _TILE * (2 * cp + 16) + 2 * cp * 32)
+        fixed = (16 * cp + 512 + _MMA_STAGES[cp] * 7 * cp * 32
+                 + _MMA_CONSUMERS * 128 * cp)
+        window = 32 * _window_rows(dilation)
+        return fixed + window * min(_MMA_MAX_WINDOWS,
+                                    (_SMEM_LIMIT - fixed) // window)
     Cp = _padded_channels(C)
     stride = (_TILE + 6 * dilation + 3) // 4 * 4
     ring = _STAGES * (_CHUNK * 7 * Cp + _CHUNK * stride)
     return 4 * max(ring, Cp * _TILE + _STAGES * _CHUNK * Cp)
 
 
-def _fragment_index():
-    """Row and column in a 16 × 16 tile of the 8 bf16 values that lane l
-    holds of mma.m16n8k16's A fragment (PTX ISA), as two [32, 8] tensors."""
-    lane = torch.arange(32)[:, None]
-    e = torch.arange(8)[None, :]
-    rows = lane // 4 + 8 * ((e // 2) % 2)
-    cols = 2 * (lane % 4) + e % 2 + 8 * (e // 4)
-    return rows, cols
+def operand_offsets(rows: int, lbo: int, sbo: int) -> torch.Tensor:
+    """Byte offsets from a wgmma descriptor's start address of the
+    ``rows`` x 16 bf16 elements of a K-major operand without swizzle (csrc:
+    ``mma::make_desc``), as a [rows, 16] tensor: 8-row x 16-byte core
+    matrices, ``sbo`` bytes apart along the rows, ``lbo`` apart along K,
+    so element (r, c) lies at (r // 8)·sbo + (r % 8)·16 + (c // 8)·lbo +
+    (c % 8)·2."""
+    r = torch.arange(rows)[:, None]
+    c = torch.arange(16)[None, :]
+    return (r // 8) * sbo + (r % 8) * 16 + (c // 8) * lbo + (c % 8) * 2
 
 
 def pack_resunit_weights(w7: torch.Tensor, w1: torch.Tensor,
@@ -155,27 +173,26 @@ def pack_resunit_weights(w7: torch.Tensor, w1: torch.Tensor,
     channels zero-padded to ``Kp = 8·⌈C/8⌉`` and output channels to ``Cp``
     (96, 192 or 256 by C).
 
-    Default: bf16 (rounded to nearest even) in the MMA's A-fragment order,
-    ``w7f [nq, 7, CP/16, 32, 8]`` and ``w1f [nq, CP/16, 32, 8]``: chunk q of
-    16 input channels, tap k, m-tile t, lane l holds the 8 values of
-    :func:`_fragment_index` of the 16 × 16 tile ``w7[16t:, 16q:, k]`` (and
-    ``w1[16t:, 16q:, 0]``); ``nq = ⌈C/16⌉``, output channels zero-padded to
-    CP (64, 96, 192 or 256 by C)."""
+    Default: bf16 (rounded to nearest even) as wgmma's B operand, K-major
+    without swizzle: ``w7f [nq, 7, 2, CP, 8]`` with ``w7f[q, k, h, o, e] =
+    w7[o, 16q + 8h + e, k]`` and ``w1f [nq, 2, CP, 8]`` with ``w1f[q, h, o,
+    e] = w1[o, 16q + 8h + e, 0]``; ``nq = ⌈C/16⌉``, input channels
+    zero-padded to 16·nq and output channels to CP (48, 96, 192 or 256 by
+    C). A chunk's 7 taps are one contiguous block of 7·CP·32 bytes, which
+    the kernel copies into a ring stage at once; each tap (and each chunk
+    of w1) is a CP-row operand with LBO = CP·16 and SBO = 128 bytes
+    (:func:`operand_offsets`)."""
     C = w7.shape[0]
     with torch.no_grad():
         if precision == "default":
             cp, nq = _mma_channels(C), -(-C // _MMA_CHUNK)
-            mt = cp // 16
-            rows, cols = _fragment_index()
-            rows, cols = rows.to(w7.device), cols.to(w7.device)
             w7p = w7.new_zeros(cp, 16 * nq, 7, dtype=torch.bfloat16)
             w7p[:C, :C] = w7.to(torch.bfloat16)
-            tiles = w7p.view(mt, 16, nq, 16, 7).permute(2, 4, 0, 1, 3)
             w1p = w1.new_zeros(cp, 16 * nq, dtype=torch.bfloat16)
             w1p[:C, :C] = w1[:, :, 0].to(torch.bfloat16)
-            tiles1 = w1p.view(mt, 16, nq, 16).permute(2, 0, 1, 3)
-            packed = (tiles[:, :, :, rows, cols].contiguous(),
-                      tiles1[:, :, rows, cols].contiguous())
+            packed = (
+                w7p.view(cp, nq, 2, 8, 7).permute(1, 4, 2, 0, 3).contiguous(),
+                w1p.view(cp, nq, 2, 8).permute(1, 2, 0, 3).contiguous())
         else:
             Kp, Cp = _padded_inputs(C), _padded_channels(C)
             w7p = w7.new_zeros(Kp, 7, Cp)
@@ -192,8 +209,8 @@ pack_resunit_weights.packs = 0  # layouts built in this process
 
 def _packed_shapes(C: int, precision: str):
     if precision == "default":
-        nq, mt = -(-C // _MMA_CHUNK), _mma_channels(C) // 16
-        return (nq, 7, mt, 32, 8), (nq, mt, 32, 8)
+        nq, cp = -(-C // _MMA_CHUNK), _mma_channels(C)
+        return (nq, 7, 2, cp, 8), (nq, 2, cp, 8)
     Kp, Cp = _padded_inputs(C), _padded_channels(C)
     return (Kp, 7, Cp), (Kp, Cp)
 
@@ -252,9 +269,14 @@ def default_head(x, w7, b7, alpha1, alpha2, dilation: int,
     The k7 conv is ``F.conv1d`` in fp32 (TF32 off) on the rounded
     operands, whose products are exact in fp32."""
     h = _bf16(snake(x, alpha1, snake_poly))
+    return _head_from(h, _bf16(w7), b7, alpha2, dilation, snake_poly)
+
+
+def _head_from(h, w7b, b7, alpha2, dilation: int, snake_poly: bool):
+    """:func:`default_head` from its rounded operands on: ``h`` (bf16
+    values as float32, [B, C, T]) and ``w7b`` (bf16 values, [C, C, 7])."""
     with exact_fp32():
-        v = F.conv1d(h, _bf16(w7), None, padding=3 * dilation,
-                     dilation=dilation)
+        v = F.conv1d(h, w7b, None, padding=3 * dilation, dilation=dilation)
     v = v + b7.float()[:, None]
     return snake(v, alpha2.float(), snake_poly).to(torch.bfloat16)
 

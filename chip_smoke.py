@@ -2511,12 +2511,12 @@ def _device_us(evt) -> float:
 
 
 # The profiler holds no device record of the first kernel launches of a
-# session: none in a fresh process, 17 after a whole run of this script
+# session: none in a fresh process, 17 to 271 late in a run of this script
 # (H100, torch 2.11); neither 0.2 s of idle time nor a session just before
 # it changed that. So a profiled run starts after this many launches of a
 # spin kernel of its own name, and only the launches inside the run's own
 # range are its.
-PROFILE_WARMUP_LAUNCHES = 256
+PROFILE_WARMUP_LAUNCHES = 1024
 _WARMUP_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 _RUN_RANGE = "chip_smoke.profiled_run"
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",

@@ -394,11 +394,17 @@ _NEW_FORMS = [("exact", True, torch.float32),
               ("default", True, torch.float32),
               ("default", False, torch.bfloat16),
               ("default", True, torch.bfloat16)]
-# every tile of the default form (CP = 64, 96, 192, 256), C off the
-# 16-channel chunk, ragged T, T < 6d, the widest window it takes (d = 21)
+# every tile of the default form (CP = 48, 96, 192, 256), C off the
+# 16-channel chunk, ragged T, T < 6d, the widest window it takes (d = 21),
+# and chip_smoke.py's four odd shapes (DAC_UNIT_EXTRA)
 _FORM_SHAPES = [(2, 8, 20, 9), (1, 40, 3000, 3), (2, 96, 1001, 9),
                 (1, 120, 515, 1), (1, 192, 4099, 1), (1, 200, 700, 21),
-                (1, 256, 4097, 9)]
+                (1, 256, 4097, 9), (3, 96, 1001, 9), (1, 200, 4099, 9)]
+# the default form's persistent grid (one block an SM walking the tiles):
+# fewer tiles than SMs, and tile counts that are no multiple of the grid
+_GRID_SHAPES = [(1, 192, 1000, 3), (1, 96, 128 * 133 + 5, 1),
+                (3, 48, 128 * 88 + 1, 9), (2, 256, 128 * 140, 9)]
+_ONE_PASS = [f for f in _NEW_FORMS if f[0] == "default"]
 # DAC-44.1k's six decoder units at B = 1 x 10 s, BigCodec-16k's nine at
 # B = 8 x 10 s
 _MODEL_UNITS = [(1, 192, 220416, d) for d in (1, 3, 9)] + [
@@ -456,16 +462,29 @@ def test_dac_resunit_forms_at_the_models_unit_shapes(dev, B, C, T, d,
     _check_form(x, args, d, precision, poly)
 
 
+@pytest.mark.parametrize("precision,poly,dtype", _ONE_PASS)
+@pytest.mark.parametrize("B,C,T,d", _GRID_SHAPES)
+def test_dac_resunit_default_form_on_a_persistent_grid(dev, B, C, T, d,
+                                                       precision, poly,
+                                                       dtype):
+    x, args = _form_case(dev, B, C, T, d, dtype)
+    _check_form(x, args, d, precision, poly)
+
+
 @pytest.mark.parametrize("precision,poly,dtype", _NEW_FORMS)
 def test_dac_resunit_form_occupancy_info(dev, precision, poly, dtype):
-    """Registers, spill bytes, shared bytes and blocks an SM of every
-    instance a form launches at the decoders' widths and dilations."""
+    """Registers, local (spill) bytes, shared bytes and blocks an SM of
+    every instance a form launches at the decoders' widths and dilations;
+    the one-pass instances spill nothing."""
     for C in (8, 48, 96, 120, 192, 256):
         for d in (1, 3, 9):
             info = dac_resunit_info(C, d, precision, poly, dtype)
             assert info["smem_bytes"] == _smem_bytes(C, d, precision)
             assert 0 < info["regs"] <= 255
             assert info["local_bytes"] >= 0
+            if precision == "default":  # no spills; the sin instances
+                # keep sinf's 32-byte slow-path array in local memory
+                assert info["local_bytes"] == (0 if poly else 32), info
             assert info["blocks_per_sm"] >= 1
 
 

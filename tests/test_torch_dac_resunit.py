@@ -19,6 +19,8 @@ The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -31,16 +33,22 @@ from audiocodecs_tpu.ops.dac_resunit_pallas import _snake as j_kernel_snake
 from audiocodecs_tpu.ops.dac_resunit_pallas import dac_resunit_pallas
 from audiocodecs_tpu_torch.models.dac import DecodeForm, ResidualUnit
 from audiocodecs_tpu_torch.models.dac import snake as model_snake
+from audiocodecs_tpu_torch.nn.layers import exact_fp32
+from audiocodecs_tpu_torch.ops._build import CSRC
 from audiocodecs_tpu_torch.ops.dac_resunit import (
     FORMS,
+    _bf16,
     _check,
-    _fragment_index,
+    _head_from,
+    _mma_channels,
+    _window_rows,
     dac_resunit,
     dac_resunit_reference,
     dac_resunit_stages,
     default_errors,
     default_head,
     default_tail,
+    operand_offsets,
     pack_resunit_weights,
     snake,
 )
@@ -379,44 +387,215 @@ def test_plain_default_form_on_bf16_matches_jax_interpret(rng, poly,
     assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
 
 
-def test_fragment_index_is_the_ptx_a_layout():
-    """mma.m16n8k16's A fragment (PTX ISA): lane l = 4g + t holds (g, 2t),
-    (g, 2t+1), (g+8, 2t), (g+8, 2t+1), (g, 2t+8), (g, 2t+9), (g+8, 2t+8),
-    (g+8, 2t+9) of the 16 × 16 tile."""
-    rows, cols = _fragment_index()
-    assert rows[0].tolist() == [0, 0, 8, 8, 0, 0, 8, 8]
-    assert cols[0].tolist() == [0, 1, 0, 1, 8, 9, 8, 9]
-    assert rows[5].tolist() == [1, 1, 9, 9, 1, 1, 9, 9]
-    assert cols[5].tolist() == [2, 3, 2, 3, 10, 11, 10, 11]
-    cells = {(r, c) for r, c in zip(rows.flatten().tolist(),
-                                    cols.flatten().tolist())}
-    assert len(cells) == 256  # every cell of the tile once
+def _kernel_make_desc():
+    """``mma::make_desc`` of ``csrc/dac_resunit.cu`` as a Python function:
+    its return expression with the ``(uint64_t)`` casts dropped is Python."""
+    src = (CSRC / "dac_resunit.cu").read_text()
+    body = re.search(r"uint64_t make_desc\(uint32_t start, uint32_t lbo,\s*"
+                     r"uint32_t sbo\) \{\s*return (.*?);\s*\}", src, re.S)
+    expr = "(" + body.group(1).replace("(uint64_t)", "") + ")"
+    return lambda start, lbo, sbo: eval(expr, {}, dict(start=start, lbo=lbo,
+                                                        sbo=sbo))
 
 
-@pytest.mark.parametrize("C,nq,cp", [(5, 1, 64), (40, 3, 64), (96, 6, 96),
+@pytest.mark.parametrize("rows,lbo,sbo", [(64, 2912, 128), (64, 1024, 128),
+                                           (192, 3072, 128)])
+def test_operand_offsets_is_the_wgmma_k_major_layout(rows, lbo, sbo):
+    """wgmma's K-major operand without swizzle, as the PTX ISA defines it
+    (the matrix descriptor and the canonical layouts of its shared-memory
+    operands): 8-row x 16-byte core matrices of 128 contiguous bytes, rows
+    16 bytes apart; the stride byte offset (SBO) between core matrices
+    along M/N, the leading byte offset (LBO) between the two along K. The
+    window (LBO = 16 · its plane rows), h2 (LBO = 1024) and a weight tap at
+    CP = 192 (LBO = 3072). The kernel's descriptor encodes the ISA's fields:
+    start address >> 4 in bits 0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45,
+    no swizzle (bits 62-63 zero); one unit added to the start field moves
+    a window with SBO = 128 on by one row, which is how a tap reads it at
+    a row offset of k·d."""
+    off = operand_offsets(rows, lbo, sbo)
+    assert off.shape == (rows, 16)
+    # the ISA's core matrix 0: element (r, c) at byte 16 r + 2 c
+    assert [off[0, 0], off[0, 7], off[1, 0], off[7, 0], off[7, 7]] == [
+        0, 14, 16, 112, 126]
+    assert sorted(off[:8, :8].flatten().tolist()) == list(range(0, 128, 2))
+    # the next core matrix along M/N at SBO, along K at LBO
+    assert off[8, 0] == sbo and off[0, 8] == lbo
+    assert off[15, 15] == sbo + 112 + lbo + 14
+    assert len(set(off.flatten().tolist())) == rows * 16  # no overlap
+
+    make_desc = _kernel_make_desc()
+    for start in (0, 16, 1024 * 16 + 48):
+        desc = make_desc(start, lbo, sbo)
+        assert desc & 0x3FFF == start >> 4
+        assert (desc >> 16) & 0x3FFF == lbo >> 4
+        assert (desc >> 32) & 0x3FFF == sbo >> 4
+        assert desc >> 62 == 0  # no swizzle
+        for shift in (1, 9, 54):  # k·d rows: the start field + k·d
+            moved = make_desc(start + 16 * shift, lbo, sbo)
+            assert moved == desc + shift
+            if sbo == 128:  # rows contiguous: the shifted operand is the
+                # window's rows k·d on
+                longer = operand_offsets(rows + shift, lbo, sbo)
+                assert torch.equal(longer[shift:], off + 16 * shift)
+
+
+@pytest.mark.parametrize("C,nq,cp", [(5, 1, 48), (40, 3, 48), (96, 6, 96),
                                      (120, 8, 192), (192, 12, 192),
                                      (200, 13, 256)])
 def test_pack_resunit_weights_default_layout(rng, C, nq, cp):
-    """``w7f[q, k, t, l, e] = bf16(w7[16t + r, 16q + c, k])`` and
-    ``w1f[q, t, l, e] = bf16(w1[16t + r, 16q + c, 0])`` with (r, c) the
-    fragment cell of (l, e); zero where (16t + r, 16q + c) lies outside
-    C × C."""
+    """``w7f[q, k, h, o, e] = bf16(w7[o, 16q + 8h + e, k])`` and
+    ``w1f[q, h, o, e] = bf16(w1[o, 16q + 8h + e, 0])``, zero outside
+    C × C; each tap read through its descriptor (start k · CP · 32 bytes
+    into the chunk, LBO = CP · 16, SBO = 128) is the [CP, 16] B operand
+    ``bf16(w7[:, 16q:16q + 16, k])``."""
     w7 = torch.from_numpy(rng.standard_normal((C, C, 7)).astype(np.float32))
     w1 = torch.from_numpy(rng.standard_normal((C, C, 1)).astype(np.float32))
     w7f, w1f = pack_resunit_weights(w7, w1, "default")
-    mt = cp // 16
-    assert w7f.shape == (nq, 7, mt, 32, 8) and w1f.shape == (nq, mt, 32, 8)
+    assert w7f.shape == (nq, 7, 2, cp, 8) and w1f.shape == (nq, 2, cp, 8)
     assert w7f.dtype == w1f.dtype == torch.bfloat16
     assert w7f.is_contiguous() and w1f.is_contiguous()
-    rows, cols = _fragment_index()
     pad7 = torch.zeros(cp, 16 * nq, 7, dtype=torch.bfloat16)
     pad7[:C, :C] = w7.to(torch.bfloat16)
     pad1 = torch.zeros(cp, 16 * nq, dtype=torch.bfloat16)
     pad1[:C, :C] = w1[:, :, 0].to(torch.bfloat16)
-    for q, k, t in ((0, 0, 0), (nq - 1, 6, mt - 1), (nq // 2, 3, mt // 2)):
-        want = pad7[16 * t + rows, 16 * q + cols, k]
-        assert torch.equal(w7f[q, k, t], want)
-        assert torch.equal(w1f[q, t], pad1[16 * t + rows, 16 * q + cols])
+    idx = operand_offsets(cp, cp * 16, 128) // 2
+    for q in (0, nq // 2, nq - 1):
+        chunk = w7f[q].flatten()
+        for k in range(7):
+            want = pad7[:, 16 * q:16 * q + 16, k]
+            assert torch.equal(chunk[k * cp * 16 + idx], want)
+            assert torch.equal(w7f[q, k].permute(1, 0, 2).reshape(cp, 16),
+                               want)
+        assert torch.equal(w1f[q].flatten()[idx], pad1[:, 16 * q:16 * q + 16])
+
+
+def _gather(flat, start: int, rows: int, lbo: int, sbo: int):
+    """The [..., rows, 16] operand that a descriptor (start, LBO, SBO, in
+    bytes) reads from ``flat`` [..., bf16 elements]."""
+    return flat[..., (start + operand_offsets(rows, lbo, sbo)) // 2]
+
+
+def _emulate_operands(x, w7, b7, alpha1, w1, b1, alpha2, d, poly):
+    """The default form's operands as the kernel addresses them
+    (``csrc/dac_resunit.cu``, namespace ``mma``), in torch on the CPU.
+
+    The transform warps' window of chunk q of tile (b, t0): unit
+    u = h·W + j (W = 128 + 6d) holds bf16(snake(x[b, 16q + 8h + e, p],
+    α1)) at p = t0 − 3d + j, zero where p is outside [0, T) or the channel
+    ≥ C, at byte (h · rows + j) · 16 + 2e of the stage's window; rows past
+    W are never written (NaN here, so a read of one shows). Consumer
+    warpgroup wg reads tap k through the descriptor (start (64·wg + k·d) ·
+    16, LBO = rows · 16, SBO = 128), and the tap's weights from the packed
+    chunk (start k · CP · 32, LBO = CP · 16, SBO = 128). h2 is written at
+    ((m // 8) · 64 + t) · 16 + 2 (m % 8) of a warpgroup's staging buffer
+    and read by chunk j at start j · 2048 (LBO = 1024, SBO = 128), beside
+    w1's chunk j from its ring stage.
+
+    Returns, for each tile, warpgroup, chunk and tap, the A and B operands
+    of the k7, the sums of both convs in float64, and what the 1×1 reads
+    of h2 (from the plain h2, as the kernel's own h2 is checked on the
+    card)."""
+    B, C, T = x.shape
+    cp, nq = _mma_channels(C), -(-C // 16)
+    W, rows = 128 + 6 * d, _window_rows(d)
+    ntt = -(-T // 128)
+    h_full = _bf16(snake(x, alpha1, poly))  # elementwise: the transform's
+    u = torch.arange(2 * W)
+    hh, j = (u >= W).long(), u - (u >= W).long() * W
+    tiles = torch.arange(B * ntt)
+    b, t0 = tiles // ntt, (tiles % ntt) * 128
+    p = t0[:, None] - 3 * d + j[None, :]  # [tiles, 2W]
+    ok_p = (p >= 0) & (p < T)
+    ch = 16 * torch.arange(nq)[:, None, None] + 8 * hh[None, :, None] + \
+        torch.arange(8)[None, None, :]  # [nq, 2W, 8]
+    ok = ok_p[:, None, :, None] & (ch < C)[None]
+    vals = h_full[b[:, None, None, None], ch.clamp(max=C - 1)[None],
+                  p.clamp(0, T - 1)[:, None, :, None]]
+    vals = torch.where(ok, vals, torch.zeros(()))
+    window = torch.full((B * ntt, nq, 2 * rows * 8), float("nan"))
+    addr = ((hh * rows + j)[:, None] * 16 + 2 * torch.arange(8)) // 2
+    window[:, :, addr] = vals  # [tiles, nq, 2W, 8] into the byte layout
+    w7f, w1f = pack_resunit_weights(w7, w1, "default")
+    a_ops = torch.stack([torch.stack([
+        _gather(window, (64 * wg + k * d) * 16, 64, rows * 16, 128)
+        for k in range(7)], 2) for wg in range(2)], 1)  # [tiles,2,nq,7,64,16]
+    b_ops = torch.stack([_gather(w7f.flatten(1).float(), k * cp * 32, cp,
+                                 cp * 16, 128) for k in range(7)], 1)
+    v = torch.einsum("xwqktc,qkoc->xwto", a_ops.double(), b_ops.double())
+    return {"a": a_ops, "b": b_ops, "v": v, "b_idx": b, "t0": t0,
+            "w1f": w1f, "cp": cp, "nq": nq}
+
+
+@pytest.mark.parametrize("T", [20, 1001, 4099])
+@pytest.mark.parametrize("d", [1, 9])
+@pytest.mark.parametrize("C", [8, 48, 96, 200])
+def test_kernel_operand_addressing_reproduces_default_head(rng, C, d, T):
+    """The kernel's operands, built and read with its own index formulas
+    (``_emulate_operands``: the window's row offset k·d, the zero padding,
+    channels ≥ C, the ragged last tile, tiles over the batch), hold exactly
+    the plain version's rounded operands: h and w7 rebuilt from what the
+    MMAs read give :func:`default_head` bit for bit through its own conv,
+    and h2 and w1 read through the 1×1's descriptors give
+    :func:`default_tail` bit for bit. Their float64 GEMMs agree with the
+    plain convs' fp32 sums (1e-5 relative), h2 within one bf16 ulp."""
+    B = 2 if T <= 1001 else 1
+    p = _unit_params(rng, C)
+    x = _bct(rng.standard_normal((B, T, C)).astype(np.float32))
+    args = _port_args(p)
+    w7, b7, a1, w1, b1, a2 = args
+    for poly in (False, True):
+        em = _emulate_operands(x, *args, d, poly)
+        a_ops, cp, nq = em["a"], em["cp"], em["nq"]
+        assert not torch.isnan(a_ops).any()  # rows past W are never read
+        # h rebuilt from every tap's reads: t = t0 + 64 wg + r + (k - 3) d
+        wg, k, r = torch.meshgrid(torch.arange(2), torch.arange(7),
+                                  torch.arange(64), indexing="ij")
+        t = em["t0"][:, None, None, None] + 64 * wg + r + (k - 3) * d
+        # [tiles, 2, 7, 64]
+        bb = em["b_idx"][:, None, None, None].expand_as(t)
+        vals = a_ops.permute(0, 1, 3, 4, 2, 5).reshape(*t.shape, 16 * nq)
+        inside = (t >= 0) & (t < T)
+        assert not vals[~inside].any()  # the padding reads zeros
+        assert not vals[..., C:].any()  # and so do channels >= C
+        h_rec = torch.full((B, 16 * nq, T), float("nan"))
+        h_rec[bb[inside], :, t[inside]] = vals[inside]
+        # every read of one sample agrees with the others
+        assert torch.equal(h_rec[bb[inside], :, t[inside]], vals[inside])
+        assert not torch.isnan(h_rec).any()  # every sample was read
+        w_rec = em["b"].permute(2, 0, 3, 1).reshape(cp, 16 * nq, 7)
+        h2 = _head_from(h_rec[:, :C], w_rec[:C, :C], b7, a2, d, poly)
+        want = default_head(x, w7, b7, a1, a2, d, poly)
+        assert torch.equal(h2, want)
+        # the k7's sums, in the kernel's tiles, against the plain fp32 conv
+        with exact_fp32():
+            v32 = torch.nn.functional.conv1d(
+                _bf16(snake(x, a1, poly)), _bf16(w7), None, padding=3 * d,
+                dilation=d)
+        v = em["v"].reshape(B, -1, cp)[:, :T, :C].permute(0, 2, 1)
+        scale = float(v32.abs().max())
+        assert float((v - v32.double()).abs().max()) <= 1e-5 * scale
+        # the 1x1: h2 staged per warpgroup, read chunk by chunk
+        ntt = -(-T // 128)
+        h2p = torch.zeros(B, cp, ntt * 128, dtype=torch.bfloat16)
+        h2p[:, :C, :T] = want
+        tiles = h2p.view(B, cp // 8, 8, ntt, 2, 64).permute(0, 3, 4, 1, 5, 2)
+        buf = tiles.reshape(B, ntt, 2, -1)  # ((m // 8) * 64 + t) * 8 + m % 8
+        a1x1 = torch.stack([_gather(buf, j * 2048, 64, 1024, 128)
+                            for j in range(nq)], 3)  # [B, ntt, 2, nq, 64, 16]
+        w1f = em["w1f"].flatten(1)
+        b1x1 = torch.stack([_gather(w1f[j], 0, cp, cp * 16, 128)
+                            for j in range(nq)])  # [nq, cp, 16]
+        h2_rec = a1x1.permute(0, 3, 5, 1, 2, 4).reshape(B, 16 * nq, -1)
+        w1_rec = b1x1.permute(1, 0, 2).reshape(cp, 16 * nq)[:C, :C, None]
+        assert torch.equal(h2_rec[:, :C, :T], want)
+        tail = default_tail(x, h2_rec[:, :C, :T], w1_rec.float(), b1)
+        assert torch.equal(tail, default_tail(x, want, w1, b1))
+        y = torch.einsum("bxwqtc,qoc->bxwto", a1x1.double(), b1x1.double())
+        y = y.reshape(B, -1, cp)[:, :T, :C].permute(0, 2, 1)
+        with exact_fp32():
+            y32 = torch.nn.functional.conv1d(want.float(), _bf16(w1))
+        assert float((y - y32.double()).abs().max()) <= 1e-5 * float(
+            y32.abs().max())
 
 
 def test_default_form_checks_and_dispatch(rng):
