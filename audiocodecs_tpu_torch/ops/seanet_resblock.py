@@ -37,8 +37,9 @@ once and passes as ``packed``.
 :func:`seanet_resblock` launches the kernel for CUDA tensors and runs
 :func:`seanet_resblock_reference` for CPU tensors; there is no other path.
 Its gradient recomputes through the plain version in the same form
-(:class:`_Block`), on both devices. Launches are counted by form:
-``seanet_resblock.launches`` (exact) and
+(:class:`_Block`), on both devices; where no input needs a gradient (or
+grad mode is off) the call runs the same forward without the Function.
+Launches are counted by form: ``seanet_resblock.launches`` (exact) and
 ``seanet_resblock.launches_by_form`` (``"default_f32"``,
 ``"default_bf16"``).
 
@@ -54,7 +55,9 @@ with a zero halo, and counts its launches apart.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -62,11 +65,13 @@ import torch.nn.functional as F
 from audiocodecs_tpu_torch.nn.layers import elu, exact_fp32
 from audiocodecs_tpu_torch.ops import _build
 from audiocodecs_tpu_torch.ops._autograd import recompute_vjp
+from audiocodecs_tpu_torch.ops.dac_resunit import operand_offsets
 
 __all__ = ["DEFAULT_FORMS", "PRECISIONS", "default_errors", "default_head",
            "default_k3", "default_tail", "form_name",
-           "pack_resblock_weights", "seanet_resblock",
-           "seanet_resblock_info", "seanet_resblock_reference",
+           "operand_offsets", "pack_resblock_weights", "seanet_resblock",
+           "seanet_resblock_elu_check", "seanet_resblock_info",
+           "seanet_resblock_reference",
            "seanet_resblock_packed", "seanet_resblock_packed_reference",
            "seanet_resblock_stages"]
 
@@ -103,6 +108,9 @@ def _lib():
         lib.seanet_resblock_default_info.argtypes = (
             [_I] * 3 + [ctypes.POINTER(_I)] * 5)
         lib.seanet_resblock_default_info.restype = _I
+        lib.seanet_resblock_elu_check.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(ctypes.c_uint)]
+        lib.seanet_resblock_elu_check.restype = _I
         lib.seanet_resblock_error_string.argtypes = [_I]
         lib.seanet_resblock_error_string.restype = ctypes.c_char_p
         _lib_cache.append(lib)
@@ -147,33 +155,65 @@ def form_name(precision: str, dtype=torch.float32) -> str:
     return "default_bf16" if dtype == torch.bfloat16 else "default_f32"
 
 
-def _b_fragment_index():
-    """Row (k) and column (n) in a 16 × 8 tile of the 4 bf16 values that
-    lane l holds of mma.m16n8k16's B fragment (PTX ISA: b0 holds rows
-    2·(l % 4) and + 1, b1 the same + 8, all of column l // 4), as two
-    [32, 4] tensors."""
-    lane = torch.arange(32)[:, None]
-    e = torch.arange(4)[None, :]
-    return 2 * (lane % 4) + e % 2 + 8 * (e // 2), (lane // 4).expand(32, 4)
+# The one-pass kernel's instances (csrc: mma::Cfg, mma::pick): the first
+# row with C <= CP and Hc <= HP. Each: (CP, HP, NP1 hidden channels a k3
+# pass, NP2 output channels a 1x1/shortcut pass, blocks an SM, op stages,
+# weights resident, channels a raw tile). Items are 64 samples; K chunks
+# 16 channels; raw tiles 72 samples; streamed weights in stages of
+# 12,288 bytes.
+_MMA_TILES = ((32, 16, 16, 32, 2, 2, True, 32),
+              (64, 32, 32, 32, 2, 2, True, 64),
+              (128, 64, 64, 64, 1, 2, True, 64),
+              (256, 128, 64, 64, 1, 2, False, 32),
+              (MAX_CHANNELS, MAX_CHANNELS, 64, 64, 1, 1, False, 32))
+_MMA_TILE, _MMA_ROWS, _MMA_CHUNK, _MMA_WSTAGE = 64, 72, 16, 12288
+_SMEM_LIMIT, _SMEM_SM = 232448, 233472
 
 
-def _round16(n: int) -> int:
-    return 16 * -(-n // 16)
+def _mma_tile(C: int, Hc: int):
+    """The one-pass instance for (C, Hc): (CP, HP, NP1, NP2, MINB, SO,
+    RES, RC)."""
+    if C > MAX_CHANNELS or Hc > MAX_CHANNELS:
+        raise ValueError(f"kernel takes C, Hc <= {MAX_CHANNELS}, got "
+                         f"C={C}, Hc={Hc}")
+    return next(t for t in _MMA_TILES if C <= t[0] and Hc <= t[1])
 
 
-def _b_fragments(mat: torch.Tensor) -> torch.Tensor:
-    """``mat [..., K, N]`` (K input channels, N output channels) as bf16 B
-    fragments ``[..., K/16, N/8, 32, 4]``: zero-padded to K a multiple of
-    16 and N of 8; chunk q, n-tile t, lane l holds the 4 values of
-    :func:`_b_fragment_index` of the tile ``mat[16q:, 8t:]``."""
-    *lead, K, N = mat.shape
-    kp, np_ = _round16(K), 8 * -(-N // 8)
-    padded = mat.new_zeros(*lead, kp, np_, dtype=torch.bfloat16)
-    padded[..., :K, :N] = mat.to(torch.bfloat16)
-    rows, cols = (t.to(mat.device) for t in _b_fragment_index())
-    tiles = padded.view(*lead, kp // 16, 16, np_ // 8, 8)
-    tiles = tiles.movedim(-3, -2)  # [..., K/16, N/8, 16, 8]
-    return tiles[..., rows, cols].contiguous()
+def _mma_layout(C: int, Hc: int, dtype=torch.float32) -> dict:
+    """The one-pass instance's shared-memory layout (csrc: ``mma::Cfg``):
+    raw ring stages ``SR``, weight ring stages ``SW`` (0: resident) and the
+    block's bytes ``smem``, besides the instance's row."""
+    CP, HP, NP1, NP2, MINB, SO, RES, RC = _mma_tile(C, Hc)
+    esize = 2 if dtype == torch.bfloat16 else 4
+    budget = _SMEM_LIMIT if MINB == 1 else _SMEM_SM // MINB - 1024
+    consts = -(-4 * (HP + 2 * CP) // 128) * 128
+    wres = 8 * HP * CP + 2 * CP * CP if RES else 0
+    op = (_MMA_ROWS + _MMA_TILE) * CP * 2
+    fixed = (256 + consts + wres + SO * op + _MMA_TILE * HP * 2
+             + NP2 * _MMA_TILE * 4)
+    raw = RC * _MMA_ROWS * esize
+    SR = min(4, (budget - fixed) // raw) if RES else 2
+    SW = 0 if RES else min(8, (budget - fixed - SR * raw) // _MMA_WSTAGE)
+    return {"CP": CP, "HP": HP, "NP1": NP1, "NP2": NP2, "MINB": MINB,
+            "SO": SO, "RES": RES, "RC": RC, "SR": SR, "SW": SW,
+            "smem": fixed + SR * raw + SW * _MMA_WSTAGE}
+
+
+def _k_major(mat: torch.Tensor, n_pad: int, nk: int) -> torch.Tensor:
+    """``mat [N, K, taps]`` (output channels, input channels, taps) as
+    bf16 wgmma B operands, K-major without swizzle, ``[⌈N/n_pad⌉, nk,
+    taps, 2, n_pad, 8]``: passes of ``n_pad`` output channels, ``nk``
+    chunks of 16 input channels, the taps, then a chunk's two planes of 8
+    input channels, a 16-byte row an output channel. Element (o, c, tap)
+    lies at ``[o // n_pad, c // 16, tap, (c // 8) % 2, o % n_pad,
+    c % 8]``; zero past the matrix."""
+    N, K, taps = mat.shape
+    passes = -(-N // n_pad)
+    padded = mat.new_zeros(passes * n_pad, 16 * nk, taps,
+                           dtype=torch.bfloat16)
+    padded[:N, :K] = mat.to(torch.bfloat16)
+    return padded.view(passes, n_pad, nk, 2, 8, taps).permute(
+        0, 2, 5, 3, 1, 4).contiguous()
 
 
 def pack_resblock_weights(w1: torch.Tensor, w2: torch.Tensor,
@@ -187,15 +227,22 @@ def pack_resblock_weights(w1: torch.Tensor, w2: torch.Tensor,
     zero-padded to multiples of 8 (``Kp``, ``Khp``), output channels to the
     tile's ``M1p`` and ``Cp``.
 
-    Default: bf16 (rounded to nearest even) B fragments of mma.m16n8k16
-    (:func:`_b_fragments`): ``w1f [3, ⌈C/16⌉, ⌈Hc/8⌉, 32, 4]`` of the
-    matrices ``w1[:, :, k].T`` (tap k), ``w2f [⌈Hc/16⌉, ⌈C/8⌉, 32, 4]`` of
-    ``w2[:, :, 0].T`` and ``wsf [⌈C/16⌉, ⌈C/8⌉, 32, 4]`` of
-    ``ws[:, :, 0].T``."""
+    Default: bf16 (rounded to nearest even) as wgmma's B operand, K-major
+    without swizzle (:func:`_k_major`), in the instance's passes
+    (:func:`_mma_tile`): ``w1f [⌈Hc/NP1⌉, ⌈C/16⌉, 3, 2, NP1, 8]`` with
+    ``w1f[p, q, k, h, n, e] = w1[NP1 p + n, 16q + 8h + e, k]``,
+    ``w2f [⌈C/NP2⌉, ⌈Hc/16⌉, 1, 2, NP2, 8]`` of ``w2`` and
+    ``wsf [⌈C/NP2⌉, ⌈C/16⌉, 1, 2, NP2, 8]`` of ``ws`` likewise. A
+    chunk's tap is the [NP, 16] operand at LBO = NP · 16, SBO = 128 bytes
+    (:func:`operand_offsets`); the three tensors back to back (w1f, wsf,
+    w2f) are the kernel's resident weights."""
     with torch.no_grad():
         if precision == "default":
-            packed = (_b_fragments(w1.permute(2, 1, 0)),
-                      _b_fragments(w2[:, :, 0].T), _b_fragments(ws[:, :, 0].T))
+            Hc, C = w1.shape[:2]
+            _, _, NP1, NP2 = _mma_tile(C, Hc)[:4]
+            nq, nqh = -(-C // _MMA_CHUNK), -(-Hc // _MMA_CHUNK)
+            packed = (_k_major(w1, NP1, nq), _k_major(w2, NP2, nqh),
+                      _k_major(ws, NP2, nq))
         else:
             Hc, C = w1.shape[:2]
             Kp, Khp, M1p, Cp = _layout(C, Hc)
@@ -213,10 +260,14 @@ def pack_resblock_weights(w1: torch.Tensor, w2: torch.Tensor,
 pack_resblock_weights.packs = 0  # layouts built in this process
 
 
+@functools.lru_cache(maxsize=None)
 def _packed_shapes(C: int, Hc: int, precision: str):
     if precision == "default":
-        nq, nh, t1, t2 = -(-C // 16), -(-Hc // 16), -(-Hc // 8), -(-C // 8)
-        return (3, nq, t1, 32, 4), (nh, t2, 32, 4), (nq, t2, 32, 4)
+        _, _, NP1, NP2 = _mma_tile(C, Hc)[:4]
+        nq, nqh = -(-C // _MMA_CHUNK), -(-Hc // _MMA_CHUNK)
+        p1, p2 = -(-Hc // NP1), -(-C // NP2)
+        return ((p1, nq, 3, 2, NP1, 8), (p2, nqh, 1, 2, NP2, 8),
+                (p2, nq, 1, 2, NP2, 8))
     Kp, Khp, M1p, Cp = _layout(C, Hc)
     return (Kp, 3, M1p), (Khp, Cp), (Kp, Cp)
 
@@ -284,7 +335,8 @@ def _check_form(x, precision):
 
 
 def _check(x, halo, w1, b1, w2, b2, ws, bs, packed=None, precision="exact"):
-    """What the kernel does not take raises here, before any launch."""
+    """What the kernel does not take raises here, before any launch (one
+    pass over the tensors: it runs before every launch)."""
     _check_form(x, precision)
     if x.ndim != 3:
         raise ValueError(f"x must be [B, C, T], got {tuple(x.shape)}")
@@ -295,30 +347,29 @@ def _check(x, halo, w1, b1, w2, b2, ws, bs, packed=None, precision="exact"):
     if C > MAX_CHANNELS or Hc > MAX_CHANNELS:
         raise ValueError(f"kernel takes C <= {MAX_CHANNELS} (and Hc <= "
                          f"{MAX_CHANNELS}), got C={C}, Hc={Hc}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x: kernel takes float32 or bfloat16, got {x.dtype}")
-    shapes = {"x": (x, (B, C, T)), "halo": (halo, (B, C, 2)),
-              "w1": (w1, (Hc, C, 3)), "b1": (b1, (Hc,)),
-              "w2": (w2, (C, Hc, 1)), "b2": (b2, (C,)),
-              "ws": (ws, (C, C, 1)), "bs": (bs, (C,))}
-    dtypes = dict.fromkeys(shapes, x.dtype)
+    dtype, device = x.dtype, x.device
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x: kernel takes float32 or bfloat16, got {dtype}")
+    named = [("x", x, (B, C, T), dtype), ("halo", halo, (B, C, 2), dtype),
+             ("w1", w1, (Hc, C, 3), dtype), ("b1", b1, (Hc,), dtype),
+             ("w2", w2, (C, Hc, 1), dtype), ("b2", b2, (C,), dtype),
+             ("ws", ws, (C, C, 1), dtype), ("bs", bs, (C,), dtype)]
     if packed is not None:
+        pdtype = (torch.bfloat16 if precision == "default"
+                  else torch.float32)
         for name, t, shape in zip(("w1", "w2", "ws"), packed,
                                   _packed_shapes(C, Hc, precision)):
-            shapes[f"packed {name}"] = (t, shape)
-            dtypes[f"packed {name}"] = (torch.bfloat16
-                                        if precision == "default"
-                                        else torch.float32)
             if t.data_ptr() % 16:  # the kernel copies it in 16-byte pieces
                 raise ValueError(f"packed {name} must be 16-byte aligned")
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
+            named.append((f"packed {name}", t, shape, pdtype))
+    for name, t, shape, want in named:
+        if t.shape != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
-        if t.dtype != dtypes[name]:
-            raise TypeError(f"{name}: kernel takes {dtypes[name]} here, got "
+        if t.dtype != want:
+            raise TypeError(f"{name}: kernel takes {want} here, got "
                             f"{t.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -332,8 +383,13 @@ def _launch(x, halo, w1, b1, w2, b2, ws, bs, packed=None, precision="exact",
     B, C, T = x.shape
     out = torch.empty_like(x)
     lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    # on x's card (a device switch only where it is not the current one)
+    index = x.device.index
+    switch = (torch.cuda.device(index)
+              if index is not None and index != torch.cuda.current_device()
+              else contextlib.nullcontext())
+    with switch:
+        stream = torch.cuda.current_stream().cuda_stream
         ptrs = (x.data_ptr(), halo.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
                 w2p.data_ptr(), b2.data_ptr(), wsp.data_ptr(), bs.data_ptr(),
                 out.data_ptr())
@@ -348,6 +404,21 @@ def _launch(x, halo, w1, b1, w2, b2, ws, bs, packed=None, precision="exact",
     if err:
         raise RuntimeError("seanet_resblock kernel launch failed: "
                            + lib.seanet_resblock_error_string(err).decode())
+    return out
+
+
+def _forward(counter, x, halo, w1, b1, w2, b2, ws, bs, packed, precision):
+    """The block's value: the kernel (CUDA tensors; ``counter``, the entry
+    point, counts the launch by form) or the plain version (CPU
+    tensors)."""
+    if x.device.type == "cpu":
+        return seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs,
+                                         precision=precision)
+    out = _launch(x, halo, w1, b1, w2, b2, ws, bs, packed, precision)
+    if precision == "exact":
+        counter.launches += 1
+    else:
+        counter.launches_by_form[form_name(precision, x.dtype)] += 1
     return out
 
 
@@ -367,15 +438,8 @@ class _Block(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, halo, w1, b1, w2, b2, ws, bs)
         ctx.precision = precision
-        if x.device.type == "cpu":
-            return seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs,
-                                             precision=precision)
-        out = _launch(x, halo, w1, b1, w2, b2, ws, bs, packed, precision)
-        if precision == "exact":
-            counter.launches += 1
-        else:
-            counter.launches_by_form[form_name(precision, x.dtype)] += 1
-        return out
+        return _forward(counter, x, halo, w1, b1, w2, b2, ws, bs, packed,
+                        precision)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -393,8 +457,11 @@ def _apply(counter, x, halo, w1, b1, w2, b2, ws, bs, packed, precision):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {x.device}")
     _check_form(x, precision)
-    return _Block.apply(counter, x, halo, w1, b1, w2, b2, ws, bs, packed,
-                        precision)
+    args = (x, halo, w1, b1, w2, b2, ws, bs)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _Block.apply(counter, *args, packed, precision)
+    # no gradient asked for: the same value without the Function's graph
+    return _forward(counter, *args, packed, precision)
 
 
 def seanet_resblock(x, halo, w1, b1, w2, b2, ws, bs, *, packed=None,
@@ -512,6 +579,23 @@ def seanet_resblock_info(C: int, Hc: int, precision: str = "exact",
                            + lib.seanet_resblock_error_string(err).decode())
     keys = ("regs", "local_bytes", "smem_bytes", "blocks_per_sm", "tile")
     return {k: v.value for k, v in zip(keys, out)}
+
+
+def seanet_resblock_elu_check() -> dict:
+    """The one-pass kernel's ELU (csrc ``mma::elu_for_bf16``: a polynomial
+    or ``ex2.approx`` away from bf16 rounding midpoints, ``expm1f`` near
+    them) against ``expm1f`` over every float, on the current card:
+    ``mismatches``, the values whose bf16 roundings differ (0 is right),
+    and ``max_ulps``, the largest fp32-ulp distance of a fast value from
+    ``expm1f``'s."""
+    bad, far = ctypes.c_ulonglong(), ctypes.c_uint()
+    err = _lib().seanet_resblock_elu_check(ctypes.byref(bad),
+                                           ctypes.byref(far))
+    if err:
+        raise RuntimeError("seanet_resblock_elu_check failed: "
+                           + _lib().seanet_resblock_error_string(err)
+                           .decode())
+    return {"mismatches": bad.value, "max_ulps": far.value}
 
 
 PACKED_MAX_CHANNELS = 64  # the TPU kernel's limit (two samples a lane row)

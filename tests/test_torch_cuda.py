@@ -59,11 +59,13 @@ from audiocodecs_tpu_torch.ops.dac_resunit import (
     pack_resunit_weights,
 )
 from audiocodecs_tpu_torch.ops.seanet_resblock import (
+    _mma_layout as _resblock_mma_layout,
     _smem_bytes as _resblock_smem_bytes,
     default_errors as resblock_default_errors,
     pack_resblock_weights,
     seanet_resblock,
     seanet_resblock_stages,
+    seanet_resblock_elu_check,
     seanet_resblock_info,
     seanet_resblock_packed,
     seanet_resblock_packed_reference,
@@ -1191,6 +1193,12 @@ _B2_DEFAULT_SHAPES = [
     (2, 128, 300, "reflect"), (1, 256, 130, "constant"),
     (1, 384, 77, "reflect"), (2, 48, 33, "reflect"), (1, 20, 3, "constant"),
     (1, 32, 1, "reflect"), (2, 200, 129, "reflect")]
+# the kernel's load paths: rows of x on 16 bytes (TMA) in both dtypes
+# (T = 1024), in fp32 only (1020), in neither (1001 above); fewer items
+# than SMs (16, and B = 1 with T below one item); more items than the
+# blocks (walked several a block); C = 8, 40 and 384; a streamed instance
+_B2_PATH_SHAPES = [(2, 40, 1024), (2, 40, 1020), (1, 8, 40), (1, 384, 200),
+                   (2, 64, 512), (8, 32, 8192), (3, 256, 1000)]
 # EnCodec-24k's four decoder blocks at B = 8 x 10 s
 _B2_MODEL_SHAPES = [(8, 32, 240000, "reflect"), (8, 64, 120000, "reflect"),
                     (8, 128, 30000, "reflect"), (8, 256, 6000, "reflect")]
@@ -1233,6 +1241,13 @@ def test_resblock_default_form_matches_plain_version(dev, B, C, T, pad_mode,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode", ["reflect", "constant"])
+@pytest.mark.parametrize("B,C,T", _B2_PATH_SHAPES)
+def test_resblock_default_form_load_paths(dev, B, C, T, pad_mode, dtype):
+    _check_b2_default(_b2_case(dev, B, C, T, pad_mode, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,C,T,pad_mode", _B2_MODEL_SHAPES)
 def test_resblock_default_form_at_the_models_shapes(dev, B, C, T, pad_mode,
                                                     dtype):
@@ -1242,15 +1257,26 @@ def test_resblock_default_form_at_the_models_shapes(dev, B, C, T, pad_mode,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_resblock_default_form_info(dev, dtype):
     """Registers, spills, shared bytes, blocks an SM and the time tile of
-    each one-pass instance."""
+    each one-pass instance: 64-sample items, the shared bytes of the
+    layout (``_mma_layout``, csrc ``mma::Cfg``) and the blocks an SM it is
+    built for (2 at C <= 64, 1 above), no spills."""
     for C in (8, 32, 64, 128, 256, 384):
         info = seanet_resblock_info(C, C // 2, "default", dtype)
-        assert info["tile"] == (128 if C <= 128 else 64)
-        row = lambda n: 2 * (-(-n // 16) * 16) + 16  # noqa: E731
-        assert info["smem_bytes"] == (2 * (info["tile"] + 2) * row(C)
-                                      + info["tile"] * row(C // 2))
+        lay = _resblock_mma_layout(C, C // 2, dtype)
+        assert info["tile"] == 64
+        assert info["smem_bytes"] == lay["smem"]
+        assert info["blocks_per_sm"] == lay["MINB"]
         assert info["local_bytes"] == 0
-        assert 0 < info["regs"] <= 255 and info["blocks_per_sm"] >= 1
+        assert 0 < info["regs"] <= 255
+
+
+def test_resblock_default_form_elu_rounds_as_expm1f_everywhere(dev):
+    """The one-pass kernel's fast ELU rounds to the bf16 of ``expm1f``'s
+    ELU for every float (the kernel's own check over all 2^32 bit
+    patterns), so its h and h2 are the plain version's bit for bit."""
+    res = seanet_resblock_elu_check()
+    assert res["mismatches"] == 0, res
+    assert res["max_ulps"] < 8, res  # the margin the fast path keeps
 
 
 def test_resblock_default_form_refuses_what_it_does_not_take(dev):
@@ -1269,7 +1295,7 @@ def test_resblock_default_form_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,T", [(32, 1001), (64, 77)])
+@pytest.mark.parametrize("C,T", [(32, 1001), (64, 77), (40, 1024)])
 def test_packed_entry_in_the_default_form(dev, C, T, dtype):
     """B3's entry in the one-pass form launches the block kernel on the
     converted layout: bit for bit the block's launch there, counted

@@ -388,9 +388,10 @@ def test_plain_default_form_on_bf16_matches_jax_interpret(rng, poly,
 
 
 def _kernel_make_desc():
-    """``mma::make_desc`` of ``csrc/dac_resunit.cu`` as a Python function:
-    its return expression with the ``(uint64_t)`` casts dropped is Python."""
-    src = (CSRC / "dac_resunit.cu").read_text()
+    """``sm90::make_desc`` of ``csrc/sm90.cuh`` (the descriptor of both
+    one-pass kernels) as a Python function: its return expression with the
+    ``(uint64_t)`` casts dropped is Python."""
+    src = (CSRC / "sm90.cuh").read_text()
     body = re.search(r"uint64_t make_desc\(uint32_t start, uint32_t lbo,\s*"
                      r"uint32_t sbo\) \{\s*return (.*?);\s*\}", src, re.S)
     expr = "(" + body.group(1).replace("(uint64_t)", "") + ")"

@@ -13,11 +13,14 @@ f32, so the two differ at the bf16 scale), and against the same kernel with
 its dots computed as the TPU computes DEFAULT (operands rounded to bf16)
 within a few bf16 ulps; bf16 operands against the fp32 form on their
 values, bit for bit; the tier's bf16-rounded biases; B3's entry in the
-form; the form's packing layout (mma.m16n8k16's B fragments).
+form; the form's packing layout (wgmma's K-major B operand) and the
+one-pass kernel's operand addressing, emulated on the CPU.
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -32,7 +35,8 @@ from audiocodecs_tpu.ops.seanet_block_packed import (
     seanet_resblock_packed as j_seanet_resblock_packed,
 )
 from audiocodecs_tpu.ops.seanet_block_pallas import seanet_resblock_pallas
-from audiocodecs_tpu_torch.nn.layers import pad1d
+from audiocodecs_tpu_torch.nn.layers import elu, exact_fp32, pad1d
+from audiocodecs_tpu_torch.ops._build import CSRC
 from audiocodecs_tpu_torch.nn.seanet import (
     ResBlock,
     SEANetConfig,
@@ -41,11 +45,13 @@ from audiocodecs_tpu_torch.nn.seanet import (
     _resnet_plain,
 )
 from audiocodecs_tpu_torch.ops.seanet_resblock import (
-    _b_fragment_index,
+    _bf16,
     _layout,
+    _mma_layout,
     default_errors,
     default_head,
     default_tail,
+    operand_offsets,
     pack_resblock_weights,
     seanet_resblock_stages,
     seanet_resblock,
@@ -516,49 +522,359 @@ def _default_form():
     return DecodeForm(precision="default")
 
 
-def test_b_fragment_index_is_the_ptx_b_layout():
-    """mma.m16n8k16's B fragment (PTX ISA): lane l = 4g + t holds rows 2t,
-    2t + 1, 2t + 8, 2t + 9 of column g of the 16 × 8 tile."""
-    rows, cols = _b_fragment_index()
-    assert rows[0].tolist() == [0, 1, 8, 9]
-    assert rows[5].tolist() == [2, 3, 10, 11] and cols[5].tolist() == [1] * 4
-    cells = {(r, c) for r, c in zip(rows.flatten().tolist(),
-                                    cols.flatten().tolist())}
-    assert len(cells) == 128  # every cell of the tile once
+def _kernel_make_desc():
+    """``sm90::make_desc`` of ``csrc/sm90.cuh`` (the descriptor of both
+    one-pass kernels) as a Python function: its return expression with the
+    ``(uint64_t)`` casts dropped is Python."""
+    src = (CSRC / "sm90.cuh").read_text()
+    body = re.search(r"uint64_t make_desc\(uint32_t start, uint32_t lbo,\s*"
+                     r"uint32_t sbo\) \{\s*return (.*?);\s*\}", src, re.S)
+    expr = "(" + body.group(1).replace("(uint64_t)", "") + ")"
+    return lambda start, lbo, sbo: eval(expr, {}, dict(start=start, lbo=lbo,
+                                                        sbo=sbo))
+
+
+@pytest.mark.parametrize("rows,lbo,sbo", [(64, 72 * 16, 128),
+                                           (64, 64 * 16, 128),
+                                           (32, 32 * 16, 128),
+                                           (16, 16 * 16, 128)])
+def test_kernel_descriptor_is_the_wgmma_k_major_layout(rows, lbo, sbo):
+    """wgmma's K-major operand without swizzle (PTX ISA: the matrix
+    descriptor and the canonical layouts of shared-memory operands): 8-row
+    x 16-byte core matrices of 128 contiguous bytes, SBO apart along M/N,
+    LBO apart along K. The window (LBO = 72 · 16, its plane rows), the
+    shortcut's operand and h2 (64 · 16), weight chunks at NP = 32 and 16. The
+    kernel's descriptor encodes the ISA's fields: start >> 4 in bits 0-13,
+    LBO >> 4 in 16-29, SBO >> 4 in 32-45, no swizzle; one unit added to the
+    start field moves an operand with SBO = 128 on by one row, which is
+    how tap k of the k3 conv reads the window at row offset k."""
+    off = operand_offsets(rows, lbo, sbo)
+    assert off.shape == (rows, 16)
+    assert [off[0, 0], off[0, 7], off[1, 0], off[7, 7]] == [0, 14, 16, 126]
+    assert sorted(off[:8, :8].flatten().tolist()) == list(range(0, 128, 2))
+    assert off[8, 0] == sbo and off[0, 8] == lbo
+    assert len(set(off.flatten().tolist())) == rows * 16
+    make_desc = _kernel_make_desc()
+    for start in (0, 16, 4096 + 48, 200000):
+        desc = make_desc(start, lbo, sbo)
+        assert desc & 0x3FFF == start >> 4
+        assert (desc >> 16) & 0x3FFF == lbo >> 4
+        assert (desc >> 32) & 0x3FFF == sbo >> 4
+        assert desc >> 62 == 0
+        for k in (1, 2):  # the k3 conv's taps
+            assert make_desc(start + 16 * k, lbo, sbo) == desc + k
+            if sbo == 128:
+                longer = operand_offsets(rows + k, lbo, sbo)
+                assert torch.equal(longer[k:], off + 16 * k)
 
 
 @pytest.mark.parametrize("C,H", [(32, 16), (64, 32), (256, 128), (20, 10),
                                  (384, 192), (8, 30)])
-def test_pack_default_layout(rng, C, H):
-    """``w1f[k, q, t, l, e] = bf16(w1[8t + n, 16q + r, k])``, ``w2f[q, t, l,
-    e] = bf16(w2[8t + n, 16q + r, 0])`` and ``wsf`` likewise, with (r, n)
-    the fragment cell of (l, e); zero outside the matrix."""
+def test_pack_default_is_the_wgmma_b_operand(rng, C, H):
+    """``w1f[p, q, k, h, n, e] = bf16(w1[NP1 p + n, 16q + 8h + e, k])``,
+    ``w2f[p, q, 0, h, n, e] = bf16(w2[NP2 p + n, 16q + 8h + e, 0])`` and
+    ``wsf`` likewise, zero outside the matrix, in the instance's passes
+    (csrc ``mma::pick``); each chunk's tap read through the kernel's
+    descriptor (start k · NP · 32 bytes into the chunk, LBO = NP · 16,
+    SBO = 128) is the [NP, 16] B operand; the three back to back fit the
+    instance's resident weights."""
     w1 = torch.from_numpy(rng.standard_normal((H, C, 3)).astype(np.float32))
     w2 = torch.from_numpy(rng.standard_normal((C, H, 1)).astype(np.float32))
     ws = torch.from_numpy(rng.standard_normal((C, C, 1)).astype(np.float32))
     w1f, w2f, wsf = pack_resblock_weights(w1, w2, ws, "default")
-    nq, nh, t1, t2 = -(-C // 16), -(-H // 16), -(-H // 8), -(-C // 8)
-    assert w1f.shape == (3, nq, t1, 32, 4) and w2f.shape == (nh, t2, 32, 4)
-    assert wsf.shape == (nq, t2, 32, 4)
+    lay = _mma_layout(C, H)
+    CP, HP, np1, np2 = lay["CP"], lay["HP"], lay["NP1"], lay["NP2"]
+    assert C <= CP and H <= HP
+    nq, nh = -(-C // 16), -(-H // 16)
+    p1, p2 = -(-H // np1), -(-C // np2)
+    assert w1f.shape == (p1, nq, 3, 2, np1, 8)
+    assert w2f.shape == (p2, nh, 1, 2, np2, 8)
+    assert wsf.shape == (p2, nq, 1, 2, np2, 8)
     assert all(t.dtype == torch.bfloat16 and t.is_contiguous()
                for t in (w1f, w2f, wsf))
-    rows, cols = _b_fragment_index()
+    if lay["RES"]:
+        assert 2 * (w1f.numel() + w2f.numel() + wsf.numel()) <= (
+            8 * HP * CP + 2 * CP * CP)
+    for f, w, np_, nk, taps in ((w1f, w1, np1, nq, 3), (w2f, w2, np2, nh, 1),
+                                (wsf, ws, np2, nq, 1)):
+        N, K = w.shape[:2]
+        pad = torch.zeros(f.shape[0] * np_, 16 * nk, taps)
+        pad[:N, :K] = w.to(torch.bfloat16).float()
+        idx = operand_offsets(np_, np_ * 16, 128) // 2
+        flat = f.float().flatten()
+        chunk = taps * np_ * 16  # elements a chunk
+        for p in range(f.shape[0]):
+            for q in range(nk):
+                for k in range(taps):
+                    got = flat[(p * nk + q) * chunk + k * np_ * 16 + idx]
+                    want = pad[p * np_:(p + 1) * np_, 16 * q:16 * q + 16, k]
+                    assert torch.equal(got, want)
 
-    def unpack(f, K, N):
-        m = torch.zeros(f.shape[-4] * 16, f.shape[-3] * 8)
-        for q in range(f.shape[-4]):
-            for t in range(f.shape[-3]):
-                m[16 * q + rows, 8 * t + cols] = f[q, t].float()
-        assert not m[K:].any() and not m[:, N:].any()
-        return m[:K, :N]
 
-    for k in range(3):
-        assert torch.equal(unpack(w1f[k], C, H),
-                           w1[:, :, k].T.to(torch.bfloat16).float())
-    assert torch.equal(unpack(w2f, H, C),
-                       w2[:, :, 0].T.to(torch.bfloat16).float())
-    assert torch.equal(unpack(wsf, C, C),
-                       ws[:, :, 0].T.to(torch.bfloat16).float())
+def _acc_cells(n):
+    """Row and column of each accumulator of wgmma m64nNk16 (the kernel's
+    comment at ``Wgmma``): thread 32 w + l, register i at row 16 w + l // 4
+    + 8 ((i // 2) % 2), column 8 (i // 4) + 2 (l % 4) + i % 2, as two
+    [128, n / 2] tensors."""
+    wt = torch.arange(128)[:, None]
+    i = torch.arange(n // 2)[None, :]
+    w, lane = wt // 32, wt % 32
+    row = 16 * w + lane // 4 + 8 * ((i // 2) % 2)
+    col = 8 * (i // 4) + 2 * (lane % 4) + i % 2
+    return row.expand(128, n // 2), col.expand(128, n // 2)
+
+
+def _staged(vals, esize):
+    """The output staging of one pass (csrc ``consumer_role``): the
+    accumulators ``vals [64, N]`` written at ol · 64 + (t ^ 8 ((ol // 2) %
+    4)), then read by the store loop, thread i a vector of V = 16 / esize
+    samples of channel i // (64 / V) (bf16: its two halves in the order
+    the kernel reads them). Returns what the stores write, [N, 64]."""
+    n = vals.shape[1]
+    row, col = _acc_cells(n)
+    ost = torch.full((n * 64,), float("nan"), dtype=torch.float64)
+    ost[col * 64 + (row ^ (8 * ((col // 2) % 4)))] = vals[row, col]
+    v = 16 // esize
+    per = 64 // v
+    out = torch.full((n, 64), float("nan"), dtype=torch.float64)
+    for i in range(n * per):
+        ol, tv = i // per, (i % per) * v
+        src = ol * 64 + (tv ^ (8 * ((ol // 2) % 4)))
+        first = ((tv >> 5) & 1) * 4
+        halves = [0] if v == 4 else [first, 4 - first]
+        for h in halves:
+            out[ol, tv + h:tv + h + 4] = ost[src + h:src + h + 4]
+    return out
+
+
+def _block_walk(nitems, grid):
+    """Items in the order the persistent blocks walk them (csrc
+    ``block_items``, ``item_at``): block k takes k, k + grid, ..."""
+    walk = []
+    for blk in range(grid):
+        my = (nitems - 1 - blk) // grid + 1 if blk < nitems else 0
+        walk += [blk + n * grid for n in range(my)]
+    return walk
+
+
+def _emulate_one_pass(x, halo, w1, w2, ws, grid):
+    """The one-pass kernel's operands as it addresses them (csrc
+    ``seanet_resblock.cu``, namespace ``mma``), in torch on the CPU, for
+    each item of the blocks' walk (``_block_walk``):
+
+    * the raw tiles that TMA loads, RC channels (the instance's) from r · RC
+      x 72 samples from t0 - 8, zero outside [0, T) and past C (and, where
+      the rows are not 16-byte aligned, x read straight: the same values);
+    * the transform warps' writes: main unit e of raw tile r is channels
+      c0 = r · RC + 8 (e // 32) at window rows 2 + jj and 34 + jj (jj =
+      e % 32, positions t0 + jj and t0 + 32 + jj): bf16(ELU(v)) at
+      element ((c0 // 8) · 72 + row) · 8 + i of the window and bf16(v)
+      at ((c0 // 8) · 64 + row - 2) · 8 + i of the shortcut's operand;
+      the two halo rows j = 0, 1 one element a thread, channel c = r · RC
+      + e % RC, j = e // RC, at ((c // 8) · 72 + j) · 8 + c % 8, from
+      halo [B, C, 2] at t0 = 0; every other element NaN, so a read of one
+      shows;
+    * the descriptors' reads: the k3 conv's A of chunk q, tap k at start
+      (q · 2 · 72 + k) · 16 (LBO 72 · 16, SBO 128), its B at chunk (p, q),
+      tap k of w1f (LBO NP1 · 16); the shortcut's A at q · 2 · 64 · 16
+      (LBO 64 · 16) with wsf's chunk (p, q).
+
+    Returns the A and B reads by item, and the GEMMs' float64 sums."""
+    B, C, T = x.shape
+    Hc = w1.shape[0]
+    lay = _mma_layout(C, Hc)
+    cp, np1, np2, rc = lay["CP"], lay["NP1"], lay["NP2"], lay["RC"]
+    nq, nr = -(-C // 16), -(-C // rc)
+    ntt = -(-T // 64)
+    walk = _block_walk(B * ntt, grid)
+    assert sorted(walk) == list(range(B * ntt))  # each item once
+    h = _bf16(elu(x))
+    e = torch.arange(rc // 8 * 32)
+    g8, jj = e // 32, e % 32
+    eh = torch.arange(2 * rc)
+    w1f, w2f, wsf = pack_resblock_weights(w1, w2, ws, "default")
+    off_a = operand_offsets(64, 72 * 16, 128)
+    off_s = operand_offsets(64, 64 * 16, 128)
+    b1_ops = torch.stack([torch.stack([torch.stack([
+        w1f.float().flatten()[((p * nq + q) * 3 * np1 * 16 + k * np1 * 16)
+                              + operand_offsets(np1, np1 * 16, 128) // 2]
+        for k in range(3)]) for q in range(nq)]) for p in range(
+            w1f.shape[0])])  # [p1, nq, 3, NP1, 16]
+    bs_ops = torch.stack([torch.stack([
+        wsf.float().flatten()[(p * nq + q) * np2 * 16
+                              + operand_offsets(np2, np2 * 16, 128) // 2]
+        for q in range(nq)])
+        for p in range(wsf.shape[0])])  # [p2, nq, NP2, 16]
+    items = []
+    for it in walk:
+        b, t0 = it // ntt, (it % ntt) * 64
+        win = torch.full((72 * cp,), float("nan"))
+        sc = torch.full((64 * cp,), float("nan"))
+        for r in range(nr):
+            c = r * rc + torch.arange(rc)[:, None]
+            p = t0 - 8 + torch.arange(72)[None, :]
+            ok = (c < C) & (p >= 0) & (p < T)
+            raw = torch.where(ok, x[b, c.clamp(max=C - 1), p.clamp(0, T - 1)],
+                              torch.zeros(()))
+            c0 = r * rc + 8 * g8
+            cc = c0[:, None] + torch.arange(8)[None, :]  # [units, 8]
+            for half in (0, 32):  # rows 2 + jj + half
+                pos = (t0 + jj + half)[:, None]
+                v = raw[8 * g8[:, None] + torch.arange(8), (8 + jj + half)[
+                    :, None]]
+                direct = torch.where((cc < C) & (pos < T), x[
+                    b, cc.clamp(max=C - 1), pos.clamp(max=T - 1)],
+                    torch.zeros(()))
+                assert torch.equal(v, direct)  # TMA and direct loads agree
+                row = (2 + jj + half)[:, None]
+                win[((c0[:, None] // 8) * 72 + row) * 8
+                    + torch.arange(8)] = _bf16(elu(v))
+                sc[((c0[:, None] // 8) * 64 + row - 2) * 8
+                   + torch.arange(8)] = _bf16(v)
+            cl, j = eh % rc, eh // rc
+            c = r * rc + cl
+            p = t0 - 2 + j
+            live = c < C
+            v = torch.where(~live, torch.zeros(()), torch.where(
+                p < 0, halo[b, c.clamp(max=C - 1), (p + 2).clamp(0, 1)],
+                raw[cl, 6 + j]))
+            direct = torch.where(~live | (p >= T), torch.zeros(()),
+                                 torch.where(p < 0, halo[
+                                     b, c.clamp(max=C - 1),
+                                     (p + 2).clamp(0, 1)], x[
+                                     b, c.clamp(max=C - 1),
+                                     p.clamp(0, T - 1)]))
+            assert torch.equal(v, direct)
+            win[((c // 8) * 72 + j) * 8 + c % 8] = _bf16(elu(v))
+        a_ops = torch.stack([torch.stack([
+            win[(q * 2 * 72 * 16 + k * 16 + off_a) // 2] for k in range(3)])
+            for q in range(nq)])  # [nq, 3, 64, 16]
+        s_ops = torch.stack([sc[(q * 2 * 64 * 16 + off_s) // 2]
+                             for q in range(nq)])  # [nq, 64, 16]
+        items.append({"b": b, "t0": t0, "a": a_ops, "s": s_ops})
+    return {"items": items, "w1": b1_ops, "ws": bs_ops, "w2f": w2f,
+            "h": h, "lay": lay, "nq": nq}
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test of many small tensor ops: with
+    several pytest workers on the machine's cores, torch's thread pool
+    makes each op wait (25 s against 0.15 s for the C = 384 case)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("T,grid", [(150, 4), (61, 5)])
+@pytest.mark.parametrize("C", [8, 32, 40, 256, 384])
+def test_kernel_operand_addressing_reproduces_default_head_and_tail(
+        rng, one_thread, C, T, grid):
+    """The one-pass kernel's operands, built and read with its own index
+    formulas (``_emulate_one_pass``: the raw tiles, the window's row
+    offset k, the halo, zero padding past T and C, items walked by
+    persistent blocks, here 6 items over 4 blocks and 2 over 5), hold
+    exactly the plain version's rounded operands: h and w1 rebuilt from
+    what the k3 conv's MMAs read give :func:`default_head` bit for bit
+    through its own conv; bf16(x), ws, h2 (staged as the epilogue writes
+    it) and w2 read through the second GEMM's descriptors give
+    :func:`default_tail` bit for bit. The float64 GEMMs in the kernel's
+    tiles agree with the plain convs' fp32 sums (1e-5 relative), and the
+    output staging hands each channel row's samples to the stores in
+    order."""
+    B, Hc = 2, C // 2
+    p = _jax_params(rng, C, Hc)
+    x = _bct(rng.standard_normal((B, T, C)).astype(np.float32))
+    args = _block_args(p, x.transpose(1, 2).numpy())
+    x, halo, w1, b1, w2, b2, ws, bs = args
+    em = _emulate_one_pass(x, halo, w1, w2, ws, grid)
+    lay, nq = em["lay"], em["nq"]
+    np1, np2 = lay["NP1"], lay["NP2"]
+    hpad = torch.full((B, 16 * nq, T + 2), float("nan"))
+    spad = torch.full((B, 16 * nq, T), float("nan"))
+    k3 = torch.zeros(B, w1.shape[0], T, dtype=torch.float64)
+    for item in em["items"]:
+        b, t0, a_ops, s_ops = item["b"], item["t0"], item["a"], item["s"]
+        assert not torch.isnan(a_ops).any() and not torch.isnan(s_ops).any()
+        n = min(64, T - t0)
+        for k in range(3):
+            # tap k's row t is position t0 + t + k - 2 (padded index + 2)
+            vals = a_ops[:, k, :, :].permute(0, 2, 1).reshape(16 * nq, 64)
+            cols = t0 + torch.arange(64) + k
+            inside = cols < T + 2
+            assert not vals[:, ~inside].any()  # past T reads zeros
+            seen = hpad[b][:, cols[inside]]
+            known = ~torch.isnan(seen)
+            assert torch.equal(seen[known], vals[:, inside][known])
+            hpad[b][:, cols[inside]] = vals[:, inside]
+        svals = s_ops.permute(0, 2, 1).reshape(16 * nq, 64)
+        assert not svals[:, n:].any()
+        spad[b][:, t0:t0 + n] = svals[:, :n]
+        acc = torch.einsum("qktc,pqknc->tpn", a_ops.double(),
+                           em["w1"].double()).reshape(64, -1)
+        k3[b, :, t0:t0 + n] = acc[:n, :w1.shape[0]].T
+    assert not torch.isnan(hpad).any() and not torch.isnan(spad).any()
+    assert not hpad[:, C:].any() and not spad[:, C:].any()
+    w1_rec = em["w1"].permute(0, 3, 1, 4, 2).reshape(
+        -1, 16 * nq, 3)[:w1.shape[0], :C]
+    assert torch.equal(w1_rec, _bf16(w1))
+    h_in = hpad[:, :C]
+    assert torch.equal(h_in, _bf16(elu(torch.cat([halo, x], -1))))
+    with exact_fp32():
+        v32 = torch.nn.functional.conv1d(h_in, w1_rec) + b1[:, None]
+    h2 = elu(v32).to(torch.bfloat16)
+    want = default_head(x, halo, w1, b1)
+    assert torch.equal(h2, want)
+    scale = float((v32 - b1[:, None]).abs().max())
+    assert float((k3 - (v32 - b1[:, None]).double()).abs().max()) <= (
+        1e-5 * scale)
+    # the second GEMM: h2 staged as the k3 epilogue writes it, read by the
+    # 1x1's descriptors; bf16(x) and ws through the shortcut's
+    assert torch.equal(spad[:, :C], _bf16(x))
+    nh = -(-Hc // 16)
+    w2f = em["w2f"].float().flatten()
+    off2 = operand_offsets(np2, np2 * 16, 128) // 2
+    w2_rec = torch.stack([torch.stack([
+        w2f[(pp * nh + q) * np2 * 16 + off2] for q in range(nh)])
+        for pp in range(em["w2f"].shape[0])])  # [p2, nh, NP2, 16]
+    w2_rec = w2_rec.permute(0, 2, 1, 3).reshape(-1, 16 * nh)[:C, :Hc]
+    ws_rec = em["ws"].permute(0, 2, 1, 3).reshape(-1, 16 * nq)[:C, :C]
+    assert torch.equal(w2_rec, _bf16(w2[:, :, 0]))
+    assert torch.equal(ws_rec, _bf16(ws[:, :, 0]))
+    for n in (np1, np2):  # the accumulators cover the m64 x N tile once
+        row, col = _acc_cells(n)
+        assert len(set(zip(row.flatten().tolist(),
+                           col.flatten().tolist()))) == 64 * n
+    w2_ops = torch.stack([torch.stack([
+        w2f[(pp * nh + q) * np2 * 16 + off2] for q in range(nh)])
+        for pp in range(em["w2f"].shape[0])])  # [p2, nh, NP2, 16]
+    tail_want = default_tail(x, want, w2, b2, ws, bs)
+    h2_rec = torch.zeros(B, 16 * nh, T)
+    m = torch.arange(16 * nh)[:, None]
+    t = torch.arange(64)[None, :]
+    for item in em["items"]:
+        b, t0 = item["b"], item["t0"]
+        n = min(64, T - t0)
+        # h2 written by the k3 epilogue at ((m // 8) * 64 + t) * 8 + m % 8
+        h2s = torch.full((16 * nh * 64,), float("nan"))
+        vals = torch.zeros(16 * nh, 64)
+        vals[:Hc, :n] = want[b, :, t0:t0 + n].float()
+        h2s[((m // 8) * 64 + t) * 8 + m % 8] = vals
+        a2 = torch.stack([h2s[(q * 2 * 64 * 16 + operand_offsets(
+            64, 64 * 16, 128)) // 2] for q in range(nh)])  # [nh, 64, 16]
+        assert not torch.isnan(a2).any()
+        h2_rec[b, :, t0:t0 + n] = a2.permute(0, 2, 1).reshape(
+            16 * nh, 64)[:, :n]
+    # a pass's sums through the output staging hand each channel row's
+    # samples to the stores in order, for both dtypes
+    block = torch.from_numpy(rng.standard_normal((64, np2)))
+    for esize in (4, 2):
+        assert torch.equal(_staged(block, esize), block.T)
+    assert torch.equal(h2_rec[:, :Hc], want.float())
+    tail = default_tail(spad[:, :C], h2_rec[:, :Hc].to(torch.bfloat16),
+                        w2_rec[..., None], b2, ws_rec[..., None], bs)
+    assert torch.equal(tail, tail_want)
 
 
 def test_resblock_packs_once_per_form(rng):
