@@ -9,14 +9,29 @@ built at first use (:mod:`audiocodecs_tpu_torch.ops._build`).
 Importing the package is light: the codec classes load on first access.
 """
 
-__all__ = ["BigCodec", "BigCodecModelConfig", "Codec", "CodecConfig", "DAC",
-           "DACModelConfig", "Encodec",
-           "EncodecModelConfig", "Mimi", "MimiModelConfig", "PAST",
-           "SEANetRVQCodec", "SEANetRVQConfig", "SpeechTokenizer",
-           "SpeechTokenizerModelConfig", "WavTokenizer",
-           "WavTokenizerModelConfig"]
+__all__ = ["AudioDec", "AudioDecModelConfig", "BigCodec",
+           "BigCodecModelConfig", "Codec", "CodecConfig", "DAC",
+           "DACModelConfig", "Encodec", "EncodecModelConfig", "HILCodec",
+           "HILCodecModelConfig", "MagiCodec", "MagiCodecModelConfig",
+           "Mimi", "MimiModelConfig", "NanoCodec", "NanoCodecModelConfig",
+           "PAST", "SEANetRVQCodec", "SEANetRVQConfig", "SpeechTokenizer",
+           "SpeechTokenizerModelConfig", "StableCodec",
+           "StableCodecModelConfig", "WavTokenizer",
+           "WavTokenizerModelConfig", "XCodec2", "XCodec2ModelConfig"]
 
 _LAZY = {
+    "AudioDec": "audiocodecs_tpu_torch.models.audiodec",
+    "AudioDecModelConfig": "audiocodecs_tpu_torch.models.audiodec",
+    "HILCodec": "audiocodecs_tpu_torch.models.hilcodec",
+    "HILCodecModelConfig": "audiocodecs_tpu_torch.models.hilcodec",
+    "MagiCodec": "audiocodecs_tpu_torch.models.magicodec",
+    "MagiCodecModelConfig": "audiocodecs_tpu_torch.models.magicodec",
+    "NanoCodec": "audiocodecs_tpu_torch.models.nanocodec",
+    "NanoCodecModelConfig": "audiocodecs_tpu_torch.models.nanocodec",
+    "StableCodec": "audiocodecs_tpu_torch.models.stablecodec",
+    "StableCodecModelConfig": "audiocodecs_tpu_torch.models.stablecodec",
+    "XCodec2": "audiocodecs_tpu_torch.models.xcodec2",
+    "XCodec2ModelConfig": "audiocodecs_tpu_torch.models.xcodec2",
     "BigCodec": "audiocodecs_tpu_torch.models.bigcodec",
     "BigCodecModelConfig": "audiocodecs_tpu_torch.models.bigcodec",
     "Codec": "audiocodecs_tpu_torch.codec",

@@ -20,12 +20,18 @@ _CODEC_REGISTRY = {
                      "WavTokenizer"),
     "past": ("audiocodecs_tpu_torch.models.past", "PAST"),
     "bigcodec": ("audiocodecs_tpu_torch.models.bigcodec", "BigCodec"),
+    "audiodec": ("audiocodecs_tpu_torch.models.audiodec", "AudioDec"),
+    "hilcodec": ("audiocodecs_tpu_torch.models.hilcodec", "HILCodec"),
+    "nanocodec": ("audiocodecs_tpu_torch.models.nanocodec", "NanoCodec"),
+    "xcodec2": ("audiocodecs_tpu_torch.models.xcodec2", "XCodec2"),
+    "stablecodec": ("audiocodecs_tpu_torch.models.stablecodec",
+                    "StableCodec"),
+    "magicodec": ("audiocodecs_tpu_torch.models.magicodec", "MagiCodec"),
 }
 
 # registered by the reference package, not ported yet
-_NOT_PORTED = ("audiodec", "bicodec", "dycast", "focalcodec", "hilcodec",
-               "magicodec", "nanocodec", "semanticodec", "stablecodec",
-               "wavlm_kmeans", "xcodec2")
+_NOT_PORTED = ("bicodec", "dycast", "focalcodec", "semanticodec",
+               "wavlm_kmeans")
 
 
 def get_codec_class(name: str):

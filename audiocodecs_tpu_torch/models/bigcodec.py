@@ -62,6 +62,7 @@ from audiocodecs_tpu_torch.nn.layers import (
     ConvTranspose1d,
     DecodeForm,
     exact_fp32,
+    init_conv,
     unit_norm,
 )
 from audiocodecs_tpu_torch.nn.lstm import LSTM, init_lstm_params
@@ -334,17 +335,17 @@ def init_codec_encoder_params(generator: torch.Generator,
     from the reference's."""
     out = {}
     d = cfg.ngf
-    _conv_init(out, generator, f"{prefix}.stem", 1, d, 7)
+    init_conv(out, generator, f"{prefix}.stem", 1, d, 7)
     for i, stride in enumerate(cfg.up_ratios):
         _units_init(out, generator, f"{prefix}.blocks.{i}", d,
                     len(cfg.dilations))
         out[f"{prefix}.blocks.{i}.alpha_down"] = torch.ones(d)
-        _conv_init(out, generator, f"{prefix}.blocks.{i}.conv_down", d,
-                   2 * d, 2 * stride)
+        init_conv(out, generator, f"{prefix}.blocks.{i}.conv_down", d,
+                  2 * d, 2 * stride)
         d *= 2
     _lstm_init(out, generator, f"{prefix}.rnn", cfg.rnn_layers, d)
     out[f"{prefix}.alpha_out"] = torch.ones(d)
-    _conv_init(out, generator, f"{prefix}.conv_out", d, cfg.hidden_size, 3)
+    init_conv(out, generator, f"{prefix}.conv_out", d, cfg.hidden_size, 3)
     return out
 
 
@@ -366,36 +367,28 @@ def init_bigcodec_params(generator: torch.Generator,
     out["quantizer.out_proj.w"] = randn(D, H, scale=D ** -0.5)
     out["quantizer.out_proj.b"] = torch.zeros(H)
 
-    _conv_init(out, generator, "decoder.stem", H, W, 7)
+    init_conv(out, generator, "decoder.stem", H, W, 7)
     _lstm_init(out, generator, "decoder.rnn", cfg.rnn_layers, W)
     d = W
     for i, stride in enumerate(reversed(cfg.up_ratios)):
         p = f"decoder.blocks.{i}"
         out[f"{p}.alpha_up"] = torch.ones(d)
-        _conv_init(out, generator, f"{p}.convtr", d, d // 2, 2 * stride,
-                   transposed=True)
+        init_conv(out, generator, f"{p}.convtr", d, d // 2, 2 * stride,
+                  transposed=True)
         _units_init(out, generator, p, d // 2, len(cfg.dilations))
         d //= 2
     out["decoder.alpha_out"] = torch.ones(d)
-    _conv_init(out, generator, "decoder.conv_out", d, 1, 7)
+    init_conv(out, generator, "decoder.conv_out", d, 1, 7)
     return out
-
-
-def _conv_init(out, generator, name, cin, cout, k, transposed=False,
-               gain=1.0):
-    shape = (cin, cout, k) if transposed else (cout, cin, k)
-    out[f"{name}.w"] = (torch.randn(shape, generator=generator)
-                        * gain * (k * cin) ** -0.5)
-    out[f"{name}.b"] = torch.zeros(cout)
 
 
 def _units_init(out, generator, prefix, ch, n):
     for ri in range(n):
         p = f"{prefix}.res.{ri}"
         out[f"{p}.alpha1"] = torch.ones(ch)
-        _conv_init(out, generator, f"{p}.conv1", ch, ch, 7)
+        init_conv(out, generator, f"{p}.conv1", ch, ch, 7)
         out[f"{p}.alpha2"] = torch.ones(ch)
-        _conv_init(out, generator, f"{p}.conv2", ch, ch, 1, gain=0.1)
+        init_conv(out, generator, f"{p}.conv2", ch, ch, 1, gain=0.1)
 
 
 def _lstm_init(out, generator, prefix, layers, width):

@@ -45,6 +45,7 @@ __all__ = [
     "ConvTranspose1d",
     "DecodeForm",
     "PRECISIONS",
+    "init_conv",
 ]
 
 PRECISIONS = ("exact", "default")  # a form's conv precision
@@ -198,6 +199,21 @@ def streaming_conv_frames(length: int, kernel_size: int, stride: int) -> int:
     padding_total = kernel_size - stride
     extra = extra_padding_for_frames(length, kernel_size, stride, padding_total)
     return (length + padding_total + extra - kernel_size) // stride + 1
+
+
+def init_conv(out: dict, generator: torch.Generator, name: str, cin: int,
+              cout: int, k: int, *, transposed: bool = False,
+              groups: int = 1, bias: bool = True, gain: float = 1.0) -> None:
+    """The reference packages' conv init into the flat state dict ``out``
+    under ``name``: weights N(0, 1) · gain · (k · cin / groups)^-½ in the
+    port's layout (:class:`Conv1d`'s, or with ``transposed``
+    :class:`ConvTranspose1d`'s), zero biases (none with ``bias=False``)."""
+    shape = ((cin, cout // groups, k) if transposed
+             else (cout, cin // groups, k))
+    out[f"{name}.w"] = (torch.randn(shape, generator=generator)
+                        * gain * (k * cin // groups) ** -0.5)
+    if bias:
+        out[f"{name}.b"] = torch.zeros(cout)
 
 
 def _cached(module: nn.Module, name: str, tag, make, params=None):

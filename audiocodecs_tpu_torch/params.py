@@ -15,7 +15,9 @@ Layouts (reference → port):
   Vocos head's embed ``[7, Cin, dim]`` → ``[dim, Cin, 7]`` and depthwise
   ``dwconv`` ``[7, 1, dim]`` → ``[dim, 1, 7]`` (groups = dim), and the
   SEANet-RVQ projectors ``in_proj`` ``[1, H, D]`` → ``[D, H, 1]`` and
-  ``out_proj`` ``[1, D, H]`` → ``[H, D, 1]``;
+  ``out_proj`` ``[1, D, H]`` → ``[H, D, 1]``; and a bare conv leaf that a
+  module lists in ``JAX_CONV_LEAVES`` (w2v-BERT's depthwise ``conv.dw``
+  ``[31, 1, C]`` → ``[C, 1, 31]``);
 * transposed-conv ``w [K, Cin/G, Cout]`` with G groups, stored pre-flipped
   so that it runs as a plain dilated conv → ``[Cin, Cout/G, K]``, PyTorch's
   ``ConvTranspose1d`` layout: flipped in time, and input channel
@@ -67,7 +69,8 @@ def _to_port_layout(owner: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
         g = owner.groups
         a = np.flip(a, 0).reshape(k, cin_g, g, cout // g)
         return a.transpose(2, 1, 3, 0).reshape(g * cin_g, cout // g, k)
-    if leaf == "w" and isinstance(owner, Conv1d):
+    if leaf == "w" and isinstance(owner, Conv1d) or leaf in getattr(
+            owner, "JAX_CONV_LEAVES", ()):
         return a.transpose(2, 1, 0)
     if leaf.startswith("alpha") and a.ndim == 3 and a.shape[:2] == (1, 1):
         return a.reshape(-1)
@@ -104,7 +107,8 @@ def _to_jax_layout(owner: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
         g = owner.groups
         a = a.reshape(g, cin // g, cout_g, k).transpose(3, 1, 0, 2)
         return np.flip(a.reshape(k, cin // g, g * cout_g), 0)
-    if leaf == "w" and isinstance(owner, Conv1d):
+    if leaf == "w" and isinstance(owner, Conv1d) or leaf in getattr(
+            owner, "JAX_CONV_LEAVES", ()):
         return a.transpose(2, 1, 0)
     return a
 

@@ -15,7 +15,12 @@ fused SEANet blocks in their one-pass form on bf16 operands, the LSTMs fp32
 islands. Its ``"fast"`` quality is its ``"balanced"`` one (the reference
 sets no decoder precision of its own there), ``batch`` selects nothing for
 it, and ``"exact"`` is fp32. WavTokenizer's decoder, a Vocos head, reads no
-activation dtype, so its tier decodes as its exact one.
+activation dtype, so its tier decodes as its exact one. So do the zoo's
+families that the reference lists under the same tier (``audiodec``,
+``hilcodec``, ``nanocodec``, ``xcodec2``, ``stablecodec``, ``magicodec``):
+none of their decoders reads the activation dtype, and the tier sets no
+decoder precision, so the reference decodes them in exact fp32. Their
+constructors take the tier's arguments, check them, and decode exactly.
 
 Three of the reference's settings have no counterpart on the card:
 
@@ -60,6 +65,14 @@ SERVING_PRESETS: dict[str, dict] = {
     "past": _ENCODEC_STYLE,
     "speechtokenizer": _ENCODEC_STYLE,
     "wavtokenizer": _ENCODEC_STYLE,
+    # the zoo's families under the same tier, which none of their decoders
+    # reads: each decodes as its exact tier
+    "audiodec": _ENCODEC_STYLE,
+    "hilcodec": _ENCODEC_STYLE,
+    "nanocodec": _ENCODEC_STYLE,
+    "xcodec2": _ENCODEC_STYLE,
+    "stablecodec": _ENCODEC_STYLE,
+    "magicodec": _ENCODEC_STYLE,
     "dac": _DAC_STYLE,
     "bigcodec": _BF16_POLY,
 }

@@ -16,7 +16,9 @@ it fails:
    (T=500, H=1024, B=8 and 1), one EnCodec streaming chunk (T=6, B=8)
    and EnCodec-48k's layer over 88 windows (T=150, B=88, three launches,
    and its launch shapes B=32 and 24), the wide instance (H > 1024) at
-   BigCodec's 10 s layers (T=800, H=1536, B=8 and 1), a ragged shape, 20
+   BigCodec's 10 s layers (T=800, H=1536, B=8 and 1), X-Codec 2.0's
+   (T=500, H=1536, B=8, timed beside its plain version and ``nn.LSTM``),
+   a ragged shape, 20
    rows over three launches, T=1 and H=1088, and two pairs of launches
    back to back; timings at B and at B=1 (per step) at the main shape,
    H=1024, T=1, T=500, T=6, T=150 (B=32, 24) and T=800 at H=1536
@@ -145,7 +147,18 @@ it fails:
    (``encode_precision="default"``, 4 one-pass fp32 kernel-2 launches an
    encode) at B = 4 x 10 s through ``quant/certify.py::certify_codec``:
    the certified share, the real token match, and a failure if any
-   certified frame's tokens differ from the exact path's.
+   certified frame's tokens differ from the exact path's;
+23.-28. the zoo's first six families at their published widths, each as in
+   9 (two B = 8 x 10 s requests and one ragged B = 1; parity on the ragged
+   request and the first rows of the first; the warm roundtrip, RTF, peak
+   memory, stages and the device time by group): AudioDec-24k,
+   HILCodec-24k (then streamed through ``encode_chunk`` in 80 ms chunks,
+   its tokens against its batch encode, the chunk times), NanoCodec-22.05k,
+   X-Codec 2.0-16k (two wide kernel-1 launches a roundtrip: the acoustic
+   encoder's LSTM at H = 1536; parity on one row of the first request;
+   how near its FSQ's half-steps the card's latents fall, beside the
+   card-CPU gap),
+   StableCodec-16k and MagiCodec-16k; no other kernel launches.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -176,11 +189,13 @@ LSTM_SHAPES = [(750, 8, 512), (257, 3, 512), (40, 100, 512), (750, 8, 1024),
                (1, 8, 512), (500, 8, 1024), (500, 1, 1024), (6, 8, 512),
                (150, 32, 512), (150, 24, 512), (150, 88, 512),
                (800, 8, 1536), (800, 1, 1536), (257, 3, 1536),
-               (40, 20, 1536), (1, 8, 1536), (33, 5, 1088)]
+               (40, 20, 1536), (1, 8, 1536), (33, 5, 1088), (500, 8, 1536)]
 # each also timed at B = 1
 LSTM_TIMED = [(750, 8, 512), (750, 8, 1024), (1, 8, 512), (500, 8, 1024),
-              (6, 8, 512), (150, 32, 512), (150, 24, 512), (800, 8, 1536)]
+              (6, 8, 512), (150, 32, 512), (150, 24, 512), (800, 8, 1536),
+              (500, 8, 1536)]
 LSTM_WIDE = (800, 8, 1536)  # BigCodec-16k's LSTM layer at B = 8 x 10 s
+LSTM_XCODEC2 = (500, 8, 1536)  # X-Codec 2.0-16k's encoder LSTM, B = 8 x 10 s
 RESBLOCK_SHAPES = [(8, 32, 240000), (8, 64, 120000), (8, 128, 30000),
                    (8, 256, 6000)]
 # ragged (T off the 4-sample vectors) and the widest tile
@@ -430,6 +445,8 @@ def phase_lstm(torch, peaks):
             worst_wide = max(worst_wide, err)
         if (T, H) == (LSTM_WIDE[0], LSTM_WIDE[2]):
             wide_args[B] = args
+        if (T, B, H) == LSTM_XCODEC2:
+            xcodec2_args = args
 
     for T, B, H in LSTM_TIMED:
         entry = time_lstm(torch, ops, T, B, H)
@@ -458,6 +475,16 @@ def phase_lstm(torch, peaks):
         b1={k: at_b1[k] for k in ("ms", "plain_ms", "library_ms",
                                   "port_layer_ms", "bound_ms", "bound_by")},
         info={B: lstm_recurrence_info(LSTM_WIDE[2], B) for B in (8, 1)})
+    # X-Codec 2.0's encoder layer: the kernel against its plain version,
+    # the port's layer and nn.LSTM, and its bound
+    xc = next(e for e in per_shape if (e["T"], e["B"], e["H"]) == LSTM_XCODEC2)
+    at_xc = _lstm_main_row(torch, gen, peaks, xcodec2_args, xc["ms"],
+                           xc["b1_ms"], name="lstm_recurrence_wide")
+    wide_row["xcodec2"] = {k: at_xc[k] for k in (
+        "shape", "ms", "b1_ms", "plain_ms", "library_ms", "port_layer_ms",
+        "bound_ms", "bound_by")}
+    wide_row["xcodec2"].update(device_us=xc["device_us"],
+                               max_abs_err=xc["max_abs_err"])
 
     # back to back on one stream, different inputs, the exchange's memory
     # reused: at T = 2 a tag left by the first launch is the one the second
@@ -2878,6 +2905,226 @@ def phase_certify(torch, rows):
         fail("certify: the one-pass encoder did not move the features")
 
 
+# Slice 11: the zoo's first six families at their published widths
+ZOO_SECONDS = 10.0
+
+
+def _zoo_requests(seed, sr, ragged):
+    """Two B = 8 x 10 s requests and one ragged B = 1 request."""
+    T = int(sr * ZOO_SECONDS)
+    return _noise(np.random.default_rng(seed), [(8, T), (8, T), (1, ragged)])
+
+
+def phase_audiodec(torch, rows):
+    """AudioDec-24k (symAD: 32 → 512 channels over strides (3, 4, 5, 5),
+    hop 300, 8 x 1024 x 64 RVQ): no kernel launch a roundtrip."""
+    from audiocodecs_tpu_torch.models.audiodec import AudioDec
+    from audiocodecs_tpu_torch.quant.rvq import rvq_decode, rvq_encode
+
+    sr, K, hop = 24000, 8, 300
+    codec, cpu = _server_pair(torch, AudioDec, sr, sr, num_codebooks=K)
+
+    def shapes(shape):  # every strided causal conv rounds up
+        N = math.ceil(shape[1] / hop)
+        return (shape[0], N, K), (shape[0], N * hop)
+
+    _batch_path(torch, rows, "audiodec_24k", codec, cpu,
+                _zoo_requests(17, sr, 120001), _launch_table(0, 0), shapes,
+                (lambda f: rvq_encode(f, codec.codebooks),
+                 lambda t: rvq_decode(t, codec.codebooks), codec._decode))
+
+
+def _encode_stream(torch, codec, sig, frames: int):
+    """``sig`` [B, T] through ``encode_chunk`` in chunks of ``frames`` token
+    frames, synced after each chunk → (tokens, ms a chunk by the host's
+    clock)."""
+    step = codec.frame_size * frames
+    state = codec.init_streaming_state(sig.shape[0])
+    toks, ms = [], []
+    for pos in range(0, sig.shape[1], step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t, state = codec.encode_chunk(sig[:, pos:pos + step], state)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(t)
+    return torch.cat(toks, 1), ms
+
+
+def phase_hilcodec(torch, rows):
+    """HILCodec-24k (32 → 512 channels over strides (2, 4, 5, 8), hop 320,
+    8 x 1024 x 128 RVQ, waveform skips): no kernel launch a roundtrip; then
+    the first request streamed through ``encode_chunk`` in 80 ms chunks (6
+    frames), no launch, its tokens against the card's batch encode, and the
+    chunk times."""
+    from audiocodecs_tpu_torch.models.hilcodec import HILCodec
+    from audiocodecs_tpu_torch.quant.rvq import rvq_decode, rvq_encode
+
+    sr, K, hop, frames = 24000, 8, 320, 6
+    codec, cpu = _server_pair(torch, HILCodec, sr, sr, num_codebooks=K)
+    requests = _zoo_requests(18, sr, 120001)
+
+    def shapes(shape):  # every strided causal conv rounds down
+        N = shape[1] // hop
+        return (shape[0], N, K), (shape[0], N * hop)
+
+    path = "hilcodec_24k"
+    none = _launch_table(0, 0)
+    _batch_path(torch, rows, path, codec, cpu, requests, none, shapes,
+                (lambda f: rvq_encode(f, codec.codebooks, K),
+                 lambda t: rvq_decode(t, codec.codebooks),
+                 lambda q: codec._feats_to_sig(q, None)))
+
+    sig_dev = torch.as_tensor(requests[0], device="cuda")
+    reset_counts()
+    toks, _ = _encode_stream(torch, codec, sig_dev, frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"{path} stream launches: {json.dumps(counts)}")
+    if counts != none:
+        fail(f"{path} stream: expected no launches, got {counts}")
+    batch = codec.sig_to_toks(sig_dev)
+    if tuple(toks.shape) != tuple(batch.shape):
+        fail(f"{path} stream shapes: toks {tuple(toks.shape)}, batch "
+             f"{tuple(batch.shape)}")
+    mism = int((toks != batch).sum())
+    match = 1.0 - mism / batch.numel()
+    log(f"{path} stream against batch encode on the card: token_match="
+        f"{match:.6f} ({mism} of {batch.numel()} differ)")
+    if not match >= 0.999:
+        fail(f"{path} stream: token_match {match} < 0.999")
+    _, ms = _encode_stream(torch, codec, sig_dev, frames)
+    srt = sorted(ms)
+    p90 = srt[min(len(srt) - 1, math.ceil(0.9 * len(srt)) - 1)]
+    log(f"{path} encode stream B={sig_dev.shape[0]} x {ZOO_SECONDS} s in "
+        f"{len(ms)} chunks of {frames * hop / sr * 1e3:.0f} ms: chunk_ms "
+        f"median={statistics.median(ms):.3f} p90={p90:.3f} max="
+        f"{srt[-1]:.3f}; rtf_per_stream={ZOO_SECONDS / (sum(ms) / 1e3):.3f}")
+    n = codec.frame_size * frames * 10
+    phase_profile(torch,
+                  lambda: _encode_stream(torch, codec, sig_dev[:, :n],
+                                         frames),
+                  statistics.median(ms) * 10, "10 chunks (10 x median)",
+                  top=8)
+
+
+def phase_nanocodec(torch, rows):
+    """NanoCodec-22.05k (16 → 1024 channels over rates (2, 2, 3, 3, 7, 7),
+    hop 1764, HiFiGAN res layers of kernels (3, 7, 11), half-snake, 4 FSQ
+    groups of (8, 8, 8, 8)): no kernel launch a roundtrip."""
+    from audiocodecs_tpu_torch.models.nanocodec import NanoCodec
+
+    sr, K, hop = 22050, 4, 1764
+    codec, cpu = _server_pair(torch, NanoCodec, sr, sr)
+
+    def shapes(shape):  # every strided causal conv rounds up
+        N = math.ceil(shape[1] / hop)
+        return (shape[0], N, K), (shape[0], N * hop)
+
+    _batch_path(torch, rows, "nanocodec_22k", codec, cpu,
+                _zoo_requests(19, sr, 110251), _launch_table(0, 0), shapes,
+                (codec._quantize, codec._toks_to_codes,
+                 lambda q: codec._feats_to_sig(q, None)))
+
+
+def _xcodec2_frames(mc, n_samples: int) -> int:
+    """Frames of both branches, the fewer: the acoustic encoder's strided
+    convs (k = 2s, pad ⌈s/2⌉ a side) floor; w2v-BERT's 10 ms frames of the
+    waveform padded by 160 a side, stacked in pairs."""
+    acoustic = _bigcodec_frames(mc.encoder(), n_samples)
+    mel = 1 + (n_samples + 320 - 400) // 160
+    return min(acoustic, (mel + 1) // 2)
+
+
+def phase_xcodec2(torch, rows):
+    """X-Codec 2.0-16k (BigCodec's encoder at hop 320 with its 2 LSTM layers
+    at H = 1536; w2v-BERT 2.0 to layer 16 of 24; FSQ (4,)x8; a 12-block
+    RoFormer and an ISTFT head): two wide kernel-1 launches a roundtrip
+    (one a layer, 8 rows a launch), nothing else; parity on the ragged
+    request and one row of the first."""
+    from audiocodecs_tpu_torch.models.xcodec2 import XCodec2
+
+    sr = 16000
+    codec, cpu = _server_pair(torch, XCodec2, sr, sr)
+    mc = codec.model_config
+
+    def shapes(shape):
+        N = _xcodec2_frames(mc, shape[1])
+        return (shape[0], N, 1), (shape[0], N * mc.hop_length)
+
+    requests = _zoo_requests(20, sr, 80001)
+    _batch_path(torch, rows, "xcodec2_16k", codec, cpu, requests,
+                _launch_table(2, 0, wide=2), shapes,
+                (lambda f: codec._quantize(f)[..., None],
+                 lambda t: codec._toks_to_qfeats(t, None), codec._decode),
+                parity_rows=1)
+    _fsq_margin(torch, "xcodec2_16k", codec, cpu, requests[-1])
+
+
+def _fsq_margin(torch, path, codec, cpu, sig):
+    """How near X-Codec 2.0's FSQ rounding boundaries the card's latents
+    fall on ``sig``: the least distance of a bounded latent to a half-step
+    (where a token flips), beside the largest gap between the card's and
+    the CPU path's bounded latents. A token can differ only where the gap
+    exceeds the margin."""
+    from audiocodecs_tpu_torch.nn.transformer import _linear
+    from audiocodecs_tpu_torch.quant.fsq import fsq_bound
+
+    levels = codec.model_config.levels
+
+    def bounded(c):
+        with torch.inference_mode():
+            z = c.sig_to_feats(sig)
+            return fsq_bound(_linear(z, c.quantizer.project_in),
+                             levels).cpu().double()
+
+    b_card, b_cpu = bounded(codec), bounded(cpu)
+    margin = 0.5 - (b_card - torch.round(b_card)).abs()
+    gap = float((b_card - b_cpu).abs().max())
+    log(f"{path} FSQ margin on {sig.shape}: least distance of a bounded "
+        f"latent to a half-step {float(margin.min()):.3e} (median "
+        f"{float(margin.median()):.3e}); {int((margin < gap).sum())} of "
+        f"{margin.numel()} latents nearer than the largest card-CPU gap "
+        f"{gap:.3e}")
+
+
+def phase_stablecodec(torch, rows):
+    """StableCodec-16k (patch 320, dim 1024, 8 + 8 RoFormer blocks a side,
+    the residual FSQ (2, 15625)): no kernel launch a roundtrip."""
+    from audiocodecs_tpu_torch.models.stablecodec import StableCodec
+
+    sr, K, hop = 16000, 2, 640
+    codec, cpu = _server_pair(torch, StableCodec, sr, sr)
+
+    def shapes(shape):  # padded to whole 640-sample windows
+        N = math.ceil(shape[1] / hop)
+        return (shape[0], N, K), (shape[0], N * hop)
+
+    _batch_path(torch, rows, "stablecodec_16k", codec, cpu,
+                _zoo_requests(21, sr, 80001), _launch_table(0, 0), shapes,
+                (lambda f: codec._residual_encode(f, K),
+                 lambda t: codec._toks_to_qfeats(t, None), codec._decode))
+
+
+def phase_magicodec(torch, rows):
+    """MagiCodec-16k (patch conv k 640 / stride 320, dim 1024, 8 RoFormer
+    blocks a side, one 131072 x 16 codebook on unit vectors): no kernel
+    launch a roundtrip."""
+    from audiocodecs_tpu_torch.models.magicodec import MagiCodec
+
+    sr, hop = 16000, 320
+    codec, cpu = _server_pair(torch, MagiCodec, sr, sr)
+
+    def shapes(shape):
+        N = shape[1] // hop
+        return (shape[0], N, 1), (shape[0], N * hop)
+
+    _batch_path(torch, rows, "magicodec_16k", codec, cpu,
+                _zoo_requests(22, sr, 80001), _launch_table(0, 0), shapes,
+                (lambda f: codec._quantize(f)[..., None],
+                 lambda t: codec._toks_to_qfeats(t, None), codec._decode))
+
+
 def main() -> None:
     import torch
 
@@ -2913,6 +3160,11 @@ def main() -> None:
     phase_resblock_default(torch, peaks, rows)
     phase_seanet_tiers(torch, rows)
     phase_certify(torch, rows)
+    for phase in (phase_audiodec, phase_hilcodec, phase_nanocodec,
+                  phase_xcodec2, phase_stablecodec, phase_magicodec):
+        t1 = time.perf_counter()
+        phase(torch, rows)
+        log(f"{phase.__name__} seconds: {time.perf_counter() - t1:.1f}")
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))
     log(f"card: {card}")

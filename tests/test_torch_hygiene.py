@@ -59,7 +59,17 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.models.bigcodec",
               "audiocodecs_tpu_torch.examples.serve",
               "audiocodecs_tpu_torch.serving",
-              "audiocodecs_tpu_torch.quant.certify"):
+              "audiocodecs_tpu_torch.quant.certify",
+              "audiocodecs_tpu_torch.quant.fsq",
+              "audiocodecs_tpu_torch.models.audiodec",
+              "audiocodecs_tpu_torch.models.hilcodec",
+              "audiocodecs_tpu_torch.models.nanocodec",
+              "audiocodecs_tpu_torch.nn.roformer",
+              "audiocodecs_tpu_torch.nn.kaldi_fbank",
+              "audiocodecs_tpu_torch.nn.w2vbert",
+              "audiocodecs_tpu_torch.models.xcodec2",
+              "audiocodecs_tpu_torch.models.stablecodec",
+              "audiocodecs_tpu_torch.models.magicodec"):
         assert m in mods
 
 
@@ -73,6 +83,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
         "p.Mimi; p.SpeechTokenizer; p.WavTokenizer\n"
         "p.WavTokenizerModelConfig; p.SEANetRVQCodec; p.SEANetRVQConfig\n"
         "p.PAST; p.BigCodec; p.BigCodecModelConfig\n"
+        "p.AudioDec; p.HILCodec; p.NanoCodec; p.XCodec2; p.StableCodec\n"
+        "p.MagiCodec; p.XCodec2ModelConfig\n"
         "from audiocodecs_tpu_torch.models import get_codec_class\n"
         "get_codec_class('bigcodec')\n"
         "from audiocodecs_tpu_torch.serving import apply_serving_preset\n"
@@ -97,6 +109,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.examples.serve" in loaded
     assert "audiocodecs_tpu_torch.serving" in loaded
     assert "audiocodecs_tpu_torch.quant.certify" in loaded
+    assert "audiocodecs_tpu_torch.models.xcodec2" in loaded
+    assert "audiocodecs_tpu_torch.nn.w2vbert" in loaded
     assert not [m for m in loaded if _is_reference(m)]
 
 
@@ -121,6 +135,7 @@ def test_no_import_statement_names_jax_or_reference(path):
 def test_default_device_is_the_card(monkeypatch):
     from audiocodecs_tpu_torch.codec import resolve_device
     from audiocodecs_tpu_torch.examples import serve
+    from audiocodecs_tpu_torch.models import get_codec_class
     from audiocodecs_tpu_torch.models.bigcodec import BigCodec
     from audiocodecs_tpu_torch.models.dac import DAC
     from audiocodecs_tpu_torch.models.encodec import Encodec
@@ -147,6 +162,11 @@ def test_default_device_is_the_card(monkeypatch):
         PAST(16000)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BigCodec(16000)
+    for name in ("audiodec", "hilcodec", "nanocodec", "xcodec2",
+                 "stablecodec", "magicodec"):
+        cls = get_codec_class(name)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(cls.default_model_config().sampling_rate)
     # the server's entry point asks for the card too (before any request),
     # in every serving tier
     with pytest.raises(RuntimeError, match="CUDA is not available"):

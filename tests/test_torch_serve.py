@@ -87,18 +87,33 @@ def test_a_failing_batch_reaches_every_request_and_the_worker_goes_on():
 
 def test_registry_names_and_classes():
     names = models.available_codecs()
-    assert names == ["bigcodec", "dac", "encodec", "mimi", "past",
-                     "speechtokenizer", "wavtokenizer"]
+    assert names == ["audiodec", "bigcodec", "dac", "encodec", "hilcodec",
+                     "magicodec", "mimi", "nanocodec", "past",
+                     "speechtokenizer", "stablecodec", "wavtokenizer",
+                     "xcodec2"]
     assert set(names) <= set(jax_available())
+    assert sorted(set(jax_available()) - set(names)) == [
+        "bicodec", "dycast", "focalcodec", "semanticodec", "wavlm_kmeans"]
+    assert sorted(models._NOT_PORTED) == sorted(set(jax_available())
+                                                - set(names))
+    from audiocodecs_tpu_torch.models.audiodec import AudioDec
     from audiocodecs_tpu_torch.models.dac import DAC
+    from audiocodecs_tpu_torch.models.hilcodec import HILCodec
+    from audiocodecs_tpu_torch.models.magicodec import MagiCodec
     from audiocodecs_tpu_torch.models.mimi import Mimi
+    from audiocodecs_tpu_torch.models.nanocodec import NanoCodec
     from audiocodecs_tpu_torch.models.past import PAST
     from audiocodecs_tpu_torch.models.speechtokenizer import SpeechTokenizer
+    from audiocodecs_tpu_torch.models.stablecodec import StableCodec
     from audiocodecs_tpu_torch.models.wavtokenizer import WavTokenizer
+    from audiocodecs_tpu_torch.models.xcodec2 import XCodec2
 
     want = {"bigcodec": BigCodec, "dac": DAC, "encodec": Encodec,
             "mimi": Mimi, "past": PAST, "speechtokenizer": SpeechTokenizer,
-            "wavtokenizer": WavTokenizer}
+            "wavtokenizer": WavTokenizer, "audiodec": AudioDec,
+            "hilcodec": HILCodec, "nanocodec": NanoCodec,
+            "xcodec2": XCodec2, "stablecodec": StableCodec,
+            "magicodec": MagiCodec}
     for name, cls in want.items():
         assert models.get_codec_class(name) is cls
         assert models.get_codec_class(name.upper()) is cls

@@ -47,6 +47,14 @@ def clean_env():
 
 SEANET_FAMILIES = ("encodec", "mimi", "past", "speechtokenizer",
                    "wavtokenizer")
+# the zoo's families under the EnCodec-style tier: whether the decoder
+# reads the activation dtype (none does, so the tier decodes exactly; the
+# tier tests of tests/test_torch_zoo_*.py and test_torch_xcodec2.py hold
+# each decode bit for bit to its exact tier's, as the reference's)
+ZOO_READS_ACT_DTYPE = {"audiodec": False, "hilcodec": False,
+                       "nanocodec": False, "xcodec2": False,
+                       "stablecodec": False, "magicodec": False}
+ENCODEC_STYLE = (*SEANET_FAMILIES, *ZOO_READS_ACT_DTYPE)
 
 
 def _port_form(env: dict, family: str) -> dict:
@@ -55,16 +63,20 @@ def _port_form(env: dict, family: str) -> dict:
     one_pass = bf16 or env.get("ACX_DEC_CONV_PRECISION") == "default"
     form = {"decode_dtype": torch.bfloat16 if bf16 else torch.float32,
             "decode_precision": "default" if one_pass else "exact"}
-    if family not in SEANET_FAMILIES:
+    if family not in ENCODEC_STYLE:
         form["snake_poly"] = env.get("ACX_SNAKE_APPROX") == "1"
     else:  # the EnCodec-style env sets no snake and no encoder precision
         assert env.get("ACX_SNAKE_APPROX", "") == ""
         assert env.get("ACX_CONV_PRECISION", "highest") == "highest"
+    if not ZOO_READS_ACT_DTYPE.get(family, True):
+        # nor a decoder precision: a decoder that reads no activation
+        # dtype runs at "highest", the exact form the port decodes in
+        assert env.get("ACX_DEC_CONV_PRECISION", "") == ""
     return form
 
 
 @pytest.mark.parametrize("quality", ["exact", "balanced", "fast"])
-@pytest.mark.parametrize("family", ["dac", "bigcodec", *SEANET_FAMILIES,
+@pytest.mark.parametrize("family", ["dac", "bigcodec", *ENCODEC_STYLE,
                                     "nosuchfamily"])
 def test_presets_agree_with_the_reference(family, quality):
     """Every batch, the DAC crossover at 4 included: the port's arguments
@@ -82,7 +94,7 @@ def test_presets_agree_with_the_reference(family, quality):
 
 def test_listed_families_and_their_tiers():
     assert sorted(SERVING_PRESETS) == sorted(["bigcodec", "dac",
-                                              *SEANET_FAMILIES])
+                                              *ENCODEC_STYLE])
     bf16_poly = {"decode_dtype": torch.bfloat16,
                  "decode_precision": "default", "snake_poly": True}
     exact = {"decode_dtype": torch.float32, "decode_precision": "exact",
@@ -98,7 +110,7 @@ def test_listed_families_and_their_tiers():
     for family in ("dac", "bigcodec"):
         assert apply_serving_preset(family, "exact") == exact
     bf16 = {"decode_dtype": torch.bfloat16, "decode_precision": "default"}
-    for family in SEANET_FAMILIES:  # fast is balanced; batch selects nothing
+    for family in ENCODEC_STYLE:  # fast is balanced; batch selects nothing
         for quality in ("balanced", "fast"):
             for batch in _BATCHES:
                 assert apply_serving_preset(family, quality, batch) == bf16
