@@ -9,17 +9,28 @@ built at first use (:mod:`audiocodecs_tpu_torch.ops._build`).
 Importing the package is light: the codec classes load on first access.
 """
 
-__all__ = ["AudioDec", "AudioDecModelConfig", "BigCodec",
-           "BigCodecModelConfig", "Codec", "CodecConfig", "DAC",
-           "DACModelConfig", "Encodec", "EncodecModelConfig", "HILCodec",
+__all__ = ["AudioDec", "AudioDecModelConfig", "BiCodec",
+           "BiCodecModelConfig", "BigCodec", "BigCodecModelConfig", "Codec",
+           "CodecConfig", "DAC", "DACModelConfig", "DyCAST",
+           "DyCASTModelConfig", "Encodec", "EncodecModelConfig",
+           "FocalCodec", "FocalCodecModelConfig", "HILCodec",
            "HILCodecModelConfig", "MagiCodec", "MagiCodecModelConfig",
            "Mimi", "MimiModelConfig", "NanoCodec", "NanoCodecModelConfig",
            "PAST", "SEANetRVQCodec", "SEANetRVQConfig", "SpeechTokenizer",
            "SpeechTokenizerModelConfig", "StableCodec",
-           "StableCodecModelConfig", "WavTokenizer",
-           "WavTokenizerModelConfig", "XCodec2", "XCodec2ModelConfig"]
+           "StableCodecModelConfig", "WavLMKmeans", "WavLMKmeansModelConfig",
+           "WavTokenizer", "WavTokenizerModelConfig", "XCodec2",
+           "XCodec2ModelConfig"]
 
 _LAZY = {
+    "BiCodec": "audiocodecs_tpu_torch.models.bicodec",
+    "BiCodecModelConfig": "audiocodecs_tpu_torch.models.bicodec",
+    "DyCAST": "audiocodecs_tpu_torch.models.dycast",
+    "DyCASTModelConfig": "audiocodecs_tpu_torch.models.dycast",
+    "FocalCodec": "audiocodecs_tpu_torch.models.focalcodec",
+    "FocalCodecModelConfig": "audiocodecs_tpu_torch.models.focalcodec",
+    "WavLMKmeans": "audiocodecs_tpu_torch.models.wavlm_kmeans",
+    "WavLMKmeansModelConfig": "audiocodecs_tpu_torch.models.wavlm_kmeans",
     "AudioDec": "audiocodecs_tpu_torch.models.audiodec",
     "AudioDecModelConfig": "audiocodecs_tpu_torch.models.audiodec",
     "HILCodec": "audiocodecs_tpu_torch.models.hilcodec",

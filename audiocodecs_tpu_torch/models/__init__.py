@@ -27,11 +27,15 @@ _CODEC_REGISTRY = {
     "stablecodec": ("audiocodecs_tpu_torch.models.stablecodec",
                     "StableCodec"),
     "magicodec": ("audiocodecs_tpu_torch.models.magicodec", "MagiCodec"),
+    "wavlm_kmeans": ("audiocodecs_tpu_torch.models.wavlm_kmeans",
+                     "WavLMKmeans"),
+    "dycast": ("audiocodecs_tpu_torch.models.dycast", "DyCAST"),
+    "focalcodec": ("audiocodecs_tpu_torch.models.focalcodec", "FocalCodec"),
+    "bicodec": ("audiocodecs_tpu_torch.models.bicodec", "BiCodec"),
 }
 
 # registered by the reference package, not ported yet
-_NOT_PORTED = ("bicodec", "dycast", "focalcodec", "semanticodec",
-               "wavlm_kmeans")
+_NOT_PORTED = ("semanticodec",)
 
 
 def get_codec_class(name: str):

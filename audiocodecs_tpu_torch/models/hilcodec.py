@@ -18,9 +18,18 @@ with a constant left context, and the skips' pooling windows do not
 overlap, so carrying each conv's left context from chunk to chunk gives
 the batch encoder's tokens for whole-frame chunks.
 
-``decode_dtype`` and ``decode_precision`` (a serving tier's arguments) are
-taken and checked but change nothing: the reference's HILCodec reads no
-activation dtype, and its decoder precision falls through to exact fp32.
+``decode_dtype`` and ``decode_precision`` (a serving tier's arguments) set
+the decoder's :class:`..nn.layers.DecodeForm` as the reference's switches
+do, where its decoder runs inside ``conv_role("decoder")``: fp32
+activations at ``decode_precision="default"`` (its
+``ACX_DEC_CONV_PRECISION=default``) run every decoder conv and transposed
+conv (the waveform heads' 1×1 convs and the depthwise ones included) on
+bf16-rounded operands with fp32 sums, one bf16 pass. The reference's
+HILCodec reads no activation dtype, so bf16 activations (the EnCodec-style
+tier, which sets no decoder precision) decode exactly, as at the default.
+The reference's bf16 activations together with
+``ACX_DEC_CONV_PRECISION=default`` have no name among the port's arguments,
+and no preset reaches them.
 """
 
 from __future__ import annotations
@@ -39,7 +48,6 @@ from audiocodecs_tpu_torch.nn.layers import (
     ConvTranspose1d,
     DecodeForm,
     conv1d,
-    conv_transpose1d,
     elu,
     init_conv,
 )
@@ -90,18 +98,18 @@ class HILCodecModelConfig:
 
 
 def _cconv(x, conv: Conv1d, stride: int = 1, dilation: int = 1,
-           groups: int = 1):
-    """Causal conv: left pad (k − 1)·d − (s − 1), then valid."""
+           groups: int = 1, form: DecodeForm = DecodeForm()):
+    """Causal conv: left pad (k − 1)·d − (s − 1), then valid, in ``form``."""
     pad = (conv.w.shape[-1] - 1) * dilation - (stride - 1)
     if pad > 0:
         x = F.pad(x, (pad, 0))
-    return conv1d(x, conv.w, conv.b, stride=stride, dilation=dilation,
-                  groups=groups)
+    return form.conv1d(x, conv, stride=stride, dilation=dilation,
+                       groups=groups)
 
 
-def _cconvtr(x, conv: ConvTranspose1d, stride: int):
-    """Causal transposed conv: the first T·s outputs."""
-    y = conv_transpose1d(x, conv.w, conv.b, stride=stride)
+def _cconvtr(x, conv: ConvTranspose1d, stride: int, form: DecodeForm):
+    """Causal transposed conv: the first T·s outputs, in ``form``."""
+    y = form.conv_transpose1d(x, conv, stride=stride)
     return y[..., : x.shape[-1] * stride]
 
 
@@ -121,16 +129,16 @@ class _ResUnit(nn.Module):
         self.dilation = dilation
         self.scaled = cfg.var_constrained
 
-    def close(self, x, h):
+    def close(self, x, h, form: DecodeForm = DecodeForm()):
         """The unit's output from its input ``x`` and its depthwise conv's
         output ``h``: the pointwise half, the residual sum, its scale."""
-        y = x + conv1d(elu(h), self.pw.w, self.pw.b)
+        y = x + form.conv1d(elu(h), self.pw)
         return y * _INV_SQRT2 if self.scaled else y
 
-    def forward(self, x):
+    def forward(self, x, form: DecodeForm = DecodeForm()):
         h = _cconv(elu(x), self.dw, dilation=self.dilation,
-                   groups=self.groups)
-        return self.close(x, h)
+                   groups=self.groups, form=form)
+        return self.close(x, h, form)
 
 
 class _EncoderBlock(nn.Module):
@@ -182,10 +190,13 @@ class _Encoder(nn.Module):
 
 
 class _Decoder(nn.Module):
-    """``[B, emb_dim, N]`` → ``[B, N·hop]`` (the waveform heads summed in)."""
+    """``[B, emb_dim, N]`` → ``[B, N·hop]`` (the waveform heads summed in),
+    every conv in ``form``."""
 
-    def __init__(self, cfg: HILCodecModelConfig):
+    def __init__(self, cfg: HILCodecModelConfig,
+                 form: DecodeForm = DecodeForm()):
         super().__init__()
+        self.form = form
         self.stem = Conv1d(cfg.emb_dim, cfg.top_width, 3)
         blocks, ch = [], cfg.top_width
         for out, s in zip(reversed(cfg.widths), reversed(cfg.strides)):
@@ -197,18 +208,19 @@ class _Decoder(nn.Module):
         self.hop = cfg.hop_length
 
     def forward(self, q):
-        x = _cconv(q, self.stem)
+        f = self.form
+        x = _cconv(q, self.stem, form=f)
         rate, out = self.hop, None
         for b in self.blocks:
-            x = _cconvtr(elu(x), b.up, b.stride)
+            x = _cconvtr(elu(x), b.up, b.stride, f)
             rate //= b.stride
             for unit in b.res:
-                x = unit(x)
+                x = unit(x, f)
             if self.skips:
-                w = torch.repeat_interleave(
-                    conv1d(x, b.skip.w, b.skip.b), rate, dim=-1)
+                w = torch.repeat_interleave(f.conv1d(x, b.skip), rate,
+                                            dim=-1)
                 out = w if out is None else out[..., : w.shape[-1]] + w
-        y = _cconv(elu(x), self.head)
+        y = _cconv(elu(x), self.head, form=f)
         if out is not None:
             y = y + out[..., : y.shape[-1]]
         return y[:, 0]
@@ -261,7 +273,7 @@ class HILCodec(Codec):
         if mode != "decode":
             self.encoder = _Encoder(mc)
         if mode != "encode":
-            self.decoder = _Decoder(mc)
+            self.decoder = _Decoder(mc, form.ignoring_dtype())
         self.codebooks = nn.Parameter(torch.empty(
             mc.num_quantizers, mc.codebook_size, mc.emb_dim))
         if state_dict is None:

@@ -11,11 +11,18 @@ unit-normed vectors (``l2_normalized``; the search is one
 ``out_proj`` back to 1024 → an 8-block RoFormer decoder → LayerNorm → a
 stride-320 transposed conv, trimmed by 160 a side.
 
-Everything runs in exact fp32 (TF32 off), the codebook distances
-included. ``decode_dtype`` and ``decode_precision`` (a serving tier's
-arguments) are taken and checked but change nothing: the reference's
-MagiCodec reads no activation dtype, and its decoder precision falls
-through to exact fp32.
+The encoder and the quantizer run in exact fp32 (TF32 off), the codebook
+distances included. ``decode_dtype`` and ``decode_precision`` (a serving
+tier's arguments) set the decoder's :class:`..nn.layers.DecodeForm` as the
+reference's switches do, where its decoder runs inside
+``conv_role("decoder")``: fp32 activations at
+``decode_precision="default"`` (its ``ACX_DEC_CONV_PRECISION=default``) run
+the decoder's RoFormer products and its transposed conv on bf16-rounded
+operands with fp32 sums, one bf16 pass. The reference's MagiCodec reads no
+activation dtype, so bf16 activations (the EnCodec-style tier, which sets
+no decoder precision) decode exactly, as at the default. The reference's
+bf16 activations together with ``ACX_DEC_CONV_PRECISION=default`` have no
+name among the port's arguments, and no preset reaches them.
 """
 
 from __future__ import annotations
@@ -33,7 +40,6 @@ from audiocodecs_tpu_torch.nn.layers import (
     ConvTranspose1d,
     DecodeForm,
     conv1d,
-    conv_transpose1d,
     unit_norm,
 )
 from audiocodecs_tpu_torch.nn.roformer import (
@@ -114,6 +120,7 @@ class MagiCodec(Codec):
         self.model_config = mc
         self.latent = latent
         self.decode_form = form
+        self._dec_form = form.ignoring_dtype()
         C, D, k = mc.dim, mc.codebook_dim, 2 * mc.hop_length
         if mode != "decode":
             self.patch = Conv1d(1, C, k)
@@ -153,9 +160,10 @@ class MagiCodec(Codec):
 
     def _decode(self, h):
         mc = self.model_config
-        x = _ln(apply_roformer(self.dec, h, mc.roformer()), self.dec_norm)
-        y = conv_transpose1d(x.transpose(1, 2), self.unpatch.w,
-                             self.unpatch.b, stride=mc.hop_length)
+        f = self._dec_form
+        x = _ln(apply_roformer(self.dec, h, mc.roformer(), f), self.dec_norm)
+        y = f.conv_transpose1d(x.transpose(1, 2), self.unpatch,
+                               stride=mc.hop_length)
         pad = mc.hop_length // 2
         return y[:, 0, pad: y.shape[-1] - pad]
 

@@ -14,10 +14,20 @@ its fixed scale on a 6-d lattice, (2, 15625) by default (levels (5,)×6,
 scales (1, 0.25)). The decoder mirrors the encoder and unpatchifies with a
 stride-320 transposed conv.
 
-Everything runs in exact fp32 (TF32 off). ``decode_dtype`` and
-``decode_precision`` (a serving tier's arguments) are taken and checked
-but change nothing: the reference's StableCodec reads no activation dtype,
-and its decoder precision falls through to exact fp32.
+The encoder and the quantizer run in exact fp32 (TF32 off).
+``decode_dtype`` and ``decode_precision`` (a serving tier's arguments) set
+the decoder's :class:`..nn.layers.DecodeForm` as the reference's switches
+do, where its decoder runs inside ``conv_role("decoder")``: fp32
+activations at ``decode_precision="default"`` (its
+``ACX_DEC_CONV_PRECISION=default``) run both decoder towers' RoFormer
+products and the unpatchifying transposed conv (the linears ``from_latent``
+and ``dec_up`` stay exact, as the reference gives them no precision) on
+bf16-rounded operands with fp32 sums, one bf16 pass. The reference's
+StableCodec reads no activation dtype, so bf16 activations (the
+EnCodec-style tier, which sets no decoder precision) decode exactly, as at
+the default. The reference's bf16 activations together with
+``ACX_DEC_CONV_PRECISION=default`` have no name among the port's arguments,
+and no preset reaches them.
 """
 
 from __future__ import annotations
@@ -35,7 +45,6 @@ from audiocodecs_tpu_torch.nn.layers import (
     ConvTranspose1d,
     DecodeForm,
     conv1d,
-    conv_transpose1d,
 )
 from audiocodecs_tpu_torch.nn.roformer import (
     Roformer,
@@ -147,6 +156,7 @@ class StableCodec(Codec):
             device=device)
         self.model_config = mc
         self.decode_form = form
+        self._dec_form = form.ignoring_dtype()
         C, D = mc.dim, mc.latent_dim
         if mode != "decode":
             self.patch = Conv1d(1, C, mc.patch)
@@ -199,15 +209,14 @@ class StableCodec(Codec):
         return torch.stack(toks, dim=-1)
 
     def _decode(self, z):
-        mc = self.model_config
+        mc, f = self.model_config, self._dec_form
         x = _linear(z, self.from_latent)
-        x = apply_roformer(self.dec_inner, x, mc.roformer(mc.depth_inner))
+        x = apply_roformer(self.dec_inner, x, mc.roformer(mc.depth_inner), f)
         B, N, C = x.shape
         x = _linear(x, self.dec_up).reshape(B, N * 2, C)
-        x = apply_roformer(self.dec_outer, x, mc.roformer(mc.depth_outer))
+        x = apply_roformer(self.dec_outer, x, mc.roformer(mc.depth_outer), f)
         x = _ln(x, self.dec_norm).transpose(1, 2)
-        y = conv_transpose1d(x, self.unpatch.w, self.unpatch.b,
-                             stride=mc.patch)
+        y = f.conv_transpose1d(x, self.unpatch, stride=mc.patch)
         return y[:, 0]
 
     def _sig_to_feats(self, sig, length):

@@ -25,12 +25,20 @@ and the inverse STFT (n_fft 1280, hop 320, ``padding="same"``,
 :func:`..nn.vocos.istft`). ``fc_post_s`` (the semantic reconstruction head)
 is carried for the weights' sake and never run.
 
-Everything runs in exact fp32 (TF32 off): the encoders, w2v-BERT, the FSQ
-projections and, as in the reference under every serving preset, the
-decoder. ``decode_dtype`` and ``decode_precision`` (a serving tier's
-arguments) are taken and checked but change nothing: the reference's
-X-Codec 2.0 reads no activation dtype but its BigCodec encoder's (fp32),
-and its decoder precision falls through to exact.
+The encoders, w2v-BERT and the FSQ projections run in exact fp32 (TF32
+off). ``decode_dtype`` and ``decode_precision`` (a serving tier's
+arguments) set the decoder's :class:`..nn.layers.DecodeForm` as the
+reference's switches do, where its decoder runs inside
+``conv_role("decoder")``: fp32 activations at
+``decode_precision="default"`` (its ``ACX_DEC_CONV_PRECISION=default``) run
+the decoder's embed conv and its RoFormer products (the linears
+``fc_post_a`` and ``head`` stay exact, as the reference gives them no
+precision) on bf16-rounded operands with fp32 sums, one bf16 pass. The
+reference's X-Codec 2.0 reads no activation dtype but its BigCodec
+encoder's (fp32), so bf16 activations (the EnCodec-style tier, which sets
+no decoder precision) decode exactly, as at the default. The reference's
+bf16 activations together with ``ACX_DEC_CONV_PRECISION=default`` have no
+name among the port's arguments, and no preset reaches them.
 """
 
 from __future__ import annotations
@@ -208,6 +216,7 @@ class XCodec2(Codec):
             device=device)
         self.model_config = mc
         self.decode_form = form
+        self._dec_form = form.ignoring_dtype()
         A, S, F_ = mc.acoustic_dim, mc.semantic_dim, mc.fused_dim
         if mode != "decode":
             self.encoder = CodecEncoder(mc.encoder())
@@ -255,10 +264,11 @@ class XCodec2(Codec):
 
     def _decode(self, q):
         """Post-quantizer embedding ``[B, N, fused_dim]`` → ``[B, N·hop]``."""
-        mc, bb = self.model_config, self.backbone
+        mc, bb, f = self.model_config, self.backbone, self._dec_form
         h = _linear(q, self.fc_post_a).transpose(1, 2)
-        h = _ln(_conv_same(h, bb.embed).transpose(1, 2), bb.norm_in)
-        h = _ln(apply_roformer(bb.roformer, h, mc.backbone()), bb.norm_out)
+        h = f.conv1d(h, bb.embed, pad=(bb.embed.w.shape[-1] - 1) // 2)
+        h = _ln(h.transpose(1, 2), bb.norm_in)
+        h = _ln(apply_roformer(bb.roformer, h, mc.backbone(), f), bb.norm_out)
         y = _linear(h, self.head)
         half = mc.n_fft // 2 + 1
         mag = torch.exp(torch.clamp(y[..., :half], max=100.0))

@@ -270,6 +270,44 @@ class DecodeForm:
     def exact(self) -> bool:
         return self == DecodeForm()
 
+    @property
+    def one_pass(self) -> bool:
+        """fp32 activations at one bf16 pass: every product takes
+        bf16-rounded operands and sums in fp32."""
+        return self.dtype == torch.float32 and self.precision == "default"
+
+    def ignoring_dtype(self) -> "DecodeForm":
+        """The form of a stack that reads no activation dtype, only the
+        decoder's precision (the zoo's transformer and conv decoders
+        inside the reference's ``conv_role("decoder")``): this form with
+        fp32 activations; the exact form for bf16 activations, whose tier
+        (``ACX_ACT_DTYPE=decoder-bfloat16``) sets no decoder precision.
+        The reference's bf16 activations together with
+        ``ACX_DEC_CONV_PRECISION=default`` have no name among the forms."""
+        return self if self.dtype == torch.float32 else DecodeForm()
+
+    def rounded(self, module: nn.Module, name: str) -> torch.Tensor:
+        """``module.<name>`` as an operand of this form's products: rounded
+        to bf16 (kept as fp32, built once and again only when it changes)
+        in the one-pass form, else itself."""
+        if not self.one_pass:
+            return getattr(module, name)
+        return _cached(module, name, "rounded",
+                       lambda t: t.to(torch.bfloat16).float())
+
+    def operand(self, x: torch.Tensor) -> torch.Tensor:
+        """An activation as an operand of this form's products: rounded to
+        bf16 in the one-pass form, else itself."""
+        return x.to(torch.bfloat16).float() if self.one_pass else x
+
+    def matmul(self, x: torch.Tensor, module: nn.Module,
+               name: str) -> torch.Tensor:
+        """``x @ module.<name>`` in this form: full fp32 (TF32 off), on
+        bf16-rounded operands in the one-pass form."""
+        w = self.rounded(module, name)
+        with exact_fp32():
+            return torch.matmul(self.operand(x), w)
+
     def param(self, module: nn.Module, name: str) -> torch.Tensor:
         """``module.<name>`` (a weight, bias or α) in the activations'
         dtype."""
@@ -278,11 +316,10 @@ class DecodeForm:
         return _cached(module, name, self.dtype, lambda t: t.to(self.dtype))
 
     def _conv(self, fn, x, conv, **kw):
-        w = self.param(conv, "w")
-        if self.dtype == torch.float32 and self.precision == "default":
-            w = _cached(conv, "w", "rounded",
-                        lambda t: t.to(torch.bfloat16).float())
-            x = x.to(torch.bfloat16).float()
+        if self.one_pass:
+            w, x = self.rounded(conv, "w"), self.operand(x)
+        else:
+            w = self.param(conv, "w")
         b = None if conv.b is None else self.param(conv, "b")
         if self.dtype == torch.float32:
             return fn(x, w, b, **kw)
@@ -292,11 +329,12 @@ class DecodeForm:
         return y if b is None else y + b[:, None]
 
     def conv1d(self, x, conv: Conv1d, *, stride: int = 1, dilation: int = 1,
-               pad: int = 0):
+               pad: int = 0, groups: int = 1):
         """Symmetric zero pad, then a valid conv in this form."""
         if pad:
             x = F.pad(x, (pad, pad))
-        return self._conv(conv1d, x, conv, stride=stride, dilation=dilation)
+        return self._conv(conv1d, x, conv, stride=stride, dilation=dilation,
+                          groups=groups)
 
     def causal_conv1d(self, x, conv: Conv1d, *, stride: int = 1,
                       dilation: int = 1, causal: bool = True,

@@ -13,8 +13,12 @@ feed-forward) and StableCodec's towers (gateless, SwiGLU). A block:
 
 Weights keep the reference's names and layouts (``attn.qkv_w [C, 3C]``,
 ``ffn.w1 [C, F]`` …, applied as ``x @ w``), so the weight bridge copies
-them unchanged. Every product runs in exact fp32 (TF32 off), the
-reference's precision at its default and under every serving preset.
+them unchanged. Every product runs in a
+:class:`..nn.layers.DecodeForm`'s precision: exact fp32 (TF32 off) by
+default, the reference's ``_precision()`` in an encoder and in a decoder
+at its default; or, for a decoder built with fp32 activations at one bf16
+pass, on bf16-rounded operands with fp32 sums, the reference's decoder
+under ``ACX_DEC_CONV_PRECISION=default`` (``conv_role("decoder")``).
 Attention is :func:`..nn.transformer.attention`: two batched products, the
 scores and the softmax in fp32, not ``scaled_dot_product_attention``. The
 reference computes it outside any Pallas kernel, so this is plain PyTorch.
@@ -30,8 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audiocodecs_tpu_torch.nn.layers import exact_fp32
-from audiocodecs_tpu_torch.nn.transformer import Linear, _linear, attention
+from audiocodecs_tpu_torch.nn.layers import DecodeForm
+from audiocodecs_tpu_torch.nn.transformer import Linear, attention
 
 __all__ = ["RoformerConfig", "Roformer", "apply_roformer",
            "init_roformer_params"]
@@ -66,13 +70,13 @@ class _FFN(nn.Module):
         self.w2 = nn.Parameter(torch.empty(F_, C))
         self.kind = cfg.ffn
 
-    def forward(self, h):
-        with exact_fp32():
-            if self.kind == "swiglu":
-                h = F.silu(h @ self.w1) * (h @ self.wg)
-                return h @ self.w2
-            h = F.gelu(h @ self.w1 + self.b1)
-            return h @ self.w2 + self.b2
+    def forward(self, h, form: DecodeForm = DecodeForm()):
+        if self.kind == "swiglu":
+            h = F.silu(form.matmul(h, self, "w1")) * form.matmul(h, self,
+                                                                  "wg")
+            return form.matmul(h, self, "w2")
+        h = F.gelu(form.matmul(h, self, "w1") + self.b1)
+        return form.matmul(h, self, "w2") + self.b2
 
 
 class _Attention(nn.Module):
@@ -102,8 +106,9 @@ class Roformer(nn.Module):
         self.cfg = cfg
         self.blocks = nn.ModuleList(_Block(cfg) for _ in range(cfg.depth))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_roformer(self, x, self.cfg)
+    def forward(self, x: torch.Tensor,
+                form: DecodeForm = DecodeForm()) -> torch.Tensor:
+        return apply_roformer(self, x, self.cfg, form)
 
 
 def _rmsnorm(x, g):
@@ -143,27 +148,30 @@ def _apply_rope(x, cos, sin):
     return torch.cat([xr * c + _rotate_half(xr) * s, xp], dim=-1)
 
 
-def _attention(x, p: _Attention, cfg: RoformerConfig, cos, sin):
+def _attention(x, p: _Attention, cfg: RoformerConfig, cos, sin,
+               form: DecodeForm):
     B, T, C = x.shape
     H, D = cfg.num_heads, cfg.head_dim
-    with exact_fp32():
-        qkv = (x @ p.qkv_w).reshape(B, T, 3, H, D)
+    qkv = form.matmul(x, p, "qkv_w").reshape(B, T, 3, H, D)
     q, k, v = qkv.unbind(dim=2)  # [B, T, H, D]
     o = attention(_apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v,
-                  scale=D ** -0.5)
+                  scale=D ** -0.5,
+                  operand=form.operand if form.one_pass else None)
     if p.gates is not None:
-        o = o * torch.sigmoid(_linear(x, p.gates))[..., None]
-    with exact_fp32():
-        return o.reshape(B, T, H * D) @ p.out_w
+        gates = form.matmul(x, p.gates, "w") + p.gates.b
+        o = o * torch.sigmoid(gates)[..., None]
+    return form.matmul(o.reshape(B, T, H * D), p, "out_w")
 
 
-def apply_roformer(model: Roformer, x: torch.Tensor,
-                   cfg: RoformerConfig) -> torch.Tensor:
-    """``[B, T, dim]`` → ``[B, T, dim]`` through ``model``'s blocks."""
+def apply_roformer(model: Roformer, x: torch.Tensor, cfg: RoformerConfig,
+                   form: DecodeForm = DecodeForm()) -> torch.Tensor:
+    """``[B, T, dim]`` → ``[B, T, dim]`` through ``model``'s blocks, every
+    product in ``form``'s precision (its activations stay fp32)."""
     cos, sin = _rope_phases(x.shape[1], cfg, x.device)
     for p in model.blocks:
-        x = x + _attention(_rmsnorm(x, p.attn_norm), p.attn, cfg, cos, sin)
-        x = x + p.ffn(_rmsnorm(x, p.ffn_norm))
+        x = x + _attention(_rmsnorm(x, p.attn_norm), p.attn, cfg, cos, sin,
+                           form)
+        x = x + p.ffn(_rmsnorm(x, p.ffn_norm), form)
     return x
 
 

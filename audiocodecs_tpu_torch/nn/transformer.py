@@ -176,11 +176,15 @@ def _additive(ok: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, zero, float("-inf"))
 
 
-def attention(q, k, v, mask=None, scale=None):
+def attention(q, k, v, mask=None, scale=None, operand=None):
     """``q``: [B, T, Hq, D], ``k``/``v``: [B, S, Hkv, D] → [B, T, Hq, D].
 
     GQA by grouping the query heads; scores and softmax in float32. ``mask``
-    broadcasts over scores [B, Hkv, G, T, S]."""
+    broadcasts over scores [B, Hkv, G, T, S]. ``operand`` (a
+    :meth:`..nn.layers.DecodeForm.operand`) maps each operand of the two
+    products (q and k, then the probabilities and v) before it."""
+    if operand is not None:
+        q, k, v = operand(q), operand(k), operand(v)
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     if scale is None:
@@ -194,6 +198,8 @@ def attention(q, k, v, mask=None, scale=None):
         if mask is not None:
             scores = scores + mask
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        if operand is not None:
+            probs = operand(probs)
         out = torch.matmul(probs, vt)  # [B, Hkv, G, T, D]
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, D)
 

@@ -15,8 +15,11 @@ Layouts (reference → port):
   Vocos head's embed ``[7, Cin, dim]`` → ``[dim, Cin, 7]`` and depthwise
   ``dwconv`` ``[7, 1, dim]`` → ``[dim, 1, 7]`` (groups = dim), and the
   SEANet-RVQ projectors ``in_proj`` ``[1, H, D]`` → ``[D, H, 1]`` and
-  ``out_proj`` ``[1, D, H]`` → ``[H, D, 1]``; and a bare conv leaf that a
-  module lists in ``JAX_CONV_LEAVES`` (w2v-BERT's depthwise ``conv.dw``
+  ``out_proj`` ``[1, D, H]`` → ``[H, D, 1]``, the WavLM tower's feature
+  extractor ``[k, Cin, C]`` and its 16-group positional conv ``pos_conv``
+  ``[128, H/16, H]`` → ``[H, H/16, 128]``, FocalNet's depthwise
+  ``focal_convs`` ``[k, 1, C]`` and ECAPA's convs; and a bare conv leaf that
+  a module lists in ``JAX_CONV_LEAVES`` (w2v-BERT's depthwise ``conv.dw``
   ``[31, 1, C]`` → ``[C, 1, 31]``);
 * transposed-conv ``w [K, Cin/G, Cout]`` with G groups, stored pre-flipped
   so that it runs as a plain dilated conv → ``[Cin, Cout/G, K]``, PyTorch's
@@ -34,8 +37,10 @@ Layouts (reference → port):
   [cond_dim, dim]`` with their biases: unchanged;
 * codebooks ``[K, C, H]``, quantizer projections and biases: unchanged;
 * snake ``α``: ``[C]``, or ``[1, 1, C]`` where the reference keeps it so
-  (BigCodec): flattened here, and restored by :func:`to_jax_params` for a
-  model whose class sets ``JAX_ALPHA_SHAPE``.
+  (BigCodec, X-Codec 2.0's encoder, BiCodec's generator): flattened here,
+  and restored by :func:`to_jax_params` for a model whose class sets
+  ``JAX_ALPHA_SHAPE``;
+* a 0-d leaf (DyCAST's boundary bias) stays 0-d.
 """
 
 from __future__ import annotations
@@ -137,7 +142,8 @@ def to_jax_params(state_dict: dict, model: nn.Module):
             a = _to_jax_layout(module, name, t.numpy())
             if alpha_shape is not None and name.startswith("alpha"):
                 a = a.reshape(alpha_shape)
-            node[name] = np.ascontiguousarray(a)
+            # (``ascontiguousarray`` makes a 0-d leaf 1-d)
+            node[name] = np.ascontiguousarray(a).reshape(a.shape)
         for name, child in module.named_children():
             sub = tree(child, f"{prefix}{name}.")
             if sub or isinstance(module, nn.ModuleList):

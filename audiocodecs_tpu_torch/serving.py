@@ -12,15 +12,18 @@ The EnCodec-style tier (``encodec``, ``mimi``, ``past``,
 ``speechtokenizer``, ``wavtokenizer``) is bf16 decoder activations
 (``ACX_ACT_DTYPE=decoder-bfloat16``): every decoder conv one bf16 pass, the
 fused SEANet blocks in their one-pass form on bf16 operands, the LSTMs fp32
-islands. Its ``"fast"`` quality is its ``"balanced"`` one (the reference
-sets no decoder precision of its own there), ``batch`` selects nothing for
-it, and ``"exact"`` is fp32. WavTokenizer's decoder, a Vocos head, reads no
+islands. WavLM + K-means' and DyCAST's SEANet vocoders (``wavlm_kmeans``,
+``dycast``) read the activation dtype too, and decode in bf16. Its
+``"fast"`` quality is its ``"balanced"`` one (the reference sets no decoder
+precision of its own there), ``batch`` selects nothing for it, and
+``"exact"`` is fp32. WavTokenizer's decoder, a Vocos head, reads no
 activation dtype, so its tier decodes as its exact one. So do the zoo's
 families that the reference lists under the same tier (``audiodec``,
-``hilcodec``, ``nanocodec``, ``xcodec2``, ``stablecodec``, ``magicodec``):
-none of their decoders reads the activation dtype, and the tier sets no
-decoder precision, so the reference decodes them in exact fp32. Their
-constructors take the tier's arguments, check them, and decode exactly.
+``hilcodec``, ``nanocodec``, ``xcodec2``, ``stablecodec``, ``magicodec``,
+``focalcodec``, ``bicodec``): none of their decoders reads the activation
+dtype, and the tier sets no decoder precision, so the reference decodes
+them in exact fp32. Their constructors take the tier's arguments, check
+them, and decode exactly.
 
 Three of the reference's settings have no counterpart on the card:
 
@@ -73,6 +76,11 @@ SERVING_PRESETS: dict[str, dict] = {
     "xcodec2": _ENCODEC_STYLE,
     "stablecodec": _ENCODEC_STYLE,
     "magicodec": _ENCODEC_STYLE,
+    "focalcodec": _ENCODEC_STYLE,
+    "bicodec": _ENCODEC_STYLE,
+    # the WavLM families' SEANet vocoders read the activation dtype
+    "wavlm_kmeans": _ENCODEC_STYLE,
+    "dycast": _ENCODEC_STYLE,
     "dac": _DAC_STYLE,
     "bigcodec": _BF16_POLY,
 }

@@ -44,7 +44,8 @@ it fails:
    timings of the kernel on weights packed once (as the model calls it),
    the time of one pack, and the kernel's registers, shared bytes and
    blocks an SM; then at BigCodec-16k's nine decoder units for
-   B = 8 x 10 s (C = 192, 96, 48 at d = 1, 3, 9) beside the cuDNN path;
+   B = 8 x 10 s (C = 192, 96, 48 at d = 1, 3, 9) and BiCodec-16k's six
+   (C = 192 and 96) beside the cuDNN path;
    then each of its other forms (exact with the polynomial snake; one bf16
    pass on the tensor cores with the sin or the polynomial snake, on fp32
    or bf16 activations) at both sets of shapes: held against its plain
@@ -158,7 +159,23 @@ it fails:
    encoder's LSTM at H = 1536; parity on one row of the first request;
    how near its FSQ's half-steps the card's latents fall, beside the
    card-CPU gap),
-   StableCodec-16k and MagiCodec-16k; no other kernel launches.
+   StableCodec-16k and MagiCodec-16k; no other kernel launches;
+29. the zoo's one-pass decoders (``decode_precision="default"`` at fp32
+   activations): HILCodec-24k, StableCodec-16k, X-Codec 2.0-16k and
+   MagiCodec-16k, on the weights of 24, 26-28, each decode a B = 1 x 10 s
+   token grid on the card and on the CPU in the form: the move off exact
+   above 0, the card within it;
+30.-33. the WavLM-tower families at their published widths and full
+   depth, as in 23: WavLM+K-means-16k and DyCAST-16k (no kernel launch;
+   then each one's balanced tier, a bf16 SEANet vocoder, beside its exact
+   one as in 21; DyCAST's boundary margin: how near its threshold the
+   card's logits fall, beside the card-CPU gap, its segments against the
+   capacity, and a full random grid decoded against the CPU),
+   FocalCodec-16k (no kernel launch; its sign margin) and BiCodec-16k
+   (six kernel-3 launches a roundtrip in the exact form, the generator's
+   units at C = 192 and 96, packed on the first decode only; the global
+   tokens' FSQ margin); kernel 3 is also timed at BiCodec's six unit
+   shapes in 6.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -212,6 +229,10 @@ DAC_UNIT_EXTRA = [(3, 96, 1001, 9), (2, 8, 20, 9), (1, 200, 4099, 9),
 DAC_UNIT_BIGCODEC = [(8, C, T, d) for C, T in ((192, 40000), (96, 80000),
                                                (48, 160000))
                      for d in (1, 3, 9)]
+# BiCodec-16k's generator units on the fused unit for B = 8 x 10 s (the six
+# of a decode; its 768- and 384-channel units run unfused)
+DAC_UNIT_BICODEC = [(8, C, T, d) for C, T in ((192, 80000), (96, 160000))
+                    for d in (1, 3, 9)]
 # the Functions' gradients at the training step's shapes: (T, B, H) for B1,
 # (B, C, T) for B2 (EnCodec-24k's four blocks at B = 8 x 1 s) and B3, and
 # (B, C, T, dilation) for B4
@@ -904,29 +925,32 @@ def phase_dac_resunit(torch, peaks):
               for C in (48, 96, 192, 256) for d in (1, 3, 9)}
     log(f"dac_resunit (regs, smem_bytes, blocks_per_sm): {budget}")
     b_ms, b_by = bound(tot["flops"], tot["bytes"], peaks)
-    big = _dac_unit_bigcodec(torch, gen, peaks)
-    worst = max(worst, big["max_abs_err"])
+    big = _dac_unit_model(torch, gen, peaks, "BigCodec", DAC_UNIT_BIGCODEC)
+    bi = _dac_unit_model(torch, gen, peaks, "BiCodec", DAC_UNIT_BICODEC)
+    worst = max(worst, big["max_abs_err"], bi["max_abs_err"])
     return {"name": "dac_resunit", "status": "ported", "route": "cuda",
             "source": "audiocodecs_tpu_torch/csrc/dac_resunit.cu",
             "replaces": "audiocodecs_tpu/ops/dac_resunit_pallas.py:114",
             "launches": 0, "max_abs_err": worst, "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "per_shape": per_shape, "bigcodec": big,
+            "bicodec": bi,
             "shape": "sum over the six fused units of one B=1 x 10 s decode,"
                      " weights packed once"}
 
 
-def _dac_unit_bigcodec(torch, gen, peaks) -> dict:
-    """B4 at BigCodec-16k's nine decoder units for B = 8 x 10 s: each held
-    against its plain version (limit 1e-5 · max(1, max|out|)), then the
-    kernel on weights packed once beside the plain version, which is the
-    model's cuDNN path (snake, ``F.conv1d`` with TF32 off), and the bound."""
+def _dac_unit_model(torch, gen, peaks, model, shapes) -> dict:
+    """B4 at a model's fused decoder units (``shapes``: BigCodec-16k's nine
+    or BiCodec-16k's six for B = 8 x 10 s): each held against its plain
+    version (limit 1e-5 · max(1, max|out|)), then the kernel on weights
+    packed once beside the plain version, which is the model's cuDNN path
+    (snake, ``F.conv1d`` with TF32 off), and the bound."""
     from audiocodecs_tpu_torch.ops.dac_resunit import (
         dac_resunit, dac_resunit_reference, pack_resunit_weights)
 
     tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
     worst, per_shape = 0.0, []
-    for B, C, T, d in DAC_UNIT_BIGCODEC:
+    for B, C, T, d in shapes:
         x, weights = _unit_inputs(torch, gen, B, C, T, "cuda")
         with torch.inference_mode():
             packed = pack_resunit_weights(weights[0], weights[3])
@@ -938,7 +962,7 @@ def _dac_unit_bigcodec(torch, gen, peaks) -> dict:
             del got, want
             if not err <= 1e-5 * scale:
                 fail(f"dac_resunit disagrees with its plain version at "
-                     f"BigCodec's B={B} C={C} T={T} d={d}: {err}")
+                     f"{model}'s B={B} C={C} T={T} d={d}: {err}")
             ms = cuda_ms(torch,
                          lambda: dac_resunit(x, *weights, d, packed=packed),
                          reps=5)
@@ -947,7 +971,7 @@ def _dac_unit_bigcodec(torch, gen, peaks) -> dict:
         flops = 2.0 * B * T * 8 * C * C
         nbytes = 4.0 * (2 * B * C * T + 8 * C * C + 4 * C)
         b_ms, b_by = bound(flops, nbytes, peaks)
-        log(f"dac_resunit BigCodec B={B} C={C} T={T} d={d}: max_abs_err="
+        log(f"dac_resunit {model} B={B} C={C} T={T} d={d}: max_abs_err="
             f"{err:.3e} (limit {1e-5 * scale:.3e}) kernel_ms={ms:.4f} "
             f"plain_ms(cuDNN path)={plain_ms:.4f} kernel/plain="
             f"{ms / plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) "
@@ -961,8 +985,8 @@ def _dac_unit_bigcodec(torch, gen, peaks) -> dict:
             tot[k] += v
         del x, weights, packed
     b_ms, b_by = bound(tot["flops"], tot["bytes"], peaks)
-    log(f"dac_resunit BigCodec, nine units of a B=8 x 10 s decode: "
-        f"kernel_ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+    log(f"dac_resunit {model}, the {len(shapes)} units of a B=8 x 10 s "
+        f"decode: kernel_ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by})")
     return {"ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": worst, "per_shape": per_shape}
@@ -2907,6 +2931,10 @@ def phase_certify(torch, rows):
 
 # Slice 11: the zoo's first six families at their published widths
 ZOO_SECONDS = 10.0
+# the zoo's codecs whose decoder the reference runs in conv_role("decoder"):
+# path → the CPU twin (host memory only) of its phase's codec, whose weights
+# phase_zoo_one_pass decodes with
+ONE_PASS_ZOO = {}
 
 
 def _zoo_requests(seed, sr, ragged):
@@ -2962,6 +2990,7 @@ def phase_hilcodec(torch, rows):
 
     sr, K, hop, frames = 24000, 8, 320, 6
     codec, cpu = _server_pair(torch, HILCodec, sr, sr, num_codebooks=K)
+    ONE_PASS_ZOO["hilcodec_24k"] = cpu  # decoded again in phase 29
     requests = _zoo_requests(18, sr, 120001)
 
     def shapes(shape):  # every strided causal conv rounds down
@@ -3043,9 +3072,11 @@ def phase_xcodec2(torch, rows):
     (one a layer, 8 rows a launch), nothing else; parity on the ragged
     request and one row of the first."""
     from audiocodecs_tpu_torch.models.xcodec2 import XCodec2
+    from audiocodecs_tpu_torch.nn.transformer import _linear
 
     sr = 16000
     codec, cpu = _server_pair(torch, XCodec2, sr, sr)
+    ONE_PASS_ZOO["xcodec2_16k"] = cpu  # decoded again in phase 29
     mc = codec.model_config
 
     def shapes(shape):
@@ -3058,34 +3089,39 @@ def phase_xcodec2(torch, rows):
                 (lambda f: codec._quantize(f)[..., None],
                  lambda t: codec._toks_to_qfeats(t, None), codec._decode),
                 parity_rows=1)
-    _fsq_margin(torch, "xcodec2_16k", codec, cpu, requests[-1])
+    _fsq_margin(torch, "xcodec2_16k", codec, cpu, requests[-1],
+                lambda c, x: _linear(c._sig_to_feats(x, None),
+                                     c.quantizer.project_in), mc.levels)
 
 
-def _fsq_margin(torch, path, codec, cpu, sig):
-    """How near X-Codec 2.0's FSQ rounding boundaries the card's latents
-    fall on ``sig``: the least distance of a bounded latent to a half-step
-    (where a token flips), beside the largest gap between the card's and
-    the CPU path's bounded latents. A token can differ only where the gap
-    exceeds the margin."""
-    from audiocodecs_tpu_torch.nn.transformer import _linear
+def _margin(torch, path, codec, cpu, sig, what, values, distance):
+    """How near the edges where a token flips the card's values fall on
+    ``sig``: ``values(c, x)`` on the card's codec and on its CPU twin, and
+    ``distance(v)`` of each value to its edge; the least distance (and the
+    median) beside the largest card-CPU gap of the values. A token can
+    differ only where the gap exceeds the distance."""
+    def run(c):
+        with torch.inference_mode():
+            x = torch.as_tensor(sig, device=c.device)
+            return values(c, x).cpu().double()
+
+    v_card, v_cpu = run(codec), run(cpu)
+    margin = distance(v_card)
+    gap = float((v_card - v_cpu).abs().max())
+    log(f"{path} {what} margin on {sig.shape}: least distance to the edge "
+        f"{float(margin.min()):.3e} (median {float(margin.median()):.3e}); "
+        f"{int((margin < gap).sum())} of {margin.numel()} values nearer "
+        f"than the largest card-CPU gap {gap:.3e}")
+
+
+def _fsq_margin(torch, path, codec, cpu, sig, latents, levels):
+    """``_margin`` of an FSQ's bounded latents (``latents(c, x)``, on
+    ``levels``) to their half-steps."""
     from audiocodecs_tpu_torch.quant.fsq import fsq_bound
 
-    levels = codec.model_config.levels
-
-    def bounded(c):
-        with torch.inference_mode():
-            z = c.sig_to_feats(sig)
-            return fsq_bound(_linear(z, c.quantizer.project_in),
-                             levels).cpu().double()
-
-    b_card, b_cpu = bounded(codec), bounded(cpu)
-    margin = 0.5 - (b_card - torch.round(b_card)).abs()
-    gap = float((b_card - b_cpu).abs().max())
-    log(f"{path} FSQ margin on {sig.shape}: least distance of a bounded "
-        f"latent to a half-step {float(margin.min()):.3e} (median "
-        f"{float(margin.median()):.3e}); {int((margin < gap).sum())} of "
-        f"{margin.numel()} latents nearer than the largest card-CPU gap "
-        f"{gap:.3e}")
+    _margin(torch, path, codec, cpu, sig, "FSQ",
+            lambda c, x: fsq_bound(latents(c, x), levels),
+            lambda b: 0.5 - (b - torch.round(b)).abs())
 
 
 def phase_stablecodec(torch, rows):
@@ -3095,6 +3131,7 @@ def phase_stablecodec(torch, rows):
 
     sr, K, hop = 16000, 2, 640
     codec, cpu = _server_pair(torch, StableCodec, sr, sr)
+    ONE_PASS_ZOO["stablecodec_16k"] = cpu  # decoded again in phase 29
 
     def shapes(shape):  # padded to whole 640-sample windows
         N = math.ceil(shape[1] / hop)
@@ -3114,6 +3151,7 @@ def phase_magicodec(torch, rows):
 
     sr, hop = 16000, 320
     codec, cpu = _server_pair(torch, MagiCodec, sr, sr)
+    ONE_PASS_ZOO["magicodec_16k"] = cpu  # decoded again in phase 29
 
     def shapes(shape):
         N = shape[1] // hop
@@ -3123,6 +3161,227 @@ def phase_magicodec(torch, rows):
                 _zoo_requests(22, sr, 80001), _launch_table(0, 0), shapes,
                 (lambda f: codec._quantize(f)[..., None],
                  lambda t: codec._toks_to_qfeats(t, None), codec._decode))
+
+
+# Slice 12: the WavLM-tower families at their published widths, and the
+# zoo's decoders at one bf16 pass
+def _wavlm_frames(cfg, n_samples: int) -> int:
+    """Frames of the WavLM tower's conv feature extractor (valid convs)."""
+    n = n_samples
+    for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
+        n = (n - k) // s + 1
+    return n
+
+
+def _vocoder_tier(torch, rows, path, cls, family, exact, sig):
+    """The balanced tier of a family with a SEANet vocoder (bf16 decoder
+    activations: its non-causal blocks run cuDNN in bf16, no kernel) beside
+    the exact tier, as in 21 (``_tier``)."""
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
+
+    kw = apply_serving_preset(family)
+    sr = exact.sample_rate
+    state = {k: v.detach().cpu() for k, v in exact.state_dict().items()}
+    tier = cls(sr, sr, device="cuda", state_dict=state, **kw)
+    cpu = cls(sr, sr, device="cpu", state_dict=state, **kw)
+    _tier(torch, rows, f"{path}_balanced", exact, tier, cpu, sig,
+          _launch_table(0, 0), "one pass", frames=50, units=False)
+    del tier, cpu
+
+
+def phase_wavlm_kmeans(torch, rows):
+    """WavLM+K-means-16k (WavLM-large, 24 x 1024, its layer 6 quantized by
+    512 centroids; the tower runs to layer 6; a SEANet vocoder of 32
+    filters, non-causal): no kernel launch a roundtrip (B2 takes causal
+    blocks only); parity on the ragged request and one row of the first;
+    then its balanced tier (a bf16 vocoder) beside the exact one."""
+    from audiocodecs_tpu_torch.models.wavlm_kmeans import WavLMKmeans
+    from audiocodecs_tpu_torch.quant.vq import vq_encode
+
+    sr = 16000
+    codec, cpu = _server_pair(torch, WavLMKmeans, sr, sr)
+    mc = codec.model_config
+
+    def shapes(shape):
+        N = _wavlm_frames(mc.wavlm, shape[1])
+        return (shape[0], N, 1), (shape[0], N * 320)
+
+    requests = _zoo_requests(23, sr, 80001)
+    _batch_path(torch, rows, "wavlm_kmeans_16k", codec, cpu, requests,
+                _launch_table(0, 0), shapes,
+                (lambda f: vq_encode(f, codec.kmeans[0])[..., None],
+                 lambda t: codec._toks_to_qfeats(t, None), codec._vocode),
+                parity_rows=1)
+    del cpu
+    _vocoder_tier(torch, rows, "wavlm_kmeans_16k", WavLMKmeans,
+                  "wavlm_kmeans", codec, requests[0])
+
+
+def _segment_use(torch, path, codec, sig):
+    """DyCAST's segments an utterance of ``sig`` and the frames of the last
+    one, against the capacity and the duration token's clip."""
+    mc = codec.model_config
+    with torch.inference_mode():
+        _, counts, segments = codec._segments(
+            torch.as_tensor(sig, device="cuda"))
+    log(f"{path} segments on {sig.shape}: {segments.tolist()} of capacity "
+        f"{mc.max_segments}, the last {counts[:, -1].tolist()} frames "
+        f"(duration token clipped to {mc.max_duration - 1})")
+
+
+def phase_dycast(torch, rows):
+    """DyCAST-16k (WavLM-base to layer 6; a boundary head, 128 segments of
+    32 two-bit channels and a duration; a decode budget of 128 x 4 frames;
+    the SEANet vocoder): no kernel launch a roundtrip; parity on the ragged
+    request and one row of the first; the boundary margin; the decode of a
+    random full grid (every segment, durations past the budget) against
+    the CPU path; then its balanced tier (a bf16 vocoder) beside the exact
+    one."""
+    from audiocodecs_tpu_torch.models.dycast import DyCAST
+    from audiocodecs_tpu_torch.nn.wavlm import apply_wavlm
+
+    sr = 16000
+    codec, cpu = _server_pair(torch, DyCAST, sr, sr)
+    mc = codec.model_config
+    S, K = mc.max_segments, mc.num_channels + 1
+
+    def shapes(shape):  # the segment capacity, whatever the input
+        return (shape[0], S, K), (shape[0], S * 4 * 320)
+
+    requests = _zoo_requests(24, sr, 80001)
+    _batch_path(torch, rows, "dycast_16k", codec, cpu, requests,
+                _launch_table(0, 0), shapes, None, parity_rows=1)
+    thr = mc.boundary_threshold
+    _margin(torch, "dycast_16k", codec, cpu, requests[-1], "boundary",
+            lambda c, x: c._boundary_logits(apply_wavlm(
+                c.wavlm, x, mc.wavlm, output_layer=mc.wavlm_layer)),
+            lambda v: (v - thr).abs())
+    _segment_use(torch, "dycast_16k", codec, requests[-1])
+    # a full grid: every segment valid, durations overrunning the budget
+    rng = np.random.default_rng(28)
+    grid = np.concatenate(
+        [rng.integers(0, 4, (1, S, K - 1)),
+         rng.integers(0, mc.max_duration, (1, S, 1))], axis=-1)
+    y = codec.toks_to_sig(grid).cpu()
+    y_cpu = cpu.toks_to_sig(grid)
+    err, lim = float((y - y_cpu).abs().max()), 1e-4 * float(
+        y_cpu.abs().max())
+    log(f"dycast_16k full grid ({S} segments, {int(grid[..., -1].sum())} "
+        f"frames of durations into a budget of {S * 4}): decode card vs "
+        f"CPU max_abs_diff={err:.3e} (limit {lim:.3e})")
+    if not err <= lim:
+        fail("dycast_16k: the full grid's decode disagrees with the CPU")
+    del cpu
+    _vocoder_tier(torch, rows, "dycast_16k", DyCAST, "dycast", codec,
+                  requests[0])
+
+
+def phase_focalcodec(torch, rows):
+    """FocalCodec-16k (6 layers of WavLM-large, a 2-block focal compressor
+    to 13 sign bits, the decompressor and a Vocos head 512 x 8): no kernel
+    launch a roundtrip; parity on the ragged request and one row of the
+    first; the sign margin."""
+    from audiocodecs_tpu_torch.models.focalcodec import FocalCodec, bsq_encode
+
+    sr = 16000
+    codec, cpu = _server_pair(torch, FocalCodec, sr, sr)
+    mc = codec.model_config
+
+    def shapes(shape):  # the ISTFT's "center" padding drops a hop
+        N = _wavlm_frames(mc.wavlm, shape[1])
+        return (shape[0], N, 1), (shape[0], (N - 1) * mc.hop_length)
+
+    requests = _zoo_requests(25, sr, 80001)
+    _batch_path(torch, rows, "focalcodec_16k", codec, cpu, requests,
+                _launch_table(0, 0), shapes,
+                (lambda f: bsq_encode(f)[..., None],
+                 lambda t: codec._toks_to_qfeats(t, None),
+                 codec._decode_latents), parity_rows=1)
+    _margin(torch, "focalcodec_16k", codec, cpu, requests[-1], "sign",
+            lambda c, x: c._latents(x), torch.abs)
+
+
+def phase_bicodec(torch, rows):
+    """BiCodec-16k (wav2vec2-XLSR to hidden state 16 of 24, the ConvNeXt
+    encoder and an 8192 x 8 cosine VQ; the mel, ECAPA, the perceiver and a
+    4^6 FSQ for 32 global tokens; a 1536-channel WaveGenerator): six
+    kernel-3 launches a roundtrip in the exact form (the generator's units
+    at C = 192 and 96), the fused units packed on the first decode only;
+    parity on the ragged request and one row of the first; how near the
+    global tokens' FSQ half-steps the card's latents fall."""
+    from audiocodecs_tpu_torch.models.bicodec import BiCodec
+    from audiocodecs_tpu_torch.models.dac import ResidualUnit
+    from audiocodecs_tpu_torch.ops.dac_resunit import pack_resunit_weights
+
+    sr = 16000
+    codec, cpu = _server_pair(torch, BiCodec, sr, sr)
+    mc = codec.model_config
+    G = mc.num_global_tokens
+    fused = sum(u.fused for u in codec.decoder.modules()
+                if isinstance(u, ResidualUnit))
+
+    def shapes(shape):
+        N = _wavlm_frames(mc.w2v, shape[1])
+        return (shape[0], G + N, 1), (shape[0], N * 320)
+
+    requests = _zoo_requests(26, sr, 80001)
+    _batch_path(torch, rows, "bicodec_16k", codec, cpu, requests,
+                _launch_table(0, 0, dac=fused), shapes, None, parity_rows=1,
+                packs=(lambda: pack_resunit_weights.packs, fused))
+    _fsq_margin(torch, "bicodec_16k global tokens", codec, cpu,
+                requests[-1], lambda c, x: c._global_latents(x),
+                mc.fsq_levels)
+
+
+def phase_zoo_one_pass(torch, rows):
+    """The zoo's decoders that the reference runs inside
+    ``conv_role("decoder")`` at fp32 activations and one bf16 pass
+    (``decode_precision="default"``, its ``ACX_DEC_CONV_PRECISION=
+    default``): HILCodec-24k, StableCodec-16k, X-Codec 2.0-16k and
+    MagiCodec-16k, on the weights of their phases (24, 26-28), each decode
+    one B = 1 x 10 s grid of seeded random tokens in the form on the card
+    and on the CPU, and exactly on the card; no kernel launch; the form's
+    move off the exact decode (rms) above 0, the card within it of the CPU
+    path, as the one-pass tiers in 17; both decodes timed."""
+    cases = (("hilcodec_24k", 8, 1024, 750),
+             ("stablecodec_16k", 2, 15625, 250),
+             ("xcodec2_16k", 1, 65536, 500),
+             ("magicodec_16k", 1, 131072, 500))
+    rng = np.random.default_rng(27)
+    for path, K, C, N in cases:
+        twin = ONE_PASS_ZOO.pop(path)
+        cls, sr = type(twin), twin.sample_rate
+        kw = {"mode": "decode", "num_codebooks": K,
+              "state_dict": twin.state_dict()}
+        exact = cls(sr, sr, device="cuda", **kw)
+        one = cls(sr, sr, device="cuda", decode_precision="default", **kw)
+        cpu = cls(sr, sr, device="cpu", decode_precision="default", **kw)
+        toks = torch.as_tensor(rng.integers(0, C, (1, N, K)), device="cuda")
+        reset_counts()
+        y, y_exact = one.toks_to_sig(toks), exact.toks_to_sig(toks)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != _launch_table(0, 0):
+            fail(f"{path} one pass: expected no launches, got {counts}")
+        t0 = time.perf_counter()
+        y_cpu = cpu.toks_to_sig(toks.cpu())
+        cpu_s = time.perf_counter() - t0
+        if not bool(torch.isfinite(y).all()):
+            fail(f"{path} one pass: non-finite waveform")
+        move, got = _rms(y - y_exact), _rms(y.cpu() - y_cpu)
+        ms = cuda_ms(torch, lambda: one.toks_to_sig(toks), reps=5)
+        ms_exact = cuda_ms(torch, lambda: exact.toks_to_sig(toks), reps=5)
+        log(f"{path} one-pass decode B=1 x 10 s: {ms:.3f} ms warm (exact "
+            f"{ms_exact:.3f} ms); off the exact decode rms={move:.3e} max="
+            f"{float((y - y_exact).abs().max()):.3e} (max|sig| "
+            f"{float(y_exact.abs().max()):.3f}); card vs CPU (same form) "
+            f"rms={got:.3e} (limit {move:.3e}), max="
+            f"{float((y.cpu() - y_cpu).abs().max()):.3e}; "
+            f"cpu_seconds={cpu_s:.1f}")
+        if not 0.0 < move or not got <= move:
+            fail(f"{path} one pass: the form moved the decode by {move}, "
+                 f"the card is {got} off the CPU path")
+        del exact, twin, one, cpu
 
 
 def main() -> None:
@@ -3161,7 +3420,9 @@ def main() -> None:
     phase_seanet_tiers(torch, rows)
     phase_certify(torch, rows)
     for phase in (phase_audiodec, phase_hilcodec, phase_nanocodec,
-                  phase_xcodec2, phase_stablecodec, phase_magicodec):
+                  phase_xcodec2, phase_stablecodec, phase_magicodec,
+                  phase_zoo_one_pass, phase_wavlm_kmeans, phase_dycast,
+                  phase_focalcodec, phase_bicodec):
         t1 = time.perf_counter()
         phase(torch, rows)
         log(f"{phase.__name__} seconds: {time.perf_counter() - t1:.1f}")

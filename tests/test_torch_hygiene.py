@@ -69,7 +69,16 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.nn.w2vbert",
               "audiocodecs_tpu_torch.models.xcodec2",
               "audiocodecs_tpu_torch.models.stablecodec",
-              "audiocodecs_tpu_torch.models.magicodec"):
+              "audiocodecs_tpu_torch.models.magicodec",
+              "audiocodecs_tpu_torch.nn.wavlm",
+              "audiocodecs_tpu_torch.nn.focalnet",
+              "audiocodecs_tpu_torch.nn.ecapa",
+              "audiocodecs_tpu_torch.nn.perceiver",
+              "audiocodecs_tpu_torch.utils.melbank",
+              "audiocodecs_tpu_torch.models.wavlm_kmeans",
+              "audiocodecs_tpu_torch.models.dycast",
+              "audiocodecs_tpu_torch.models.focalcodec",
+              "audiocodecs_tpu_torch.models.bicodec"):
         assert m in mods
 
 
@@ -85,6 +94,7 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
         "p.PAST; p.BigCodec; p.BigCodecModelConfig\n"
         "p.AudioDec; p.HILCodec; p.NanoCodec; p.XCodec2; p.StableCodec\n"
         "p.MagiCodec; p.XCodec2ModelConfig\n"
+        "p.WavLMKmeans; p.DyCAST; p.FocalCodec; p.BiCodec\n"
         "from audiocodecs_tpu_torch.models import get_codec_class\n"
         "get_codec_class('bigcodec')\n"
         "from audiocodecs_tpu_torch.serving import apply_serving_preset\n"
@@ -111,6 +121,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.quant.certify" in loaded
     assert "audiocodecs_tpu_torch.models.xcodec2" in loaded
     assert "audiocodecs_tpu_torch.nn.w2vbert" in loaded
+    assert "audiocodecs_tpu_torch.models.bicodec" in loaded
+    assert "audiocodecs_tpu_torch.nn.wavlm" in loaded
     assert not [m for m in loaded if _is_reference(m)]
 
 
@@ -163,7 +175,8 @@ def test_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BigCodec(16000)
     for name in ("audiodec", "hilcodec", "nanocodec", "xcodec2",
-                 "stablecodec", "magicodec"):
+                 "stablecodec", "magicodec", "wavlm_kmeans", "dycast",
+                 "focalcodec", "bicodec"):
         cls = get_codec_class(name)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cls(cls.default_model_config().sampling_rate)

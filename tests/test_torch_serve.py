@@ -87,17 +87,20 @@ def test_a_failing_batch_reaches_every_request_and_the_worker_goes_on():
 
 def test_registry_names_and_classes():
     names = models.available_codecs()
-    assert names == ["audiodec", "bigcodec", "dac", "encodec", "hilcodec",
-                     "magicodec", "mimi", "nanocodec", "past",
-                     "speechtokenizer", "stablecodec", "wavtokenizer",
+    assert names == ["audiodec", "bicodec", "bigcodec", "dac", "dycast",
+                     "encodec", "focalcodec", "hilcodec", "magicodec",
+                     "mimi", "nanocodec", "past", "speechtokenizer",
+                     "stablecodec", "wavlm_kmeans", "wavtokenizer",
                      "xcodec2"]
     assert set(names) <= set(jax_available())
-    assert sorted(set(jax_available()) - set(names)) == [
-        "bicodec", "dycast", "focalcodec", "semanticodec", "wavlm_kmeans"]
+    assert sorted(set(jax_available()) - set(names)) == ["semanticodec"]
     assert sorted(models._NOT_PORTED) == sorted(set(jax_available())
                                                 - set(names))
     from audiocodecs_tpu_torch.models.audiodec import AudioDec
+    from audiocodecs_tpu_torch.models.bicodec import BiCodec
     from audiocodecs_tpu_torch.models.dac import DAC
+    from audiocodecs_tpu_torch.models.dycast import DyCAST
+    from audiocodecs_tpu_torch.models.focalcodec import FocalCodec
     from audiocodecs_tpu_torch.models.hilcodec import HILCodec
     from audiocodecs_tpu_torch.models.magicodec import MagiCodec
     from audiocodecs_tpu_torch.models.mimi import Mimi
@@ -105,6 +108,7 @@ def test_registry_names_and_classes():
     from audiocodecs_tpu_torch.models.past import PAST
     from audiocodecs_tpu_torch.models.speechtokenizer import SpeechTokenizer
     from audiocodecs_tpu_torch.models.stablecodec import StableCodec
+    from audiocodecs_tpu_torch.models.wavlm_kmeans import WavLMKmeans
     from audiocodecs_tpu_torch.models.wavtokenizer import WavTokenizer
     from audiocodecs_tpu_torch.models.xcodec2 import XCodec2
 
@@ -113,7 +117,8 @@ def test_registry_names_and_classes():
             "wavtokenizer": WavTokenizer, "audiodec": AudioDec,
             "hilcodec": HILCodec, "nanocodec": NanoCodec,
             "xcodec2": XCodec2, "stablecodec": StableCodec,
-            "magicodec": MagiCodec}
+            "magicodec": MagiCodec, "wavlm_kmeans": WavLMKmeans,
+            "dycast": DyCAST, "focalcodec": FocalCodec, "bicodec": BiCodec}
     for name, cls in want.items():
         assert models.get_codec_class(name) is cls
         assert models.get_codec_class(name.upper()) is cls

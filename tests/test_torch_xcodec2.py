@@ -6,7 +6,9 @@ Small config (``tests/test_codec_zoo4.py``'s: ngf 4, 16-d branches, a
 2-layer w2v-BERT tapped at 2, a 2-block RoFormer) with every leaf redrawn:
 tokens identical, features, qfeats and waveforms within 1e-4 of their
 largest magnitude, the decode of features without re-quantizing, the
-65,536 × 8 lattice, the modes and the balanced tier. Then the published
+65,536 × 8 lattice, the modes, the balanced tier and the decoder at fp32
+activations and one bf16 pass (its embed conv and RoFormer products)
+against the reference's under ``ACX_DEC_CONV_PRECISION=default``. Then the published
 widths (BigCodec's encoder at ngf 48 with its H = 1536 LSTM, w2v-BERT at
 1024 wide, 16 heads, FFN 4096; the RoFormer at 1024) with the depth cut to
 2 conformer layers (tapped at 2) and 2 RoFormer blocks, on B = 1 x 0.5 s.
@@ -27,6 +29,7 @@ from audiocodecs_tpu_torch.models.xcodec2 import (
 from zoo_pairs import (
     check_bridge,
     check_modes,
+    check_one_pass_decode,
     check_roundtrip,
     check_tier,
     one_thread,  # noqa: F401 (autouse)
@@ -71,6 +74,7 @@ def test_small_bridge_modes_embs_and_tier(small, rng):
     np.testing.assert_array_equal(emb.numpy(), np.asarray(jc.embs()))
     toks = np.asarray(jc.sig_to_toks(_sig(rng, 2, 1600)))
     check_tier(jc, tc, "xcodec2", toks)
+    check_one_pass_decode(jc, tc, toks)
     with pytest.raises(ValueError, match="single-codebook"):
         XCodec2(16000, num_codebooks=2, device="cpu")
 

@@ -9,7 +9,9 @@ features, qfeats and waveforms within 1e-4 of their largest magnitude.
 HILCodec's ``encode_chunk`` in 1-, 2- and 3-frame chunks gives its batch
 tokens and JAX's chunks' tokens. Each family once at its published width on
 B = 1 x 0.5 s, its weights as drawn. The balanced serving tier
-decodes as the exact one, in both packages.
+decodes as the exact one, in both packages. HILCodec's decoder at fp32
+activations and one bf16 pass follows the reference's under
+``ACX_DEC_CONV_PRECISION=default``.
 """
 
 import dataclasses
@@ -43,6 +45,7 @@ from audiocodecs_tpu_torch.models.nanocodec import (
 from zoo_pairs import (
     check_bridge,
     check_modes,
+    check_one_pass_decode,
     check_roundtrip,
     check_tier,
     close,
@@ -122,6 +125,14 @@ def test_half_snake_matches_the_reference(rng):
     got = half_snake(torch.from_numpy(x).transpose(1, 2),
                      torch.from_numpy(alpha)).transpose(1, 2)
     close(got, want, 1e-6)
+
+
+def test_hilcodec_one_pass_decode(rng):
+    """Every decoder conv of HILCodec in one bf16 pass, as the reference's
+    ``conv_role("decoder")`` under ``ACX_DEC_CONV_PRECISION=default``."""
+    jcls, tcls, tcfg, jcfg, sr, K, _ = FAMILIES["hilcodec"]
+    jc, tc = pair(jcls, tcls, tcfg, jcfg, sr, num_codebooks=K)
+    check_one_pass_decode(jc, tc, tc.sig_to_toks(_sig(rng, 2, 331)).numpy())
 
 
 @pytest.fixture(scope="module")

@@ -6,7 +6,9 @@ CPU.
 Small configs (``tests/test_codec_zoo2.py``'s) with every leaf redrawn:
 tokens identical, features, qfeats and waveforms within 1e-4 of their
 largest magnitude, the bridge back, the modes, the embeddings and the
-balanced tier. Then their published widths (dim 1024, 16 heads, FFN 4096,
+balanced tier, and the decoder at fp32 activations and one bf16 pass
+against the reference's under ``ACX_DEC_CONV_PRECISION=default``. Then
+their published widths (dim 1024, 16 heads, FFN 4096,
 MagiCodec's 131,072 × 16 codebook) with the depth cut to 2 blocks a tower,
 on B = 1 x 0.5 s.
 """
@@ -33,6 +35,7 @@ from audiocodecs_tpu_torch.models.stablecodec import (
 from zoo_pairs import (
     check_bridge,
     check_modes,
+    check_one_pass_decode,
     check_roundtrip,
     check_tier,
     close,
@@ -87,6 +90,14 @@ def test_small_tokens_identical_features_close(small, rng):
         close(tc.feats_to_sig(want["qfeats"]),
               jc.feats_to_sig(want["qfeats"]))
     check_tier(jc, tc, name, want["toks"])
+
+
+def test_small_one_pass_decode(small, rng):
+    """The decoder's RoFormer products and transposed conv in one bf16
+    pass, as the reference's ``conv_role("decoder")`` under
+    ``ACX_DEC_CONV_PRECISION=default``."""
+    _, jc, tc = small
+    check_one_pass_decode(jc, tc, tc.sig_to_toks(_sig(rng, 2, 331)).numpy())
 
 
 @pytest.mark.parametrize("name", sorted(FAMILIES))

@@ -42,8 +42,9 @@ def redraw(tree, seed):
     """Every leaf of the reference's tree redrawn from numpy (``seed``), so
     that biases, gains and every weight move the output: weights
     0.5 · N(0, 1) / √fan_in (fan_in: the product of all but the last axis),
-    biases 0.1 · N(0, 1), gains 1 + 0.1 · N(0, 1), snake α |N| + 0.5,
-    LSTM weights U(±1/√H). Codebooks keep their draws."""
+    biases 0.1 · N(0, 1), gains 1 + 0.1 · N(0, 1), snake α and batch-norm
+    variances |N| + 0.5, LSTM weights U(±1/√H). Codebooks keep their
+    draws."""
     rng = np.random.default_rng(seed)
     flat = flatten_tree(jax.tree.map(np.asarray, tree))
 
@@ -55,7 +56,8 @@ def redraw(tree, seed):
             return 1.0 + 0.1 * rng.standard_normal(a.shape)
         if leaf == "b":
             return 0.1 * rng.standard_normal(a.shape)
-        if "alpha" in leaf:  # snake α, also NanoCodec's post_alpha
+        if "alpha" in leaf or leaf == "var":
+            # snake α (also NanoCodec's post_alpha), ECAPA's BN variances
             return np.abs(rng.standard_normal(a.shape)) + 0.5
         if leaf in ("w_ih", "w_hh"):
             return rng.uniform(-1, 1, a.shape) / np.sqrt(a.shape[1] / 4)
@@ -203,3 +205,29 @@ def check_tier(jc, tc, family, toks):
     got = tier.toks_to_sig(toks)
     assert torch.equal(got, tc.toks_to_sig(toks))
     close(got, j_tier)
+
+
+def check_one_pass_decode(jc, tc, toks):
+    """The decoder at fp32 activations and one bf16 pass
+    (``decode_precision="default"``) against the reference's under
+    ``ACX_DEC_CONV_PRECISION=default`` on ``toks``: within 1e-2 ·
+    max|sig| (JAX on the CPU runs DEFAULT f32 dots in full f32, so this is
+    the bf16 scale), and moved more than 1e-6 · max|sig| off the port's
+    exact decode: the form reaches the decoder."""
+    from seanet_tier import switches
+
+    sr = tc.sample_rate
+    extra = {"num_codebooks": tc.config.num_codebooks}
+    with switches({"ACX_DEC_CONV_PRECISION": "default"}):
+        jt = type(jc)(sr, sr, model_config=jc.model_config,
+                      params=jc.params, **extra)
+        want = np.asarray(jt.toks_to_sig(toks))
+    one = type(tc)(sr, sr, model_config=tc.model_config, device="cpu",
+                   state_dict=tc.state_dict(), decode_dtype=torch.float32,
+                   decode_precision="default", **extra)
+    got = one.toks_to_sig(toks).numpy()
+    exact = tc.toks_to_sig(toks).numpy()
+    scale = np.abs(want).max()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-2 * scale
+    assert np.abs(got - exact).max() > 1e-6 * scale
