@@ -16,13 +16,16 @@ __all__ = ["AudioDec", "AudioDecModelConfig", "BiCodec",
            "FocalCodec", "FocalCodecModelConfig", "HILCodec",
            "HILCodecModelConfig", "MagiCodec", "MagiCodecModelConfig",
            "Mimi", "MimiModelConfig", "NanoCodec", "NanoCodecModelConfig",
-           "PAST", "SEANetRVQCodec", "SEANetRVQConfig", "SpeechTokenizer",
+           "PAST", "SEANetRVQCodec", "SEANetRVQConfig", "SemantiCodec",
+           "SemantiCodecModelConfig", "SpeechTokenizer",
            "SpeechTokenizerModelConfig", "StableCodec",
            "StableCodecModelConfig", "WavLMKmeans", "WavLMKmeansModelConfig",
            "WavTokenizer", "WavTokenizerModelConfig", "XCodec2",
            "XCodec2ModelConfig"]
 
 _LAZY = {
+    "SemantiCodec": "audiocodecs_tpu_torch.models.semanticodec",
+    "SemantiCodecModelConfig": "audiocodecs_tpu_torch.models.semanticodec",
     "BiCodec": "audiocodecs_tpu_torch.models.bicodec",
     "BiCodecModelConfig": "audiocodecs_tpu_torch.models.bicodec",
     "DyCAST": "audiocodecs_tpu_torch.models.dycast",

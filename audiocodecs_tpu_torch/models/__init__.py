@@ -1,8 +1,9 @@
-"""Codec families ported so far, reached by the JAX package's registry names.
+"""The codec families, reached by the JAX package's registry names.
 
 :func:`get_codec_class` resolves a name lazily (the module is imported on
-first use), as ``audiocodecs_tpu.models.get_codec_class`` does. Names the
-reference registers but the port has not ported yet raise
+first use), as ``audiocodecs_tpu.models.get_codec_class`` does. Every name
+the reference registers is ported; names the reference registers but the
+port has not ported (``_NOT_PORTED``, empty now) raise
 ``NotImplementedError``; names neither package knows raise ``ValueError``.
 ``SEANetRVQCodec`` has no registry name in the reference, so it has none
 here either (import it from :mod:`.seanet_rvq`).
@@ -32,10 +33,12 @@ _CODEC_REGISTRY = {
     "dycast": ("audiocodecs_tpu_torch.models.dycast", "DyCAST"),
     "focalcodec": ("audiocodecs_tpu_torch.models.focalcodec", "FocalCodec"),
     "bicodec": ("audiocodecs_tpu_torch.models.bicodec", "BiCodec"),
+    "semanticodec": ("audiocodecs_tpu_torch.models.semanticodec",
+                     "SemantiCodec"),
 }
 
 # registered by the reference package, not ported yet
-_NOT_PORTED = ("semanticodec",)
+_NOT_PORTED = ()
 
 
 def get_codec_class(name: str):

@@ -9,7 +9,9 @@ one product and an argmax, :mod:`..quant.vq`), so K = len(layer_ids).
 Decoding averages the layers' centroids, runs the ``dequantizer`` linear
 and vocodes with a SEANet decoder (32 filters, ratios (8, 5, 4, 2): 50 Hz
 frames to 16 kHz; non-causal, reflect padded, no LSTM, identity
-shortcuts).
+shortcuts), or with ``vocoder_variant="hifigan"`` a HiFi-GAN generator
+(:mod:`..nn.hifigan`: 512 channels, rates (10, 8, 2, 2), kernels (20, 16,
+4, 4), hop 320).
 
 The tower runs to the deepest selected layer and no further: the
 reference asks for every hidden state and reads only these, so the
@@ -22,9 +24,11 @@ reads the activation dtype and the decoder's precision
 (``nn/seanet._apply_plan`` under ``conv_role("decoder")``), so its
 EnCodec-style tier decodes in bf16. Its residual blocks are non-causal,
 which the fused SEANet block does not take: every conv is a cuDNN call in
-the form, as the reference leaves them to XLA. The reference's
-``vocoder_variant="hifigan"`` needs ``nn/hifigan.py``, which is not ported
-yet, and raises ``NotImplementedError``.
+the form, as the reference leaves them to XLA. The HiFi-GAN variant reads
+no activation dtype and the reference opens no decoder scope around it
+(``_vocode`` calls ``apply_hifigan`` on the dequantizer's fp32 output, whose
+convs read only ``ACX_CONV_PRECISION``, "highest" in every tier), so it
+decodes in exact fp32 in every tier.
 """
 
 from __future__ import annotations
@@ -36,6 +40,12 @@ import torch
 from torch import nn
 
 from audiocodecs_tpu_torch.codec import Codec, CodecConfig
+from audiocodecs_tpu_torch.nn.hifigan import (
+    HiFiGAN,
+    HiFiGANConfig,
+    apply_hifigan,
+    init_hifigan_params,
+)
 from audiocodecs_tpu_torch.nn.layers import DecodeForm
 from audiocodecs_tpu_torch.nn.seanet import (
     SEANet,
@@ -73,7 +83,7 @@ class WavLMKmeansModelConfig:
     layer_ids: tuple[int, ...] = (6,)
     num_clusters: int = 512
     wavlm: WavLMConfig = dataclasses.field(default_factory=wavlm_large_config)
-    vocoder_variant: str = "seanet"  # "hifigan" is not ported yet
+    vocoder_variant: str = "seanet"  # or "hifigan"
     vocoder_filters: int = 32
     vocoder_ratios: tuple[int, ...] = (8, 5, 4, 2)
 
@@ -81,6 +91,12 @@ class WavLMKmeansModelConfig:
         return seanet_vocoder_config(self.wavlm.hidden_size,
                                      self.vocoder_filters,
                                      self.vocoder_ratios)
+
+    def hifigan(self) -> HiFiGANConfig:
+        return HiFiGANConfig(num_mels=self.wavlm.hidden_size,
+                             upsample_rates=(10, 8, 2, 2),  # 320 samples
+                             upsample_kernel_sizes=(20, 16, 4, 4),
+                             upsample_initial_channel=512)
 
 
 class WavLMKmeans(Codec):
@@ -117,10 +133,9 @@ class WavLMKmeans(Codec):
             sampling_rate=orig_sample_rate)
         if layer_ids is not None:
             mc = dataclasses.replace(mc, layer_ids=tuple(layer_ids))
-        if mc.vocoder_variant != "seanet":
-            raise NotImplementedError(
-                f"vocoder_variant={mc.vocoder_variant!r} needs nn/hifigan.py,"
-                f" which is not ported yet (it comes with SemantiCodec)")
+        if mc.vocoder_variant not in ("seanet", "hifigan"):
+            raise ValueError(f"unknown vocoder_variant "
+                             f"{mc.vocoder_variant!r}")
         K = len(mc.layer_ids)
         if num_codebooks is not None and num_codebooks != K:
             raise ValueError(f"num_codebooks ({num_codebooks}) must equal "
@@ -138,8 +153,11 @@ class WavLMKmeans(Codec):
         self.kmeans = nn.Parameter(torch.empty(K, mc.num_clusters, H))
         if mode != "encode":
             self.dequantizer = Linear(H, H, True)
-            voc = mc.vocoder()
-            self.vocoder = SEANet(voc, seanet_decoder_plan(voc), form)
+            if mc.vocoder_variant == "hifigan":
+                self.vocoder = HiFiGAN(mc.hifigan())
+            else:
+                voc = mc.vocoder()
+                self.vocoder = SEANet(voc, seanet_decoder_plan(voc), form)
         if state_dict is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
@@ -180,7 +198,12 @@ class WavLMKmeans(Codec):
         return self._toks_to_qfeats(self._sig_to_toks(sig, length), length)
 
     def _vocode(self, h):
-        """``[B, N, H]`` → ``[B, N·320]`` in the vocoder's form."""
+        """``[B, N, H]`` → ``[B, N·320]`` in the vocoder's form (HiFi-GAN:
+        exact fp32)."""
+        mc = self.model_config
+        if mc.vocoder_variant == "hifigan":
+            return apply_hifigan(self.vocoder, h.transpose(1, 2),
+                                 mc.hifigan())
         return self.vocoder(h.transpose(1, 2))[:, 0]
 
     def _toks_to_sig(self, toks, length):
@@ -199,14 +222,17 @@ def init_wavlm_kmeans_params(generator: torch.Generator,
     """Random weights of :class:`WavLMKmeans` as a flat state dict, in the
     reference's distributions (the tower's :func:`..nn.wavlm.
     init_wavlm_params`, centroids N(0, 1), the dequantizer N(0, 1/H) with a
-    zero bias, the vocoder's SEANet init); the draws differ from the
-    reference's."""
+    zero bias, the vocoder's SEANet or HiFi-GAN init); the draws differ
+    from the reference's."""
     H = cfg.wavlm.hidden_size
     out = init_wavlm_params(generator, cfg.wavlm, "wavlm.")
     out["kmeans"] = torch.randn((len(cfg.layer_ids), cfg.num_clusters, H),
                                 generator=generator)
     out["dequantizer.w"] = torch.randn((H, H), generator=generator) * H ** -.5
     out["dequantizer.b"] = torch.zeros(H)
+    if cfg.vocoder_variant == "hifigan":
+        out.update(init_hifigan_params(generator, cfg.hifigan(), "vocoder."))
+        return out
     voc = cfg.vocoder()
     out.update({f"vocoder.{k}": v for k, v in init_seanet_params(
         generator, voc, seanet_decoder_plan(voc)).items()})

@@ -41,9 +41,12 @@ __all__ = [
     "elu",
     "unit_norm",
     "exact_fp32",
+    "deterministic_convs",
     "Conv1d",
+    "Conv2d",
     "ConvTranspose1d",
     "DecodeForm",
+    "param_as",
     "PRECISIONS",
     "init_conv",
 ]
@@ -51,26 +54,26 @@ __all__ = [
 PRECISIONS = ("exact", "default")  # a form's conv precision
 
 
-class _ExactFP32:
-    """TF32 off for cuDNN convs and cuBLAS matmuls inside ``with``.
+class _Scoped:
+    """Process-wide backend switches set to fixed values inside ``with``.
 
-    The TF32 switches are process-wide, so concurrent callers share one
-    count: the first to enter saves the caller's settings and turns TF32
-    off, the last to leave restores them."""
+    The switches are process-wide, so concurrent callers share one count:
+    the first to enter saves the caller's settings and sets them, the last
+    to leave restores them."""
 
-    def __init__(self):
+    def __init__(self, *switches):
+        self._switches = switches  # (owner, attribute, value inside)
         self._lock = threading.Lock()
         self._depth = 0
         self._saved = None
 
     @contextmanager
     def __call__(self):
-        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
         with self._lock:
             if self._depth == 0:
-                self._saved = cudnn.allow_tf32, matmul.allow_tf32
-                cudnn.allow_tf32 = False
-                matmul.allow_tf32 = False
+                self._saved = [getattr(o, a) for o, a, _ in self._switches]
+                for o, a, v in self._switches:
+                    setattr(o, a, v)
             self._depth += 1
         try:
             yield
@@ -78,11 +81,18 @@ class _ExactFP32:
             with self._lock:
                 self._depth -= 1
                 if self._depth == 0:
-                    cudnn.allow_tf32, matmul.allow_tf32 = self._saved
+                    for (o, a, _), v in zip(self._switches, self._saved):
+                        setattr(o, a, v)
 
 
 # ``with exact_fp32():`` runs cuDNN convs and cuBLAS matmuls in full fp32
-exact_fp32 = _ExactFP32()
+# (TF32 off)
+exact_fp32 = _Scoped((torch.backends.cudnn, "allow_tf32", False),
+                     (torch.backends.cuda.matmul, "allow_tf32", False))
+# ``with deterministic_convs():`` keeps cuDNN to deterministic algorithms:
+# its transposed convs (backward-data) otherwise may sum with atomics, and
+# two runs on the same input part in the last bits
+deterministic_convs = _Scoped((torch.backends.cudnn, "deterministic", True))
 
 
 def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
@@ -104,6 +114,17 @@ class Conv1d(nn.Module):
         super().__init__()
         self.w = nn.Parameter(torch.empty(cout, cin, k))
         self.b = nn.Parameter(torch.empty(cout)) if bias else None
+
+
+class Conv2d(nn.Module):
+    """Weights only: ``w`` [Cout, Cin, kh, kw], ``b`` [Cout]. The weight
+    bridge converts the reference's ``[kh, kw, Cin, Cout]`` (HWIO) for
+    modules of this class."""
+
+    def __init__(self, cin: int, cout: int, kh: int, kw: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(cout, cin, kh, kw))
+        self.b = nn.Parameter(torch.empty(cout))
 
 
 class ConvTranspose1d(nn.Module):
@@ -232,6 +253,14 @@ def _cached(module: nn.Module, name: str, tag, make, params=None):
     return hit[1]
 
 
+def param_as(module: nn.Module, name: str, dtype: torch.dtype):
+    """``module.<name>`` in ``dtype``: itself in float32, else a cast copy
+    built once (and again only when the parameter changes)."""
+    if dtype == torch.float32:
+        return getattr(module, name)
+    return _cached(module, name, dtype, lambda t: t.to(dtype))
+
+
 @dataclasses.dataclass(frozen=True)
 class DecodeForm:
     """How a conv stack computes: a serving tier (the reference's stacks
@@ -311,9 +340,7 @@ class DecodeForm:
     def param(self, module: nn.Module, name: str) -> torch.Tensor:
         """``module.<name>`` (a weight, bias or α) in the activations'
         dtype."""
-        if self.dtype == torch.float32:
-            return getattr(module, name)
-        return _cached(module, name, self.dtype, lambda t: t.to(self.dtype))
+        return param_as(module, name, self.dtype)
 
     def _conv(self, fn, x, conv, **kw):
         if self.one_pass:

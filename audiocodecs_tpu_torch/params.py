@@ -21,6 +21,9 @@ Layouts (reference → port):
   ``focal_convs`` ``[k, 1, C]`` and ECAPA's convs; and a bare conv leaf that
   a module lists in ``JAX_CONV_LEAVES`` (w2v-BERT's depthwise ``conv.dw``
   ``[31, 1, C]`` → ``[C, 1, 31]``);
+* 2-D conv ``w [kh, kw, Cin, Cout]`` (HWIO) → ``[Cout, Cin, kh, kw]``
+  (OIHW), for every :class:`~audiocodecs_tpu_torch.nn.layers.Conv2d`: the
+  LDM VAE's and UNet's convs, their 1×1 projections included;
 * transposed-conv ``w [K, Cin/G, Cout]`` with G groups, stored pre-flipped
   so that it runs as a plain dilated conv → ``[Cin, Cout/G, K]``, PyTorch's
   ``ConvTranspose1d`` layout: flipped in time, and input channel
@@ -40,7 +43,8 @@ Layouts (reference → port):
   (BigCodec, X-Codec 2.0's encoder, BiCodec's generator): flattened here,
   and restored by :func:`to_jax_params` for a model whose class sets
   ``JAX_ALPHA_SHAPE``;
-* a 0-d leaf (DyCAST's boundary bias) stays 0-d.
+* a 0-d leaf (DyCAST's boundary bias, SemantiCodec's ``latent_scale``)
+  stays 0-d.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from audiocodecs_tpu_torch.nn.layers import Conv1d, ConvTranspose1d
+from audiocodecs_tpu_torch.nn.layers import Conv1d, Conv2d, ConvTranspose1d
 
 __all__ = ["flatten_tree", "from_jax_params", "to_jax_params"]
 
@@ -74,6 +78,8 @@ def _to_port_layout(owner: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
         g = owner.groups
         a = np.flip(a, 0).reshape(k, cin_g, g, cout // g)
         return a.transpose(2, 1, 3, 0).reshape(g * cin_g, cout // g, k)
+    if leaf == "w" and isinstance(owner, Conv2d):
+        return a.transpose(3, 2, 0, 1)
     if leaf == "w" and isinstance(owner, Conv1d) or leaf in getattr(
             owner, "JAX_CONV_LEAVES", ()):
         return a.transpose(2, 1, 0)
@@ -112,6 +118,8 @@ def _to_jax_layout(owner: nn.Module, leaf: str, a: np.ndarray) -> np.ndarray:
         g = owner.groups
         a = a.reshape(g, cin // g, cout_g, k).transpose(3, 1, 0, 2)
         return np.flip(a.reshape(k, cin // g, g * cout_g), 0)
+    if leaf == "w" and isinstance(owner, Conv2d):
+        return a.transpose(2, 3, 1, 0)
     if leaf == "w" and isinstance(owner, Conv1d) or leaf in getattr(
             owner, "JAX_CONV_LEAVES", ()):
         return a.transpose(2, 1, 0)

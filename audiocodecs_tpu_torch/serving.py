@@ -13,7 +13,16 @@ The EnCodec-style tier (``encodec``, ``mimi``, ``past``,
 (``ACX_ACT_DTYPE=decoder-bfloat16``): every decoder conv one bf16 pass, the
 fused SEANet blocks in their one-pass form on bf16 operands, the LSTMs fp32
 islands. WavLM + K-means' and DyCAST's SEANet vocoders (``wavlm_kmeans``,
-``dycast``) read the activation dtype too, and decode in bf16. Its
+``dycast``) read the activation dtype too, and decode in bf16 (WavLM +
+K-means' HiFi-GAN vocoder, ``vocoder_variant="hifigan"``, reads none and
+decodes in exact fp32 in every tier). So does SemantiCodec's LDM decoder
+(``semanticodec``): its bf16 tier casts the UNet's, the VAE's and the
+vocoder's weights and the context to bf16, while the norms' statistics,
+the softmax and the DDIM update stay fp32; ``decode_precision="default"``
+with fp32 activations decodes it exactly, because the reference opens no
+``conv_role("decoder")`` for SemantiCodec (its HiFi-GAN convs read only the
+encoder's ``ACX_CONV_PRECISION``, its 2-D convs and products take XLA's
+default precision, exact on the CPU). Its
 ``"fast"`` quality is its ``"balanced"`` one (the reference sets no decoder
 precision of its own there), ``batch`` selects nothing for it, and
 ``"exact"`` is fp32. WavTokenizer's decoder, a Vocos head, reads no
@@ -81,6 +90,8 @@ SERVING_PRESETS: dict[str, dict] = {
     # the WavLM families' SEANet vocoders read the activation dtype
     "wavlm_kmeans": _ENCODEC_STYLE,
     "dycast": _ENCODEC_STYLE,
+    # the LDM decoder (UNet, VAE, HiFi-GAN) reads the activation dtype
+    "semanticodec": _ENCODEC_STYLE,
     "dac": _DAC_STYLE,
     "bigcodec": _BF16_POLY,
 }

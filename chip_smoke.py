@@ -175,7 +175,23 @@ it fails:
    (six kernel-3 launches a roundtrip in the exact form, the generator's
    units at C = 192 and 96, packed on the first decode only; the global
    tokens' FSQ margin); kernel 3 is also timed at BiCodec's six unit
-   shapes in 6.
+   shapes in 6;
+34. SemantiCodec-16k at its published widths (AudioMAE ViT-B, two 8192
+   codebooks at 50 Hz, the LDM UNet with context 1536, the VAE and the
+   1024-channel HiFi-GAN, 50 DDIM steps): B = 8 x 10 s and B = 1 x 15 s
+   (two windows, the crossfade); no kernel launch; the decode
+   deterministic; parity against the CPU path (tokens, features, one UNet
+   call at t = 981, the 15 s request decoded at 2 steps within the larger
+   of 1e-4 and the fp32 gap of ``tools/semanticodec_fp32_gap.py``); the
+   warm roundtrip, its stages with their FLOPs and bounds, the profile
+   (of a twin at 5 DDIM steps: the profiler's bookkeeping of the 50-step
+   roundtrip's 123,059 launches took 94 s);
+   the balanced tier (bf16 UNet, VAE and vocoder): tokens equal, its move
+   off exact at 50 and 2 steps, the card within √2 x the move of the CPU
+   at 2 steps (two bf16 decodes are independent draws of the tier's error;
+   the card against itself in another batch beside), its roundtrip beside
+   the exact one; then WavLM+K-means-16k with
+   its HiFi-GAN vocoder, one B = 1 x 10 s roundtrip against the CPU.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -3333,6 +3349,323 @@ def phase_bicodec(torch, rows):
                 mc.fsq_levels)
 
 
+SEMANTICODEC_SR = 16000
+# max|decode − decode'| / max|sig| of two correct fp32 decodes of the 15 s
+# request at 2 DDIM steps: float32 against float64 on the CPU
+# (tools/semanticodec_fp32_gap.py on the H100 machine's host: 3.79e-6);
+# the card is held to the larger of it and 1e-4
+SEMANTICODEC_FP32_GAP = 3.79e-6
+
+
+def semanticodec_requests():
+    """SemantiCodec's two requests: B = 8 x 10 s (one window each) and
+    B = 1 x 15 s (two windows), N(0, 0.1²) noise."""
+    sr = SEMANTICODEC_SR
+    return _noise(np.random.default_rng(29), [(8, 10 * sr), (1, 15 * sr)])
+
+
+def _flops(torch, fn) -> float:
+    """The products' and convs' FLOPs of one run of ``fn``
+    (``torch.utils.flop_counter``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def _semanticodec_stages(torch, codec, sig_dev, peaks):
+    """Each stage of a roundtrip of ``sig_dev`` timed (CUDA events) and
+    counted (FLOPs of its products and convs), with its bound at the fp32
+    and the bf16 peak: the encode (fbank, AudioMAE, both VQs), one UNet
+    call (the CFG pair of every window), the VAE decoder and the vocoder;
+    and the roundtrip's FLOPs (the encode, ddim_steps UNet calls, the VAE
+    and the vocoder)."""
+    from audiocodecs_tpu_torch.nn.hifigan import apply_hifigan
+    from audiocodecs_tpu_torch.nn.layers import exact_fp32
+    from audiocodecs_tpu_torch.nn.ldm_unet import apply_unet
+    from audiocodecs_tpu_torch.nn.ldm_vae import apply_vae_decoder
+
+    mc = codec.model_config
+    dt = codec._ldm_form.dtype
+    with torch.inference_mode(), exact_fp32():
+        toks = codec._sig_to_toks(sig_dev, None)
+        cond = codec._toks_to_qfeats(toks, None).to(dt)
+        B, N = cond.shape[:2]  # one window a row: padded to it with −1
+        cond = torch.nn.functional.pad(
+            cond, (0, 0, 0, mc.tokens_per_window - N), value=-1.0)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        ds = mc.vae_cfg.downsample_factor
+        x = torch.randn((2 * B, mc.vae_cfg.embed_dim, mc.window_frames // ds,
+                         mc.ldm_mel_bins // ds), device="cuda",
+                        generator=gen)
+        ctx2 = torch.cat([cond, torch.zeros_like(cond)])
+        t = torch.full((2 * B,), 981.0, device="cuda")
+        z = x[:B] / codec.latent_scale
+        mel = apply_vae_decoder(codec.vae, z, mc.vae_cfg, dt)[:, 0]
+        stages = {
+            "encode": lambda: codec._sig_to_toks(sig_dev, None),
+            "unet_step": lambda: apply_unet(codec.unet, x, t, ctx2,
+                                            mc.unet(), dt),
+            "vae": lambda: apply_vae_decoder(codec.vae, z, mc.vae_cfg, dt),
+            "vocoder": lambda: apply_hifigan(codec.vocoder,
+                                             mel.transpose(1, 2),
+                                             mc.vocoder_cfg,
+                                             codec._ldm_form),
+        }
+        out = {}
+        for name, fn in stages.items():
+            flops = _flops(torch, fn)
+            ms = cuda_ms(torch, fn, reps=3, warmup=1)
+            out[name] = {"ms": ms, "gflop": flops / 1e9,
+                         "bound_fp32_ms": flops / peaks[0] * 1e3,
+                         "bound_bf16_ms": flops / BF16_PEAK * 1e3}
+    total = (out["encode"]["gflop"] + mc.ddim_steps * out["unet_step"][
+        "gflop"] + out["vae"]["gflop"] + out["vocoder"]["gflop"]) * 1e9
+    return out, total
+
+
+def phase_semanticodec(torch, rows):
+    """SemantiCodec-16k at its published widths (AudioMAE ViT-B, two 8192
+    codebooks at 50 Hz, the LDM UNet 128 x (1, 2, 3, 5) with context 1536,
+    the VAE and the 1024-channel HiFi-GAN, 50 DDIM steps with guidance
+    2.0): B = 8 x 10 s and B = 1 x 15 s (two windows: the crossfade on the
+    card); no kernel launch; shapes, finite, tokens below their vocab, the
+    decode deterministic; parity against the CPU path (tokens, features,
+    one UNet call at t = 981, the 15 s request's decode at 2 steps); the
+    warm roundtrip, stages and bounds, the profile (at 5 DDIM steps); the
+    balanced tier
+    (bf16 UNet, VAE and vocoder) beside it; then WavLM+K-means with its
+    HiFi-GAN vocoder against the CPU.
+
+    The bf16 tier's check: each bf16 product is rounded right on both
+    devices, but a rounding flip anywhere (another summation order, even
+    another batch on the same card) spreads into fresh flips over every
+    fan-out, so two bf16 decodes are independent draws of the tier's
+    rounding error: the card is held within √2 of the tier's move of the
+    CPU, and the card against itself in another batch is logged beside."""
+    import dataclasses
+
+    from audiocodecs_tpu_torch.models.semanticodec import SemantiCodec
+    from audiocodecs_tpu_torch.models.wavlm_kmeans import WavLMKmeans
+    from audiocodecs_tpu_torch.nn.layers import exact_fp32
+    from audiocodecs_tpu_torch.nn.ldm_unet import apply_unet
+    from audiocodecs_tpu_torch.serving import apply_serving_preset
+
+    sr, path = SEMANTICODEC_SR, "semanticodec_16k"
+    t_phase = time.perf_counter()
+
+    def elapsed(what):
+        log(f"{path}: {what} after {time.perf_counter() - t_phase:.1f} s")
+
+    peaks = _PEAKS["pcie" if "PCIe" in torch.cuda.get_device_name(0)
+                   else "sxm"]
+    codec, cpu = _server_pair(torch, SemantiCodec, sr, sr)
+    state = {k: v.detach().cpu() for k, v in codec.state_dict().items()}
+    mc = codec.model_config
+    hop = mc.window_frames // mc.tokens_per_window * mc.mel_hop
+    requests = semanticodec_requests()
+
+    def shapes(shape):
+        cols = shape[1] // (mc.patch_size * mc.mel_hop) + 1
+        N = -(-mc.freq_patches * cols // mc.stack_factor)
+        return (shape[0], N, 2), (shape[0], N * hop)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    answers = [(toks, codec.toks_to_sig(toks)) for toks in
+               (codec.sig_to_toks(sig) for sig in requests)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    log(f"{path} launches over {len(requests)} roundtrips: "
+        f"{json.dumps(counts)}")
+    if counts != _launch_table(0, 0):
+        fail(f"{path}: expected no kernel launches, got {counts}")
+    _add_launches(rows, path, counts)
+    vocab = torch.tensor(codec.config.vocab_sizes, device="cuda")
+    for sig, (toks, y) in zip(requests, answers):
+        if (tuple(toks.shape), tuple(y.shape)) != shapes(sig.shape):
+            fail(f"{path} shapes: toks {tuple(toks.shape)}, sig "
+                 f"{tuple(y.shape)} for {sig.shape}; want "
+                 f"{shapes(sig.shape)}")
+        if not bool(torch.isfinite(y).all()) or not bool(
+                ((toks >= 0) & (toks < vocab)).all()):
+            fail(f"{path}: non-finite waveform or tokens out of vocab")
+        log(f"{path} {sig.shape}: decode max|sig|="
+            f"{float(y.abs().max()):.4e} rms={_rms(y):.4e}, "
+            f"{float((y.abs() > 0.999).float().mean()):.4f} of the samples "
+            f"tanh-saturated (|y| > 0.999)")
+    if not torch.equal(codec.toks_to_sig(answers[1][0]), answers[1][1]):
+        fail(f"{path}: two decodes of the same tokens differ")
+    elapsed("requests and determinism")
+
+    # parity against the CPU path on the same weights
+    t0 = time.perf_counter()
+    for i, sig in enumerate(requests):
+        f_gpu = codec.sig_to_feats(sig).cpu()
+        f_cpu = cpu.sig_to_feats(sig)
+        with torch.inference_mode():
+            t_cpu = cpu._feats_to_toks(f_cpu)
+        mism = int((answers[i][0].cpu() != t_cpu).sum())
+        match = 1.0 - mism / t_cpu.numel()
+        f_err = float((f_gpu - f_cpu).abs().max())
+        f_lim = 1e-4 * float(f_cpu.abs().max())
+        log(f"{path} request {i} {sig.shape}: feats max_abs_diff="
+            f"{f_err:.3e} (limit {f_lim:.3e}); token_match={match:.6f} "
+            f"({mism} of {t_cpu.numel()} differ)")
+        if not f_err <= f_lim or not match >= 0.999:
+            fail(f"{path}: request {i} disagrees with the CPU path")
+    ucfg = mc.unet()
+    with torch.inference_mode():
+        q = codec.toks_to_qfeats(answers[0][0][:1])
+        ctx2 = torch.cat([q, torch.zeros_like(q)])
+        ds = mc.vae_cfg.downsample_factor
+        x = torch.randn((1, mc.vae_cfg.embed_dim, mc.window_frames // ds,
+                         mc.ldm_mel_bins // ds),
+                        generator=torch.Generator().manual_seed(7))
+        x2 = torch.cat([x, x])
+        t = torch.full((2,), 981.0)
+        with exact_fp32():
+            eps = apply_unet(codec.unet, x2.cuda(), t.cuda(), ctx2, ucfg)
+            eps_cpu = apply_unet(cpu.unet, x2, t, ctx2.cpu(), ucfg)
+    u_err = float((eps.cpu() - eps_cpu).abs().max())
+    u_lim = 1e-4 * float(eps_cpu.abs().max())
+    log(f"{path} one UNet call (B = 2, the CFG pair, t = 981): "
+        f"max_abs_diff={u_err:.3e} (limit {u_lim:.3e})")
+    if not u_err <= u_lim:
+        fail(f"{path}: the UNet call disagrees with the CPU path")
+    steps = 2
+    twins = [SemantiCodec(sr, sr, mode="decode", device=d,
+                          state_dict=state, ddim_sample_step=steps)
+             for d in ("cuda", "cpu")]
+    toks1 = answers[1][0]
+    y2 = twins[0].toks_to_sig(toks1).cpu()
+    t1 = time.perf_counter()
+    y2_cpu = twins[1].toks_to_sig(toks1.cpu())
+    dec_s = time.perf_counter() - t1
+    scale = float(y2_cpu.abs().max())
+    d_err = float((y2 - y2_cpu).abs().max())
+    d_lim = max(1e-4, SEMANTICODEC_FP32_GAP) * scale
+    log(f"{path} 15 s decode at {steps} DDIM steps (two windows): card vs "
+        f"CPU max_abs_diff={d_err:.3e} ({d_err / scale:.3e} of max|sig| "
+        f"{scale:.4e}; limit {d_lim:.3e}, the fp32 gap "
+        f"{SEMANTICODEC_FP32_GAP:.1e}), rms={_rms(y2 - y2_cpu):.3e}; "
+        f"cpu decode seconds={dec_s:.1f}; parity cpu seconds="
+        f"{time.perf_counter() - t0:.1f}")
+    if not d_err <= d_lim:
+        fail(f"{path}: the 2-step decode disagrees with the CPU path")
+    del cpu, twins[1]
+    elapsed("CPU parity")
+
+    # the warm roundtrip, stages and bounds
+    sig = requests[0]
+    B, seconds = sig.shape[0], sig.shape[1] / sr
+    sig_dev = torch.as_tensor(sig, device="cuda")
+    again = []  # the timed roundtrip's output: B = 8 decoded twice
+    rt_ms = cuda_ms(torch, lambda: again.append(codec.roundtrip(sig_dev)),
+                    reps=1, warmup=0)
+    if not torch.equal(again[0], answers[0][1]):
+        fail(f"{path}: two roundtrips of the B = 8 request differ")
+    stages, flops = _semanticodec_stages(torch, codec, sig_dev, peaks)
+    log(f"{path} roundtrip B={B} x {seconds} s ({mc.ddim_steps} DDIM "
+        f"steps): {rt_ms:.3f} ms warm; rtf_per_stream="
+        f"{seconds / (rt_ms / 1e3):.4f} rtf_aggregate="
+        f"{B * seconds / (rt_ms / 1e3):.4f}; peak_mem_bytes={peak} (the "
+        f"two requests); "
+        f"{flops / 1e12:.3f} TFLOP of products and convs: bound "
+        f"{flops / peaks[0] * 1e3:.1f} ms at the fp32 peak, "
+        f"{flops / BF16_PEAK * 1e3:.1f} ms at the bf16 peak")
+    log(f"{path} stages (B = {B}): " + json.dumps(
+        {k: {n: round(v, 3) for n, v in d.items()}
+         for k, d in stages.items()}))
+    elapsed("timing")
+    # the profile of a roundtrip at 5 DDIM steps on the same weights: at 50
+    # (123,059 launches) the profiler's bookkeeping took 94 s on the host
+    few = SemantiCodec(sr, sr, device="cuda", state_dict=state,
+                       ddim_sample_step=5)
+    few_ms = cuda_ms(torch, lambda: few.roundtrip(sig_dev), reps=1)
+    phase_profile(torch, lambda: few.roundtrip(sig_dev), few_ms,
+                  what="roundtrip at 5 DDIM steps")
+    del few
+    elapsed("profile")
+
+    # the balanced tier: bf16 UNet, VAE and vocoder
+    kw = apply_serving_preset("semanticodec")
+    tier = SemantiCodec(sr, sr, device="cuda", state_dict=state, **kw)
+    reset_counts()
+    for sig_i, (toks, _) in zip(requests, answers):
+        if not torch.equal(tier.sig_to_toks(sig_i), toks):
+            fail(f"{path}_balanced: tokens differ from the exact tier's")
+    y_tier = tier.toks_to_sig(answers[0][0])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != _launch_table(0, 0):
+        fail(f"{path}_balanced: expected no kernel launches, got {counts}")
+    _add_launches(rows, f"{path}_balanced", counts)
+    y_ex = answers[0][1]
+    if y_tier.dtype != torch.float32 or not bool(
+            torch.isfinite(y_tier).all()):
+        fail(f"{path}_balanced: waveform {y_tier.dtype}, or not finite")
+    move50 = _rms(y_tier - y_ex)
+    tier2 = [SemantiCodec(sr, sr, mode="decode", device=d,
+                          state_dict=state, ddim_sample_step=steps, **kw)
+             for d in ("cuda", "cpu")]
+    part = answers[0][0][:1]
+    y2_tier = tier2[0].toks_to_sig(part)
+    move2 = _rms(y2_tier - twins[0].toks_to_sig(part))
+    # the control: the same row decoded on the card inside a batch of two
+    # (other summation orders in a few products)
+    batch = _rms(tier2[0].toks_to_sig(answers[0][0][:2])[:1] - y2_tier)
+    t1 = time.perf_counter()
+    y2_tier_cpu = tier2[1].toks_to_sig(part.cpu())
+    got = _rms(y2_tier.cpu() - y2_tier_cpu)
+    tier_ms = cuda_ms(torch, lambda: tier.roundtrip(sig_dev), reps=1,
+                      warmup=0)
+    t_stages, _ = _semanticodec_stages(torch, tier, sig_dev, peaks)
+    log(f"{path}_balanced B={B} x {seconds} s: roundtrip {tier_ms:.3f} ms "
+        f"warm (exact tier {rt_ms:.3f} ms, ratio {tier_ms / rt_ms:.3f}); "
+        f"tokens equal to the exact tier's; off the exact tier at "
+        f"{mc.ddim_steps} steps rms={move50:.3e} max="
+        f"{float((y_tier - y_ex).abs().max()):.3e}, at {steps} steps (one "
+        f"row) rms={move2:.3e}; card vs CPU (same tier, {steps} steps) "
+        f"rms={got:.3e} ({got / move2:.3f} of the move; limit "
+        f"{math.sqrt(2) * move2:.3e}, two independent draws of it); the "
+        f"card against itself, the row inside a batch of two, rms="
+        f"{batch:.3e} ({batch / move2:.3f} of the move); cpu_seconds="
+        f"{time.perf_counter() - t1:.1f}")
+    log(f"{path}_balanced stages (B = {B}): " + json.dumps(
+        {k: {n: round(v, 3) for n, v in d.items()}
+         for k, d in t_stages.items()}))
+    if not 0.0 < move2 or not got <= math.sqrt(2) * move2:
+        fail(f"{path}_balanced: the tier moved the decode by {move2}, the "
+             f"card is {got} off the CPU path")
+    del tier, tier2, twins, codec
+    elapsed("balanced tier")
+
+    # WavLM+K-means with its HiFi-GAN vocoder (exact in every tier)
+    wcfg = dataclasses.replace(WavLMKmeans.default_model_config(),
+                               vocoder_variant="hifigan")
+    wk, wk_cpu = _server_pair(torch, WavLMKmeans, sr, sr, model_config=wcfg)
+    sig = requests[0][:1]
+    reset_counts()
+    toks = wk.sig_to_toks(sig)
+    y = wk.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != _launch_table(0, 0):
+        fail(f"wavlm_kmeans_hifigan_16k: expected no kernel launches, got "
+             f"{counts}")
+    _add_launches(rows, "wavlm_kmeans_hifigan_16k", counts)
+    N = _wavlm_frames(wcfg.wavlm, sig.shape[1])
+    if tuple(y.shape) != (1, N * 320) or not bool(torch.isfinite(y).all()):
+        fail(f"wavlm_kmeans_hifigan_16k: waveform {tuple(y.shape)}, want "
+             f"(1, {N * 320}), or not finite")
+    log(f"wavlm_kmeans_hifigan_16k decode max|sig|={float(y.abs().max()):.4e}"
+        f" rms={_rms(y):.4e}")
+    _parity("wavlm_kmeans_hifigan_16k B=1 x 10 s", wk, wk_cpu, sig, toks, y)
+
+
 def phase_zoo_one_pass(torch, rows):
     """The zoo's decoders that the reference runs inside
     ``conv_role("decoder")`` at fp32 activations and one bf16 pass
@@ -3395,37 +3728,34 @@ def main() -> None:
         fail(f"audiocodecs_tpu_torch not importable ({e}); run from the root "
              "of the repository")
     t0 = time.perf_counter()
+
+    def timed(phase, *args):
+        t1 = time.perf_counter()
+        out = phase(torch, *args)
+        log(f"{phase.__name__} seconds: {time.perf_counter() - t1:.1f}")
+        return out
+
     name, card, peaks = phase_card(torch)
     phase_build()
-    rows = [*phase_lstm(torch, peaks), phase_resblock(torch, peaks),
-            phase_packed(torch, peaks), phase_dac_resunit(torch, peaks),
-            *phase_dac_resunit_forms(torch, peaks),
+    rows = [*timed(phase_lstm, peaks), timed(phase_resblock, peaks),
+            timed(phase_packed, peaks), timed(phase_dac_resunit, peaks),
+            *timed(phase_dac_resunit_forms, peaks),
             # B2's one-pass rows, filled by phase_resblock_default
             *({"name": name, "launches": 0} for name in B2_FORMS)]
-    phase_main_path(torch, rows)
-    phase_dac_path(torch, rows)
-    phase_speechtokenizer(torch, rows)
-    phase_encodec_stream(torch, rows)
-    phase_mimi(torch, rows)
-    phase_wavtokenizer(torch, rows)
-    phase_encodec_vocos(torch, rows)
-    phase_encodec_48k(torch, rows)
-    phase_past(torch, rows)
-    phase_bigcodec(torch, rows)
-    phase_dac_tiers(torch, rows)
-    phase_bigcodec_tier(torch, rows)
-    phase_server(torch, rows)
-    phase_train(torch, rows, card)
-    phase_resblock_default(torch, peaks, rows)
-    phase_seanet_tiers(torch, rows)
-    phase_certify(torch, rows)
-    for phase in (phase_audiodec, phase_hilcodec, phase_nanocodec,
-                  phase_xcodec2, phase_stablecodec, phase_magicodec,
-                  phase_zoo_one_pass, phase_wavlm_kmeans, phase_dycast,
-                  phase_focalcodec, phase_bicodec):
-        t1 = time.perf_counter()
-        phase(torch, rows)
-        log(f"{phase.__name__} seconds: {time.perf_counter() - t1:.1f}")
+    for phase in (phase_main_path, phase_dac_path, phase_speechtokenizer,
+                  phase_encodec_stream, phase_mimi, phase_wavtokenizer,
+                  phase_encodec_vocos, phase_encodec_48k, phase_past,
+                  phase_bigcodec, phase_dac_tiers, phase_bigcodec_tier,
+                  phase_server):
+        timed(phase, rows)
+    timed(phase_train, rows, card)
+    timed(phase_resblock_default, peaks, rows)
+    for phase in (phase_seanet_tiers, phase_certify, phase_audiodec,
+                  phase_hilcodec, phase_nanocodec, phase_xcodec2,
+                  phase_stablecodec, phase_magicodec, phase_zoo_one_pass,
+                  phase_wavlm_kmeans, phase_dycast, phase_focalcodec,
+                  phase_bicodec, phase_semanticodec):
+        timed(phase, rows)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))
     log(f"card: {card}")

@@ -78,7 +78,12 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.models.wavlm_kmeans",
               "audiocodecs_tpu_torch.models.dycast",
               "audiocodecs_tpu_torch.models.focalcodec",
-              "audiocodecs_tpu_torch.models.bicodec"):
+              "audiocodecs_tpu_torch.models.bicodec",
+              "audiocodecs_tpu_torch.nn.audiomae",
+              "audiocodecs_tpu_torch.nn.ldm_unet",
+              "audiocodecs_tpu_torch.nn.ldm_vae",
+              "audiocodecs_tpu_torch.nn.hifigan",
+              "audiocodecs_tpu_torch.models.semanticodec"):
         assert m in mods
 
 
@@ -95,6 +100,7 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
         "p.AudioDec; p.HILCodec; p.NanoCodec; p.XCodec2; p.StableCodec\n"
         "p.MagiCodec; p.XCodec2ModelConfig\n"
         "p.WavLMKmeans; p.DyCAST; p.FocalCodec; p.BiCodec\n"
+        "p.SemantiCodec; p.SemantiCodecModelConfig\n"
         "from audiocodecs_tpu_torch.models import get_codec_class\n"
         "get_codec_class('bigcodec')\n"
         "from audiocodecs_tpu_torch.serving import apply_serving_preset\n"
@@ -123,6 +129,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.nn.w2vbert" in loaded
     assert "audiocodecs_tpu_torch.models.bicodec" in loaded
     assert "audiocodecs_tpu_torch.nn.wavlm" in loaded
+    assert "audiocodecs_tpu_torch.models.semanticodec" in loaded
+    assert "audiocodecs_tpu_torch.nn.ldm_unet" in loaded
     assert not [m for m in loaded if _is_reference(m)]
 
 
@@ -176,7 +184,7 @@ def test_default_device_is_the_card(monkeypatch):
         BigCodec(16000)
     for name in ("audiodec", "hilcodec", "nanocodec", "xcodec2",
                  "stablecodec", "magicodec", "wavlm_kmeans", "dycast",
-                 "focalcodec", "bicodec"):
+                 "focalcodec", "bicodec", "semanticodec"):
         cls = get_codec_class(name)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cls(cls.default_model_config().sampling_rate)

@@ -49,7 +49,8 @@ SEANET_FAMILIES = ("encodec", "mimi", "past", "speechtokenizer",
                    "wavtokenizer")
 # the zoo's families under the EnCodec-style tier: whether the decoder
 # reads the activation dtype (WavLM + K-means' and DyCAST's SEANet vocoders
-# do, and decode in bf16; the others do not, so the tier decodes exactly:
+# and SemantiCodec's LDM decoder do, and decode in bf16; the others do not,
+# so the tier decodes exactly:
 # the tier tests of tests/test_torch_zoo_*.py and test_torch_xcodec2.py
 # hold each such decode bit for bit to its exact tier's, as the
 # reference's)
@@ -57,7 +58,8 @@ ZOO_READS_ACT_DTYPE = {"audiodec": False, "hilcodec": False,
                        "nanocodec": False, "xcodec2": False,
                        "stablecodec": False, "magicodec": False,
                        "wavlm_kmeans": True, "dycast": True,
-                       "focalcodec": False, "bicodec": False}
+                       "focalcodec": False, "bicodec": False,
+                       "semanticodec": True}
 ENCODEC_STYLE = (*SEANET_FAMILIES, *ZOO_READS_ACT_DTYPE)
 
 

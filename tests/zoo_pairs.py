@@ -33,18 +33,22 @@ def one_thread():
     torch.set_num_threads(n)
 # leaves kept as the reference draws them: the quantizers' scale is part of
 # what they search
-_KEEP = ("codebooks", "codebook")
-# gains: drawn around one
-_GAINS = ("g", "attn_norm", "ffn_norm")
+_KEEP = ("codebooks", "codebook", "semantic_codebook", "acoustic_codebook")
+# gains: drawn around one (SemantiCodec's ``latent_scale`` divides the
+# latents)
+_GAINS = ("g", "attn_norm", "ffn_norm", "latent_scale")
+# learned embeddings added to the input (AudioMAE's)
+_EMBEDS = ("cls_token", "pos_embed")
 
 
 def redraw(tree, seed):
     """Every leaf of the reference's tree redrawn from numpy (``seed``), so
     that biases, gains and every weight move the output: weights
     0.5 · N(0, 1) / √fan_in (fan_in: the product of all but the last axis),
-    biases 0.1 · N(0, 1), gains 1 + 0.1 · N(0, 1), snake α and batch-norm
-    variances |N| + 0.5, LSTM weights U(±1/√H). Codebooks keep their
-    draws."""
+    biases 0.1 · N(0, 1), gains 1 + 0.1 · N(0, 1) (the LDM's norms name
+    theirs ``scale`` and ``bias``), snake α and batch-norm variances
+    |N| + 0.5, LSTM weights U(±1/√H), AudioMAE's cls token and positions
+    0.5 · N(0, 1). Codebooks keep their draws."""
     rng = np.random.default_rng(seed)
     flat = flatten_tree(jax.tree.map(np.asarray, tree))
 
@@ -52,9 +56,11 @@ def redraw(tree, seed):
         leaf = key.rsplit(".", 1)[-1]
         if leaf in _KEEP:
             return a
-        if leaf in _GAINS:
+        if leaf in _GAINS or leaf == "scale" and a.ndim == 1:
             return 1.0 + 0.1 * rng.standard_normal(a.shape)
-        if leaf == "b":
+        if leaf in _EMBEDS:
+            return 0.5 * rng.standard_normal(a.shape)
+        if leaf in ("b", "bias"):
             return 0.1 * rng.standard_normal(a.shape)
         if "alpha" in leaf or leaf == "var":
             # snake α (also NanoCodec's post_alpha), ECAPA's BN variances
