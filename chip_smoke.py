@@ -192,6 +192,20 @@ it fails:
    the card against itself in another batch beside), its roundtrip beside
    the exact one; then WavLM+K-means-16k with
    its HiFi-GAN vocoder, one B = 1 x 10 s roundtrip against the CPU.
+35. checkpoint loading: EnCodec-24k, DAC-44.1k, SpeechTokenizer-16k,
+   PAST-16k and BigCodec-16k at their published widths, each on a seeded
+   state dict in its released checkpoint's layout (``transformers``' for
+   EnCodec and DAC, the vendor's for the others) converted by
+   ``audiocodecs_tpu_torch/convert/`` and loaded through the registry's
+   class: the conversion and the load timed, the two request shapes of the
+   family's phase with the random-init phases' launches a roundtrip, the
+   ragged request and the rows of the first that the family's phase
+   compares (all of EnCodec's B = 8, DAC's B = 1, rows 0-1 elsewhere)
+   against the CPU path on the same weights as in 9, the warm roundtrip;
+   then DAC-44.1k on the same draw at unit gain (its closing 1x1s not cut
+   to a tenth): each B4 unit fed the CPU unit's input within 1e-4 of the
+   CPU unit, both beside float64, and the decode's gap to the CPU path
+   beside that of the card's unfused (kernel-free) decode.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -202,6 +216,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1195,6 +1210,16 @@ def _noise(rng, shapes):
             for shape in shapes]
 
 
+def _hop_shapes(hop: int, K: int, frames=math.ceil):
+    """shapes(sig_shape) → (toks, sig) of a codec of ``K`` codebooks that
+    makes ``frames(T / hop)`` token frames of a T-sample request and
+    decodes ``hop`` samples a frame."""
+    def shapes(shape):
+        N = frames(shape[1] / hop)
+        return (shape[0], N, K), (shape[0], N * hop)
+    return shapes
+
+
 def _launch_table(lstm, resblock, dac=0, wide=0, **forms):
     """The launches of a run: ``dac`` of the DAC unit's exact sin form,
     ``forms`` (name → count) of its other forms and of the SEANet block's
@@ -1476,7 +1501,7 @@ def _batch_path(torch, rows, path, codec, cpu, requests, per_roundtrip,
     time by kernel, also of the decode from features alone when
     ``profile_decode`` names it. ``packs`` = (a counter of weight packs, the
     packs of the first decode): the fused weights are packed on the first
-    decode only."""
+    decode only. Returns the warm roundtrip's ms."""
     reset_counts()
     answers, packed = [], []
     for sig in requests:
@@ -1546,6 +1571,7 @@ def _batch_path(torch, rows, path, codec, cpu, requests, per_roundtrip,
         with torch.inference_mode():
             phase_profile(torch, lambda: to_sig(q), stages["decoder_ms"],
                           profile_decode)
+    return rt_ms
 
 
 def phase_speechtokenizer(torch, rows):
@@ -1557,13 +1583,9 @@ def phase_speechtokenizer(torch, rows):
     requests = _noise(np.random.default_rng(5),
                       [(8, 10 * sr), (8, 10 * sr), (1, 80001)])
 
-    def shapes(shape):
-        N = math.ceil(shape[1] / hop)
-        return (shape[0], N, K), (shape[0], N * hop)
-
     # 2 encoder BiLSTM layers x 2 directions + 2 decoder LSTM layers
     _batch_path(torch, rows, "speechtokenizer_16k", codec, cpu, requests,
-                _launch_table(6, 0), shapes,
+                _launch_table(6, 0), _hop_shapes(hop, K),
                 (lambda f: rvq_encode(f, codec.codebooks, K),
                  lambda t: rvq_decode(t, codec.codebooks),
                  lambda q: codec._feats_to_sig(q, None)))
@@ -1817,12 +1839,8 @@ def phase_past(torch, rows):
     requests = _noise(np.random.default_rng(11),
                       [(8, 10 * sr), (8, 10 * sr), (1, 80001)])
 
-    def shapes(shape):
-        N = math.ceil(shape[1] / hop)
-        return (shape[0], N, K), (shape[0], N * hop)
-
     _batch_path(torch, rows, "past_16k", codec, cpu, requests,
-                _launch_table(4, 8), shapes,
+                _launch_table(4, 8), _hop_shapes(hop, K),
                 (lambda f: rvq_encode(codec._project(f), codec.codebooks, K),
                  lambda t: rvq_decode(t, codec.codebooks),
                  lambda q: codec._decode(codec._unproject(q))))
@@ -1837,6 +1855,14 @@ def _bigcodec_frames(cfg, n_samples: int) -> int:
     for s in cfg.up_ratios:
         t = (t + 2 * math.ceil(s / 2) - 2 * s) // s + 1
     return t
+
+
+def _bigcodec_shapes(mc):
+    """shapes(sig_shape) → (toks, sig) of BigCodec (one codebook)."""
+    def shapes(shape):
+        N = _bigcodec_frames(mc, shape[1])
+        return (shape[0], N, 1), (shape[0], N * mc.hop_length)
+    return shapes
 
 
 def phase_bigcodec(torch, rows):
@@ -1856,13 +1882,9 @@ def phase_bigcodec(torch, rows):
     requests = _noise(np.random.default_rng(12),
                       [(8, 10 * sr), (8, 10 * sr), (1, 80001)])
 
-    def shapes(shape):
-        N = _bigcodec_frames(mc, shape[1])
-        return (shape[0], N, 1), (shape[0], N * mc.hop_length)
-
     q = codec.quantizer
     _batch_path(torch, rows, "bigcodec_16k", codec, cpu, requests,
-                _launch_table(4, 0, dac=9, wide=4), shapes,
+                _launch_table(4, 0, dac=9, wide=4), _bigcodec_shapes(mc),
                 (lambda f: q.encode(f)[..., None],
                  lambda t: q.decode(t[..., 0]),
                  lambda z: codec._feats_to_sig(z, None)),
@@ -3717,6 +3739,233 @@ def phase_zoo_one_pass(torch, rows):
         del exact, twin, one, cpu
 
 
+
+def _loading_families():
+    """(path, registry name, model config, schema, converter, constructor
+    keywords, the requests as the family's phase sends them, launches a
+    roundtrip, shapes, the rows of the first request held against the CPU
+    path as the family's phase holds them) of each family the loading
+    phase drives."""
+    from audiocodecs_tpu_torch.convert.dac import (
+        convert_dac_state_dict, dac_schema)
+    from audiocodecs_tpu_torch.convert.encodec import (
+        convert_encodec_state_dict, encodec_schema)
+    from audiocodecs_tpu_torch.convert.zoo import (
+        bigcodec_schema, convert_bigcodec_state_dict,
+        convert_past_state_dict, convert_speechtokenizer_state_dict,
+        past_schema, speechtokenizer_schema)
+    from audiocodecs_tpu_torch.models.bigcodec import BigCodecModelConfig
+    from audiocodecs_tpu_torch.models.dac import DAC
+    from audiocodecs_tpu_torch.models.encodec import EncodecModelConfig
+    from audiocodecs_tpu_torch.models.past import PAST
+    from audiocodecs_tpu_torch.models.speechtokenizer import (
+        SpeechTokenizerModelConfig)
+
+    s16, s24, s44 = 16000, 24000, 44100
+    eight = [(8, 10 * s16), (1, 80001)]
+    big = BigCodecModelConfig()
+    return (
+        ("encodec_24k", "encodec", EncodecModelConfig(), encodec_schema,
+         convert_encodec_state_dict, {"num_codebooks": 8},
+         [(8, 10 * s24), (1, 79201)], _launch_table(4, 8),
+         _hop_shapes(320, 8), 8),
+        ("dac_44k", "dac", DAC.default_model_config(s44), dac_schema,
+         convert_dac_state_dict, {"num_codebooks": 9},
+         [(1, 10 * s44), (2, 100001)], _launch_table(0, 0, dac=6),
+         _hop_shapes(512, 9, math.floor), 1),
+        ("speechtokenizer_16k", "speechtokenizer",
+         SpeechTokenizerModelConfig(), speechtokenizer_schema,
+         convert_speechtokenizer_state_dict, {"num_codebooks": 8}, eight,
+         _launch_table(6, 0), _hop_shapes(320, 8), 2),
+        ("past_16k", "past", PAST.default_model_config(), past_schema,
+         convert_past_state_dict, {"num_codebooks": 8}, eight,
+         _launch_table(4, 8), _hop_shapes(320, 8), 2),
+        ("bigcodec_16k", "bigcodec", big, bigcodec_schema,
+         convert_bigcodec_state_dict, {"latent": False}, eight,
+         _launch_table(4, 0, dac=9, wide=4), _bigcodec_shapes(big), 2),
+    )
+
+
+# a residual unit's closing 1x1 conv in a DAC-style stack: DAC's
+# ``res_unit<j>.conv2.weight``, BigCodec's ``block.<j>.block.3.weight_g``
+_CLOSING_1X1 = re.compile(r"res_unit\d\.conv2\.weight$|"
+                          r"\.block\.\d+\.block\.3\.weight_g$")
+
+
+def _synth_checkpoint(spec: dict, seed: int, closing: float = 0.1) -> dict:
+    """A seeded upstream-layout checkpoint for a family's schema ``spec``
+    (``synth_state_dict``; BigCodec's is a dict of two state dicts), each
+    DAC-style residual unit's closing 1x1 conv multiplied by ``closing``:
+    a tenth, as the random-init phases draw it, keeps the residual stack
+    near unit scale (at unit gain each residual add doubles the
+    activations' variance, and the decoder's tanh saturates)."""
+    from audiocodecs_tpu_torch.convert.torch_utils import synth_state_dict
+
+    def draw(schema, s):
+        sd = synth_state_dict(schema, s)
+        for key, a in sd.items():
+            if _CLOSING_1X1.search(key):
+                a *= np.float32(closing)
+        return sd
+
+    if "CodecEnc" in spec:
+        return {part: draw(s, 100 * seed + i)
+                for i, (part, s) in enumerate(spec.items())}
+    return draw(spec, seed)
+
+
+def _dac_unit_gain(torch, mc, convert, spec, seed, sig):
+    """DAC-44.1k on the loading phase's draw at unit gain (the closing 1x1s
+    not cut to a tenth), where the decode of the same tokens parts from
+    the CPU path's by more than 1e-4 of max|sig|: is that B4 going wrong
+    at large activations, or fp32 conditioning? The first 87 token
+    frames (1 s) of ``sig``'s first row decoded on the card (six B4 launches),
+    on the card with the units unfused (the plain unit on cuDNN, no
+    launch) and on the CPU path; then each fused unit on the card fed the
+    CPU unit's own input, against the CPU unit's output within 1e-4 of
+    its max|out| (fails otherwise), and both against the unit in float64
+    on the CPU."""
+    from audiocodecs_tpu_torch.models.dac import (
+        DAC, ResidualUnit, residual_unit_io)
+    from audiocodecs_tpu_torch.ops.dac_resunit import (
+        dac_resunit_reference, snake)
+
+    sr, frames = mc.sampling_rate, 87
+    state = convert(_synth_checkpoint(spec, seed, closing=1.0), mc)
+    kw = {"model_config": mc, "state_dict": state, "num_codebooks": 9}
+    codec = DAC(sr, sr, device="cuda", **kw)
+    cpu = DAC(sr, sr, device="cpu", **kw)
+    del state
+    toks = codec.sig_to_toks(sig[:1])[:, :frames]
+    reset_counts()
+    y_card = codec.toks_to_sig(toks).cpu()
+    if read_counts()["dac_resunit"] != 6:
+        fail(f"dac_44k unit gain: expected 6 B4 launches, got "
+             f"{read_counts()}")
+    fused = [m for m in codec.decoder.modules()
+             if isinstance(m, ResidualUnit) and m.fused]
+    for m in fused:
+        m.fused = False
+    reset_counts()
+    y_plain = codec.toks_to_sig(toks).cpu()
+    launched = read_counts()["dac_resunit"]
+    for m in fused:
+        m.fused = True
+    if launched:
+        fail(f"dac_44k unit gain: the unfused decode launched B4 {launched}"
+             f" times")
+    dec, last = cpu.decoder, {}
+    hook = dec.blocks[-1].register_forward_hook(
+        lambda mod, args, out: last.setdefault("h", out.detach()))
+    try:
+        with residual_unit_io(dec) as (ins, outs):
+            y_cpu = cpu.toks_to_sig(toks.cpu())
+    finally:
+        hook.remove()
+    with torch.inference_mode():
+        pre = torch.nn.functional.conv1d(
+            snake(last["h"], dec.alpha_out), dec.conv_out.w,
+            dec.conv_out.b, padding=3)
+    scale = float(y_cpu.abs().max())
+    e_card = float((y_card - y_cpu).abs().max())
+    e_plain = float((y_plain - y_cpu).abs().max())
+    e_same = float((y_card - y_plain).abs().max())
+    log(f"dac_44k unit gain, {frames} frames: max|pre-tanh|="
+        f"{float(pre.abs().max()):.3e} (rms {_rms(pre):.3e}), "
+        f"{float((y_cpu.abs() > 0.99).float().mean()):.3f} of the samples "
+        f"above 0.99; decode max_abs_diff against the CPU path: card "
+        f"(B4) {e_card:.3e}, card with the units unfused (no kernel) "
+        f"{e_plain:.3e} (1e-4 of max|sig| is {1e-4 * scale:.3e}); card "
+        f"B4 against card unfused {e_same:.3e}")
+
+    card_units = dict(codec.decoder.named_modules())
+    worst = {"card": 0.0, "card_f64": 0.0, "cpu_f64": 0.0}
+    with torch.inference_mode():
+        for name, x in ins.items():
+            if not card_units[name].fused:
+                continue
+            u = dict(dec.named_modules())[name]
+            got = card_units[name](x.to("cuda")).cpu()
+            want = outs[name]
+            exact = dac_resunit_reference(
+                *(t.double() for t in (x, u.conv1.w, u.conv1.b, u.alpha1,
+                                       u.conv2.w, u.conv2.b, u.alpha2)),
+                u.dilation)
+            top = float(exact.abs().max())
+            for key, a, b in (("card", got, want), ("card_f64", got, exact),
+                              ("cpu_f64", want, exact)):
+                worst[key] = max(worst[key], float(
+                    (a.double() - b.double()).abs().max()) / top)
+    log(f"dac_44k unit gain: {len(fused)} fused units fed the CPU path's "
+        f"input, max|diff| / max|out|: card against the CPU unit "
+        f"{worst['card']:.3e} (limit 1e-4), card against float64 "
+        f"{worst['card_f64']:.3e}, CPU against float64 "
+        f"{worst['cpu_f64']:.3e}")
+    if not worst["card"] <= 1e-4:
+        fail(f"dac_44k unit gain: B4 off its plain unit by {worst['card']}"
+             f" of max|out|")
+    del codec, cpu
+
+
+def phase_checkpoint_loading(torch, rows):
+    """35. EnCodec-24k, DAC-44.1k, SpeechTokenizer-16k, PAST-16k and
+    BigCodec-16k at their published widths on weights converted from an
+    upstream-layout checkpoint: a state dict in the layout of the
+    family's released checkpoint (``transformers``' for EnCodec and DAC,
+    the vendor's for the others), drawn from the port's schema by a
+    seeded generator (``_synth_checkpoint``: weight-norm gains and snake α
+    in [0.5, 1.5], each DAC-style residual unit's closing 1×1 at a tenth,
+    as the random-init phases draw it), converted on the host (timed),
+    loaded on the card through the registry's class with ``state_dict=``
+    (timed); then the family's two request shapes of its own phase
+    through ``_batch_path``, as in 9: the random-init phases' launches a
+    roundtrip, the shapes, the ragged request and the rows of the first
+    that the family's phase compares (all 8 of EnCodec's, DAC's one,
+    rows 0-1 elsewhere) against the CPU path on the same converted
+    weights (features within 1e-4 of max|feats|, token_match ≥ 0.999, the
+    decode of the same tokens within 1e-4 of max|sig|), the warm
+    roundtrip and its profile. And DAC-44.1k on the same draw at unit
+    gain (``_dac_unit_gain``)."""
+    from audiocodecs_tpu_torch.models import get_codec_class
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    rng = np.random.default_rng(35)
+    for seed, (path, name, mc, schema, convert, kw, req_shapes, per_rt,
+               shapes, parity_rows) in enumerate(_loading_families()):
+        spec = schema(mc)
+        ckpt = _synth_checkpoint(spec, seed)
+        t0 = time.perf_counter()
+        state = convert(ckpt, mc)
+        convert_ms = (time.perf_counter() - t0) * 1e3
+        del ckpt
+        cls, sr = get_codec_class(name), mc.sampling_rate
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codec = cls(sr, sr, model_config=mc, state_dict=state,
+                    device="cuda", **kw)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        cpu = cls(sr, sr, model_config=mc, state_dict=state, device="cpu",
+                  **kw)
+        del state
+        requests = _noise(rng, req_shapes)
+        rt_ms = _batch_path(torch, rows, f"{path}_loaded", codec, cpu,
+                            requests, per_rt, shapes, None,
+                            parity_rows=parity_rows)
+        log(f"{path} loaded: convert_ms={convert_ms:.1f} load_ms="
+            f"{load_ms:.1f} roundtrip_ms={rt_ms:.3f} (B="
+            f"{requests[0].shape[0]} x {requests[0].shape[1] / sr:g} s, "
+            f"warm); card: {card}")
+        del codec, cpu
+        torch.cuda.empty_cache()
+        if name == "dac":
+            _dac_unit_gain(torch, mc, convert, spec, seed, requests[-1])
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
@@ -3754,7 +4003,8 @@ def main() -> None:
                   phase_hilcodec, phase_nanocodec, phase_xcodec2,
                   phase_stablecodec, phase_magicodec, phase_zoo_one_pass,
                   phase_wavlm_kmeans, phase_dycast, phase_focalcodec,
-                  phase_bicodec, phase_semanticodec):
+                  phase_bicodec, phase_semanticodec,
+                  phase_checkpoint_loading):
         timed(phase, rows)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))

@@ -1354,3 +1354,33 @@ def test_encodec_tier_launches_and_matches_cpu(dev):
     gap = float((y.cpu() - cpu.toks_to_sig(toks.cpu())).pow(2).mean()
                 .sqrt())
     assert move > 0 and gap <= move
+
+
+def test_encodec_24k_loaded_from_a_checkpoint_launches_and_matches_cpu(dev):
+    """EnCodec-24k at its published width on weights converted from a
+    state dict in ``transformers``' layout (``encodec_schema``, drawn by
+    ``synth_state_dict``): four B1 and eight B2 launches a roundtrip on the
+    card, and its tokens equal the CPU path's on the same weights."""
+    from audiocodecs_tpu_torch.convert.encodec import (
+        convert_encodec_state_dict,
+        encodec_schema,
+    )
+    from audiocodecs_tpu_torch.convert.torch_utils import synth_state_dict
+
+    mc = EncodecModelConfig()
+    state = convert_encodec_state_dict(
+        synth_state_dict(encodec_schema(mc), seed=3), mc)
+    gpu = Encodec(24000, num_codebooks=8, model_config=mc, state_dict=state,
+                  device=dev)
+    cpu = Encodec(24000, num_codebooks=8, model_config=mc, state_dict=state,
+                  device="cpu")
+    sig = (np.random.default_rng(3).standard_normal((2, 24000)) * 0.1).astype(
+        np.float32)
+    before = _launches()
+    toks = gpu.sig_to_toks(sig)
+    y = gpu.toks_to_sig(toks)
+    torch.cuda.synchronize()
+    assert _delta(before) == (4, 8, 0, 0)
+    assert toks.shape == (2, 75, 8)
+    assert torch.equal(toks.cpu(), cpu.sig_to_toks(sig))
+    assert _decode_close(y, cpu.toks_to_sig(toks.cpu()))

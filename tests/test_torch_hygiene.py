@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``audiocodecs_tpu_torch`` (nor
-``chip_smoke.py``, nor ``tools/certify_torch.py``) imports ``jax`` or
-``audiocodecs_tpu``, and its entry points run on the card unless the caller
-asks for the CPU."""
+``chip_smoke.py``, nor ``tools/certify_torch.py``) imports ``jax``,
+``audiocodecs_tpu`` or ``transformers``, and its entry points run on the
+card unless the caller asks for the CPU."""
 
 import ast
 import json
@@ -30,6 +30,11 @@ def _is_reference(name: str) -> bool:
     """``audiocodecs_tpu`` or below it; ``audiocodecs_tpu_torch`` is not."""
     return name == "jax" or name.startswith("jax.") or \
         name == "audiocodecs_tpu" or name.startswith("audiocodecs_tpu.")
+
+
+def _is_transformers(name: str) -> bool:
+    """``transformers``, which the card's machine does not install."""
+    return name == "transformers" or name.startswith("transformers.")
 
 
 def test_module_list_covers_the_slice():
@@ -83,7 +88,16 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.nn.ldm_unet",
               "audiocodecs_tpu_torch.nn.ldm_vae",
               "audiocodecs_tpu_torch.nn.hifigan",
-              "audiocodecs_tpu_torch.models.semanticodec"):
+              "audiocodecs_tpu_torch.models.semanticodec",
+              "audiocodecs_tpu_torch.convert",
+              "audiocodecs_tpu_torch.convert.torch_utils",
+              "audiocodecs_tpu_torch.convert.encodec",
+              "audiocodecs_tpu_torch.convert.dac",
+              "audiocodecs_tpu_torch.convert.vendor_seanet",
+              "audiocodecs_tpu_torch.convert.zoo",
+              "audiocodecs_tpu_torch.convert.mimi",
+              "audiocodecs_tpu_torch.convert.wavlm",
+              "audiocodecs_tpu_torch.convert.w2vbert"):
         assert m in mods
 
 
@@ -131,7 +145,9 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.nn.wavlm" in loaded
     assert "audiocodecs_tpu_torch.models.semanticodec" in loaded
     assert "audiocodecs_tpu_torch.nn.ldm_unet" in loaded
+    assert "audiocodecs_tpu_torch.convert.zoo" in loaded
     assert not [m for m in loaded if _is_reference(m)]
+    assert not [m for m in loaded if _is_transformers(m)]
 
 
 @pytest.mark.parametrize("path", ["audiocodecs_tpu_torch", "chip_smoke.py",
@@ -148,7 +164,8 @@ def test_no_import_statement_names_jax_or_reference(path):
                 names = [node.module or ""]
             else:
                 continue
-            bad += [f"{f.name}: {n}" for n in names if _is_reference(n)]
+            bad += [f"{f.name}: {n}" for n in names
+                    if _is_reference(n) or _is_transformers(n)]
     assert not bad
 
 

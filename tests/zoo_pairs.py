@@ -1,7 +1,7 @@
 """Helpers of the zoo's port tests (``tests/test_torch_zoo_*.py``,
-``tests/test_torch_xcodec2.py``): a JAX codec and its port twin on the same
-weights, carried across by ``from_jax_params``, and the checks that hold
-one to the other."""
+``tests/test_torch_xcodec2.py``, ``tests/test_torch_convert*.py``): a JAX
+codec and its port twin on the same weights, carried across by
+``from_jax_params``, and the checks that hold one to the other."""
 
 import dataclasses
 
@@ -18,6 +18,22 @@ from audiocodecs_tpu_torch.params import (
 )
 
 REL = 1e-4
+
+
+def assert_same_state(got: dict, want: dict, folded=lambda k: False):
+    """Two state dicts with the same keys, float32 CPU tensors equal bit
+    for bit, where ``folded(key)`` (a weight-norm fold, float64 sums in
+    another order) within 2 ulp."""
+    assert sorted(got) == sorted(want)
+    for k, ref in want.items():
+        t = got[k]
+        assert t.dtype == torch.float32 and t.device.type == "cpu", k
+        assert tuple(t.shape) == tuple(ref.shape), k
+        a, b = t.numpy(), ref.numpy()
+        if folded(k):
+            np.testing.assert_array_max_ulp(a, b, maxulp=2)
+        else:
+            assert a.tobytes() == b.tobytes(), k
 
 
 @pytest.fixture(scope="module", autouse=True)
