@@ -59,8 +59,17 @@ def to_tensor(a) -> torch.Tensor:
 
 
 def as_state_dict(flat: dict) -> dict:
-    """``{key: array}`` → ``{key: float32 CPU tensor}``."""
-    return {k: to_tensor(v) for k, v in flat.items()}
+    """A converter's ``{key: array}`` → ``{key: float32 CPU tensor}``. Its
+    arrays are its own (each made by a cast, a fold, a transpose or a
+    stack), so one already float32 and contiguous is wrapped, not
+    copied."""
+    def own(a):
+        a = to_np(a)
+        if a.dtype == np.float32 and a.flags.c_contiguous:
+            return torch.from_numpy(a)
+        return to_tensor(a)
+
+    return {k: own(v) for k, v in flat.items()}
 
 
 def fold_weight_norm_np(g, v, reduce_axes=(1, 2)) -> np.ndarray:
@@ -105,8 +114,8 @@ def put_alpha(out: dict, dst: str, sd, key: str) -> None:
 def put_linear(out: dict, dst: str, sd, prefix: str) -> None:
     """``{prefix}.weight [out, in]`` → ``dst.w [in, out]``; ``dst.b`` where
     the checkpoint has a bias."""
-    w = to_np(sd[f"{prefix}.weight"]).astype(np.float32)
-    out[f"{dst}.w"] = np.ascontiguousarray(w.T)
+    out[f"{dst}.w"] = np.ascontiguousarray(to_np(sd[f"{prefix}.weight"]).T,
+                                           dtype=np.float32)
     if f"{prefix}.bias" in sd:
         out[f"{dst}.b"] = to_np(sd[f"{prefix}.bias"]).astype(np.float32)
 
@@ -166,14 +175,17 @@ def lstm_schema(prefix: str, num_layers: int, hidden: int,
     return s
 
 
-_GAINS = ("weight_g", "original0", "alpha", "cluster_size", "cluster_usage")
+_GAINS = ("weight_g", "original0", "alpha", "cluster_size", "cluster_usage",
+          "running_var")
 _UNIT = ("weight_v", "original1", "embed", "embed_avg", "embed_sum")
 
 
 def synth_state_dict(schema: dict, seed: int = 0) -> dict:
     """A seeded upstream-layout state dict (numpy float32) for ``schema``
     (key → shape) whose activations stay finite at any width: weight-norm
-    gains, snake ``α``, 1-D norm weights and EMA counts in [0.5, 1.5]; the
+    gains, snake ``α``, 1-D norm weights, EMA counts and batch-norm
+    variances (``running_var``, which a batch norm divides by the root
+    of) in [0.5, 1.5]; the
     direction ``v``, codebooks and EMA sums N(0, 1); every other tensor of
     two or more axes N(0, 1/fan-in) (fan-in: the product of its axes but
     the first); biases N(0, 0.1²); ``inited`` ones."""

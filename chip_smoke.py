@@ -206,6 +206,19 @@ it fails:
    to a tenth): each B4 unit fed the CPU unit's input within 1e-4 of the
    CPU unit, both beside float64, and the decode's gap to the CPU path
    beside that of the card's unfused (kernel-free) decode.
+36. the rest of the zoo loaded: X-Codec 2.0-16k (B1 wide 2 a roundtrip)
+   and BiCodec-16k (B4 6; its XLSR tower a second file) as 35 drives its
+   five, on their phases' requests, shapes and parity rows, with their
+   FSQ margins; then StableCodec, NanoCodec, AudioDec, MagiCodec,
+   FocalCodec, HILCodec (whole towers), DyCAST, WavLM+K-means with its
+   HiFi-GAN vocoder and SemantiCodec (assembled from its five files) at
+   their published widths, converted and loaded (both timed), one short
+   request each (B = 1 x 2 s, SemantiCodec's 10.24 s window at 2 DDIM
+   steps): no launch, tokens equal to the CPU path's, the decode within
+   its family's limit, the token margins; NanoCodec's HiFi-GAN units'
+   closing convs drawn at a tenth, and NanoCodec at unit gain beside
+   float64. The checkpoints of 35 and 36 are drawn on a host thread from
+   the start (``prefetch_checkpoints``), while the kernels build.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -220,6 +233,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3110,7 +3124,6 @@ def phase_xcodec2(torch, rows):
     (one a layer, 8 rows a launch), nothing else; parity on the ragged
     request and one row of the first."""
     from audiocodecs_tpu_torch.models.xcodec2 import XCodec2
-    from audiocodecs_tpu_torch.nn.transformer import _linear
 
     sr = 16000
     codec, cpu = _server_pair(torch, XCodec2, sr, sr)
@@ -3127,9 +3140,17 @@ def phase_xcodec2(torch, rows):
                 (lambda f: codec._quantize(f)[..., None],
                  lambda t: codec._toks_to_qfeats(t, None), codec._decode),
                 parity_rows=1)
-    _fsq_margin(torch, "xcodec2_16k", codec, cpu, requests[-1],
+    _xcodec2_margin(torch, "xcodec2_16k", codec, cpu, requests[-1])
+
+
+def _xcodec2_margin(torch, path, codec, cpu, sig):
+    """``_fsq_margin`` of X-Codec 2.0's projected latents."""
+    from audiocodecs_tpu_torch.nn.transformer import _linear
+
+    _fsq_margin(torch, path, codec, cpu, sig,
                 lambda c, x: _linear(c._sig_to_feats(x, None),
-                                     c.quantizer.project_in), mc.levels)
+                                     c.quantizer.project_in),
+                codec.model_config.levels)
 
 
 def _margin(torch, path, codec, cpu, sig, what, values, distance):
@@ -3276,7 +3297,6 @@ def phase_dycast(torch, rows):
     the CPU path; then its balanced tier (a bf16 vocoder) beside the exact
     one."""
     from audiocodecs_tpu_torch.models.dycast import DyCAST
-    from audiocodecs_tpu_torch.nn.wavlm import apply_wavlm
 
     sr = 16000
     codec, cpu = _server_pair(torch, DyCAST, sr, sr)
@@ -3289,11 +3309,7 @@ def phase_dycast(torch, rows):
     requests = _zoo_requests(24, sr, 80001)
     _batch_path(torch, rows, "dycast_16k", codec, cpu, requests,
                 _launch_table(0, 0), shapes, None, parity_rows=1)
-    thr = mc.boundary_threshold
-    _margin(torch, "dycast_16k", codec, cpu, requests[-1], "boundary",
-            lambda c, x: c._boundary_logits(apply_wavlm(
-                c.wavlm, x, mc.wavlm, output_layer=mc.wavlm_layer)),
-            lambda v: (v - thr).abs())
+    _dycast_margin(torch, "dycast_16k", codec, cpu, requests[-1])
     _segment_use(torch, "dycast_16k", codec, requests[-1])
     # a full grid: every segment valid, durations overrunning the budget
     rng = np.random.default_rng(28)
@@ -3312,6 +3328,24 @@ def phase_dycast(torch, rows):
     del cpu
     _vocoder_tier(torch, rows, "dycast_16k", DyCAST, "dycast", codec,
                   requests[0])
+
+
+def _dycast_margin(torch, path, codec, cpu, sig):
+    """``_margin`` of DyCAST's boundary logits to their threshold."""
+    from audiocodecs_tpu_torch.nn.wavlm import apply_wavlm
+
+    mc = codec.model_config
+    thr = mc.boundary_threshold
+    _margin(torch, path, codec, cpu, sig, "boundary",
+            lambda c, x: c._boundary_logits(apply_wavlm(
+                c.wavlm, x, mc.wavlm, output_layer=mc.wavlm_layer)),
+            lambda v: (v - thr).abs())
+
+
+def _focal_margin(torch, path, codec, cpu, sig):
+    """``_margin`` of FocalCodec's latents to the signs' edge, 0."""
+    _margin(torch, path, codec, cpu, sig, "sign",
+            lambda c, x: c._latents(x), torch.abs)
 
 
 def phase_focalcodec(torch, rows):
@@ -3335,8 +3369,7 @@ def phase_focalcodec(torch, rows):
                 (lambda f: bsq_encode(f)[..., None],
                  lambda t: codec._toks_to_qfeats(t, None),
                  codec._decode_latents), parity_rows=1)
-    _margin(torch, "focalcodec_16k", codec, cpu, requests[-1], "sign",
-            lambda c, x: c._latents(x), torch.abs)
+    _focal_margin(torch, "focalcodec_16k", codec, cpu, requests[-1])
 
 
 def phase_bicodec(torch, rows):
@@ -3366,9 +3399,14 @@ def phase_bicodec(torch, rows):
     _batch_path(torch, rows, "bicodec_16k", codec, cpu, requests,
                 _launch_table(0, 0, dac=fused), shapes, None, parity_rows=1,
                 packs=(lambda: pack_resunit_weights.packs, fused))
-    _fsq_margin(torch, "bicodec_16k global tokens", codec, cpu,
-                requests[-1], lambda c, x: c._global_latents(x),
-                mc.fsq_levels)
+    _bicodec_margin(torch, "bicodec_16k", codec, cpu, requests[-1])
+
+
+def _bicodec_margin(torch, path, codec, cpu, sig):
+    """``_fsq_margin`` of BiCodec's global latents."""
+    _fsq_margin(torch, f"{path} global tokens", codec, cpu, sig,
+                lambda c, x: c._global_latents(x),
+                codec.model_config.fsq_levels)
 
 
 SEMANTICODEC_SR = 16000
@@ -3740,12 +3778,16 @@ def phase_zoo_one_pass(torch, rows):
 
 
 
-def _loading_families():
+def _loading_families(phase: int):
     """(path, registry name, model config, schema, converter, constructor
     keywords, the requests as the family's phase sends them, launches a
     roundtrip, shapes, the rows of the first request held against the CPU
-    path as the family's phase holds them) of each family the loading
-    phase drives."""
+    path as the family's phase holds them, the token margin printed after
+    them or None) of each family the loading phase ``phase`` drives at
+    its batch path: 35's five, 36's two kernel-carrying families of the
+    rest of the zoo."""
+    if phase == 36:
+        return _zoo_kernel_families()
     from audiocodecs_tpu_torch.convert.dac import (
         convert_dac_state_dict, dac_schema)
     from audiocodecs_tpu_torch.convert.encodec import (
@@ -3768,34 +3810,76 @@ def _loading_families():
         ("encodec_24k", "encodec", EncodecModelConfig(), encodec_schema,
          convert_encodec_state_dict, {"num_codebooks": 8},
          [(8, 10 * s24), (1, 79201)], _launch_table(4, 8),
-         _hop_shapes(320, 8), 8),
+         _hop_shapes(320, 8), 8, None),
         ("dac_44k", "dac", DAC.default_model_config(s44), dac_schema,
          convert_dac_state_dict, {"num_codebooks": 9},
          [(1, 10 * s44), (2, 100001)], _launch_table(0, 0, dac=6),
-         _hop_shapes(512, 9, math.floor), 1),
+         _hop_shapes(512, 9, math.floor), 1, None),
         ("speechtokenizer_16k", "speechtokenizer",
          SpeechTokenizerModelConfig(), speechtokenizer_schema,
          convert_speechtokenizer_state_dict, {"num_codebooks": 8}, eight,
-         _launch_table(6, 0), _hop_shapes(320, 8), 2),
+         _launch_table(6, 0), _hop_shapes(320, 8), 2, None),
         ("past_16k", "past", PAST.default_model_config(), past_schema,
          convert_past_state_dict, {"num_codebooks": 8}, eight,
-         _launch_table(4, 8), _hop_shapes(320, 8), 2),
+         _launch_table(4, 8), _hop_shapes(320, 8), 2, None),
         ("bigcodec_16k", "bigcodec", big, bigcodec_schema,
          convert_bigcodec_state_dict, {"latent": False}, eight,
-         _launch_table(4, 0, dac=9, wide=4), _bigcodec_shapes(big), 2),
+         _launch_table(4, 0, dac=9, wide=4), _bigcodec_shapes(big), 2,
+         None),
     )
 
 
-# a residual unit's closing 1x1 conv in a DAC-style stack: DAC's
-# ``res_unit<j>.conv2.weight``, BigCodec's ``block.<j>.block.3.weight_g``
-_CLOSING_1X1 = re.compile(r"res_unit\d\.conv2\.weight$|"
-                          r"\.block\.\d+\.block\.3\.weight_g$")
+def _zoo_kernel_families():
+    """X-Codec 2.0-16k (B1 wide 2 a roundtrip) and BiCodec-16k (B4 6), as
+    their phases 20 and 25 send them: two B = 8 x 10 s requests and a
+    ragged one, its rows and one row of the first against the CPU path.
+    BiCodec's checkpoint is two files, its own and the XLSR tower's."""
+    from audiocodecs_tpu_torch.convert.zoo import (
+        bicodec_schema, convert_bicodec_state_dict,
+        convert_xcodec2_state_dict, wavlm_schema, xcodec2_schema)
+    from audiocodecs_tpu_torch.models.bicodec import BiCodecModelConfig
+    from audiocodecs_tpu_torch.models.xcodec2 import XCodec2ModelConfig
+
+    T = int(16000 * ZOO_SECONDS)
+    zoo = [(8, T), (8, T), (1, 80001)]
+    xc, bc = XCodec2ModelConfig(), BiCodecModelConfig()
+
+    def xcodec2_shapes(shape):
+        N = _xcodec2_frames(xc, shape[1])
+        return (shape[0], N, 1), (shape[0], N * xc.hop_length)
+
+    def bicodec_shapes(shape):
+        N = _wavlm_frames(bc.w2v, shape[1])
+        return (shape[0], bc.num_global_tokens + N, 1), (shape[0], N * 320)
+
+    return (
+        ("xcodec2_16k", "xcodec2", xc, xcodec2_schema,
+         convert_xcodec2_state_dict, {}, zoo, _launch_table(2, 0, wide=2),
+         xcodec2_shapes, 1, _xcodec2_margin),
+        ("bicodec_16k", "bicodec", bc,
+         lambda mc: {"bicodec": bicodec_schema(mc),
+                     "w2v": wavlm_schema(mc.w2v)},
+         lambda ck, mc: convert_bicodec_state_dict(ck["bicodec"], mc,
+                                                   w2v_sd=ck["w2v"]),
+         {}, zoo, _launch_table(0, 0, dac=6), bicodec_shapes, 1,
+         _bicodec_margin),
+    )
+
+
+# a residual unit's closing conv: the 1x1 of a DAC-style stack (DAC's
+# ``res_unit<j>.conv2.weight``, BigCodec's and BiCodec's
+# ``block.<j>.block.3.weight_g``), and NanoCodec's HiFi-GAN units'
+# ``skip_conv`` (its gain ``skip_conv.conv.weight_g``)
+_CLOSING = re.compile(r"res_unit\d\.conv2\.weight$|"
+                      r"\.block\.\d+\.block\.3\.weight_g$|"
+                      r"\.skip_conv\.conv\.weight_g$")
 
 
 def _synth_checkpoint(spec: dict, seed: int, closing: float = 0.1) -> dict:
     """A seeded upstream-layout checkpoint for a family's schema ``spec``
-    (``synth_state_dict``; BigCodec's is a dict of two state dicts), each
-    DAC-style residual unit's closing 1x1 conv multiplied by ``closing``:
+    (``synth_state_dict``; a checkpoint of several files, BigCodec's or
+    BiCodec's, a dict of their state dicts), each DAC-style residual
+    unit's closing conv (``_CLOSING``) multiplied by ``closing``:
     a tenth, as the random-init phases draw it, keeps the residual stack
     near unit scale (at unit gain each residual add doubles the
     activations' variance, and the decoder's tanh saturates)."""
@@ -3804,14 +3888,61 @@ def _synth_checkpoint(spec: dict, seed: int, closing: float = 0.1) -> dict:
     def draw(schema, s):
         sd = synth_state_dict(schema, s)
         for key, a in sd.items():
-            if _CLOSING_1X1.search(key):
+            if _CLOSING.search(key):
                 a *= np.float32(closing)
         return sd
 
-    if "CodecEnc" in spec:
+    if all(isinstance(s, dict) for s in spec.values()):
         return {part: draw(s, 100 * seed + i)
                 for i, (part, s) in enumerate(spec.items())}
     return draw(spec, seed)
+
+
+# the loading phases' checkpoints (path → (seed, done, box)), drawn on a
+# host thread from the script's start (``prefetch_checkpoints``) while
+# the kernels build and the early phases run
+_DRAWS = {}
+
+
+def _loading_draws():
+    """(path, schema, seed) of every checkpoint phases 35 and 36 draw, in
+    the order and with the seeds they draw them."""
+    plan = [(f[0], f[3](f[2])) for f in _loading_families(35)]
+    plan += [(f[0], f[3](f[2])) for f in _loading_families(36)]
+    plan += [(f[0], f[4](f[2])) for f in _zoo_loading()]
+    return [(path, spec, seed) for seed, (path, spec) in enumerate(plan)]
+
+
+def prefetch_checkpoints() -> None:
+    """Draw the loading phases' checkpoints (``_synth_checkpoint``: 3.6 G
+    parameters, 14 GB of host memory, a minute of one core) on a daemon
+    thread; numpy's generators release the GIL as they fill an array.
+    ``_checkpoint`` takes each draw, waiting for it if it is not ready."""
+    plan = _loading_draws()
+    for path, _, seed in plan:
+        _DRAWS[path] = (seed, threading.Event(), [])
+
+    def work():
+        for path, spec, seed in plan:
+            _, done, box = _DRAWS[path]
+            try:
+                box.append(_synth_checkpoint(spec, seed))
+            finally:
+                done.set()
+
+    threading.Thread(target=work, name="draw checkpoints",
+                     daemon=True).start()
+
+
+def _checkpoint(path: str, spec: dict, seed: int) -> dict:
+    """``_synth_checkpoint(spec, seed)``, from the prefetch where it drew
+    it."""
+    seed_drawn, done, box = _DRAWS.pop(path, (None, None, None))
+    if seed_drawn == seed:
+        done.wait()
+        if box:
+            return box.pop()
+    return _synth_checkpoint(spec, seed)
 
 
 def _dac_unit_gain(torch, mc, convert, spec, seed, sig):
@@ -3907,6 +4038,69 @@ def _dac_unit_gain(torch, mc, convert, spec, seed, sig):
     del codec, cpu
 
 
+def _card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def _load_timed(torch, cls, mc, state, kw, device="cuda"):
+    """``cls`` at ``mc`` on ``state``, and the ms its construction took
+    (the copy to the card included)."""
+    sr = mc.sampling_rate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codec = cls(sr, sr, model_config=mc, state_dict=state, device=device,
+                **kw)
+    torch.cuda.synchronize()
+    return codec, (time.perf_counter() - t0) * 1e3
+
+
+def _drive_loaded_families(torch, rows, phase: int, seed0: int):
+    """Each family of ``_loading_families(phase)`` on a seeded
+    upstream-layout checkpoint (``_synth_checkpoint``), converted on the
+    host (timed), loaded on the card through the registry's class with
+    ``state_dict=`` (timed), its requests through ``_batch_path`` against
+    the CPU path on the same converted weights, its token margin where it
+    has one. DAC-44.1k also at unit gain (``_dac_unit_gain``)."""
+    from audiocodecs_tpu_torch.models import get_codec_class
+
+    card = _card_line()
+    rng = np.random.default_rng(phase)
+    for seed, (path, name, mc, schema, convert, kw, req_shapes, per_rt,
+               shapes, parity_rows, margin) in enumerate(
+                   _loading_families(phase), seed0):
+        spec = schema(mc)
+        ckpt = _checkpoint(path, spec, seed)
+        t0 = time.perf_counter()
+        state = convert(ckpt, mc)
+        convert_ms = (time.perf_counter() - t0) * 1e3
+        del ckpt
+        cls = get_codec_class(name)
+        codec, load_ms = _load_timed(torch, cls, mc, state, kw)
+        cpu = cls(mc.sampling_rate, mc.sampling_rate, model_config=mc,
+                  state_dict=state, device="cpu", **kw)
+        del state
+        requests = _noise(rng, req_shapes)
+        rt_ms = _batch_path(torch, rows, f"{path}_loaded", codec, cpu,
+                            requests, per_rt, shapes, None,
+                            parity_rows=parity_rows)
+        if margin is not None:
+            margin(torch, f"{path}_loaded", codec, cpu, requests[-1])
+        log(f"{path} loaded: convert_ms={convert_ms:.1f} load_ms="
+            f"{load_ms:.1f} roundtrip_ms={rt_ms:.3f} (B="
+            f"{requests[0].shape[0]} x "
+            f"{requests[0].shape[1] / mc.sampling_rate:g} s, warm); card: "
+            f"{card}")
+        del codec, cpu
+        torch.cuda.empty_cache()
+        if name == "dac":
+            _dac_unit_gain(torch, mc, convert, spec, seed, requests[-1])
+            torch.cuda.empty_cache()
+
+
 def phase_checkpoint_loading(torch, rows):
     """35. EnCodec-24k, DAC-44.1k, SpeechTokenizer-16k, PAST-16k and
     BigCodec-16k at their published widths on weights converted from an
@@ -3926,44 +4120,227 @@ def phase_checkpoint_loading(torch, rows):
     decode of the same tokens within 1e-4 of max|sig|), the warm
     roundtrip and its profile. And DAC-44.1k on the same draw at unit
     gain (``_dac_unit_gain``)."""
+    _drive_loaded_families(torch, rows, 35, seed0=0)
+
+
+# Slice 15: the rest of the zoo on converted checkpoints
+SEMANTICODEC_WINDOW = 163840  # one 10.24 s window at 16 kHz
+
+
+def _zoo_loading():
+    """(path, registry name, model config, constructor keywords, the
+    checkpoint's schema (files → key → shape, or key → shape), the
+    converter ``(ckpt, mc) → state``, the token margin or None, the
+    decode's limit as a share of max|sig|) of the nine families of the
+    rest of the zoo that phase 36 loads for one short request. WavLM+
+    K-means' k-means centroids and dequantizer, which no converter
+    covers, are drawn in the port's layout; SemantiCodec is assembled by
+    ``convert_semanticodec_components`` from its five released pieces."""
+    import dataclasses
+
+    from audiocodecs_tpu_torch.convert import ldm
+    from audiocodecs_tpu_torch.convert import zoo as z
+    from audiocodecs_tpu_torch.convert.audiomae import audiomae_schema
+    from audiocodecs_tpu_torch.convert.torch_utils import (
+        put_linear, to_tensor)
+    from audiocodecs_tpu_torch.convert.wavlm import convert_wavlm_state_dict
     from audiocodecs_tpu_torch.models import get_codec_class
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    rng = np.random.default_rng(35)
-    for seed, (path, name, mc, schema, convert, kw, req_shapes, per_rt,
-               shapes, parity_rows) in enumerate(_loading_families()):
-        spec = schema(mc)
-        ckpt = _synth_checkpoint(spec, seed)
+    def published(name, **kw):
+        mc = get_codec_class(name).default_model_config()
+        return dataclasses.replace(mc, **kw) if kw else mc
+
+    wk = published("wavlm_kmeans", vocoder_variant="hifigan")
+    H = wk.wavlm.hidden_size
+
+    def wavlm_kmeans(ck, mc):
+        out = {f"wavlm.{k}": v for k, v in
+               convert_wavlm_state_dict(ck["wavlm"], mc.wavlm).items()}
+        out.update({f"vocoder.{k}": v for k, v in
+                    z.convert_wavlm_kmeans_vocoder(ck["vocoder"],
+                                                   mc.hifigan()).items()})
+        rest = {}
+        put_linear(rest, "dequantizer", ck["rest"], "dequantizer")
+        rest["kmeans"] = ck["rest"]["kmeans.codebook"]
+        out.update({k: to_tensor(v) for k, v in rest.items()})
+        return out
+
+    sc = published("semanticodec")
+    ldm_spec = {**{f"first_stage_model.{k}": v for k, v in
+                   ldm.vae_schema(sc.vae_cfg).items()},
+                **{f"model.diffusion_model.{k}": v for k, v in
+                   ldm.unet_schema(sc.unet()).items()}}
+
+    def semanticodec(ck, mc):
+        # the latent scale as the random-init phase sets it
+        ldm_sd = {**ck["ldm"], "scale_factor": np.float32(1.0)}
+        return z.convert_semanticodec_components(
+            mc, audiomae_sd=ck["audiomae"], ldm_sd=ldm_sd,
+            vocoder_sd=ck["vocoder"], base_params={},
+            centroids=ck["codebooks"]["semantic.codebook"],
+            acoustic_codebook=ck["codebooks"]["acoustic.codebook"])
+
+    def one(name):
+        return (getattr(z, f"{name}_schema"),
+                getattr(z, f"convert_{name}_state_dict"))
+
+    return (
+        ("stablecodec_16k", "stablecodec", published("stablecodec"), {},
+         *one("stablecodec"), None, 1e-4),
+        ("nanocodec_22k", "nanocodec", published("nanocodec"), {},
+         *one("nanocodec"), None, 1e-4),
+        ("audiodec_24k", "audiodec", published("audiodec"),
+         {"num_codebooks": 8}, *one("audiodec"), None, 1e-4),
+        ("magicodec_16k", "magicodec", published("magicodec"), {},
+         *one("magicodec"), None, 1e-4),
+        ("focalcodec_16k", "focalcodec", published("focalcodec"), {},
+         *one("focalcodec"), _focal_margin, 1e-4),
+        ("hilcodec_24k", "hilcodec", published("hilcodec"),
+         {"num_codebooks": 8}, z.hilcodec_schema,
+         z.convert_hilcodec_full_state_dict, None, 1e-4),
+        ("dycast_16k", "dycast", published("dycast"), {}, *one("dycast"),
+         _dycast_margin, 1e-4),
+        ("wavlm_kmeans_hifigan_16k", "wavlm_kmeans", wk, {},
+         lambda mc: {"wavlm": z.wavlm_schema(mc.wavlm),
+                     "vocoder": ldm.hifigan_schema(mc.hifigan()),
+                     "rest": {"kmeans.codebook": (1, mc.num_clusters, H),
+                              "dequantizer.weight": (H, H),
+                              "dequantizer.bias": (H,)}},
+         wavlm_kmeans, None, 1e-4),
+        ("semanticodec_16k", "semanticodec", sc, {"ddim_sample_step": 2},
+         lambda mc: {"audiomae": audiomae_schema(mc.audiomae()),
+                     "ldm": ldm_spec,
+                     "vocoder": ldm.hifigan_schema(mc.vocoder_cfg),
+                     "codebooks": {
+                         "semantic.codebook": (mc.semantic_vocab,
+                                               mc.feature_dim),
+                         "acoustic.codebook": (mc.acoustic_vocab,
+                                               mc.feature_dim)}},
+         semanticodec, None, max(1e-4, SEMANTICODEC_FP32_GAP)),
+    )
+
+
+def phase_zoo_loading(torch, rows):
+    """36. The rest of the zoo on converted checkpoints. X-Codec 2.0-16k
+    and BiCodec-16k at their published widths as phase 35 drives its five
+    (``_drive_loaded_families``): their phases' requests (two B = 8 x 10
+    s, one ragged), launches (X-Codec 2.0 B1 wide 2, BiCodec B4 6 a
+    roundtrip), shapes and parity rows, the FSQ margins. Then StableCodec,
+    NanoCodec, AudioDec, MagiCodec, FocalCodec, HILCodec (its whole
+    towers), DyCAST, WavLM+K-means with its HiFi-GAN vocoder and
+    SemantiCodec (from its AudioMAE, centroids, codebook, LDM and vocoder
+    files) at their published widths: each checkpoint drawn as in 35,
+    converted on the host and loaded on the card (both timed), one short
+    request (B = 1 x 2 s, or SemantiCodec's one 10.24 s window at 2 DDIM
+    steps) through ``sig_to_toks`` and ``toks_to_sig``: no kernel
+    launch, tokens equal to the CPU path's on the same weights, the
+    decode of the same tokens within its family's limit of max|sig|
+    (1e-4, SemantiCodec's the larger of it and the fp32 gap), the token
+    margin where the family's phase prints one."""
+    _drive_loaded_families(torch, rows, 36, seed0=5)
+    _drive_zoo_loading(torch, rows, seed0=7)
+
+
+def _drive_zoo_loading(torch, rows, seed0: int):
+    """The nine of ``_zoo_loading`` (phase 36's second part); a family that
+    misses is named at the end, after the others ran."""
+    from audiocodecs_tpu_torch.models import get_codec_class
+
+    card = _card_line()
+    rng = np.random.default_rng(36)
+    misses = []
+    for seed, (path, name, mc, kw, schema, convert, margin,
+               limit) in enumerate(_zoo_loading(), seed0):
+        ckpt = _checkpoint(path, schema(mc), seed)
         t0 = time.perf_counter()
         state = convert(ckpt, mc)
         convert_ms = (time.perf_counter() - t0) * 1e3
         del ckpt
-        cls, sr = get_codec_class(name), mc.sampling_rate
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        codec = cls(sr, sr, model_config=mc, state_dict=state,
-                    device="cuda", **kw)
-        torch.cuda.synchronize()
-        load_ms = (time.perf_counter() - t0) * 1e3
-        cpu = cls(sr, sr, model_config=mc, state_dict=state, device="cpu",
-                  **kw)
+        cls = get_codec_class(name)
+        codec, load_ms = _load_timed(torch, cls, mc, state, kw)
+        cpu = cls(mc.sampling_rate, mc.sampling_rate, model_config=mc,
+                  state_dict=state, device="cpu", **kw)
         del state
-        requests = _noise(rng, req_shapes)
-        rt_ms = _batch_path(torch, rows, f"{path}_loaded", codec, cpu,
-                            requests, per_rt, shapes, None,
-                            parity_rows=parity_rows)
-        log(f"{path} loaded: convert_ms={convert_ms:.1f} load_ms="
-            f"{load_ms:.1f} roundtrip_ms={rt_ms:.3f} (B="
-            f"{requests[0].shape[0]} x {requests[0].shape[1] / sr:g} s, "
-            f"warm); card: {card}")
+        n = (SEMANTICODEC_WINDOW if name == "semanticodec"
+             else 2 * mc.sampling_rate)
+        (sig,) = _noise(rng, [(1, n)])
+        path = f"{path}_loaded"
+        reset_counts()
+        toks = codec.sig_to_toks(sig)
+        y = codec.toks_to_sig(toks)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != _launch_table(0, 0):
+            fail(f"{path}: expected no kernel launches, got {counts}")
+        _add_launches(rows, path, counts)
+        t0 = time.perf_counter()
+        toks_cpu = cpu.sig_to_toks(sig)
+        y_cpu = cpu.toks_to_sig(toks.cpu())
+        cpu_s = time.perf_counter() - t0
+        same = tuple(toks.shape) == tuple(toks_cpu.shape) and bool(
+            (toks.cpu() == toks_cpu).all())
+        scale = float(y_cpu.abs().max())
+        err = float((y.cpu() - y_cpu).abs().max())
+        log(f"{path} B=1 x {n / mc.sampling_rate:g} s: toks "
+            f"{tuple(toks.shape)} equal to the CPU path's: {same}; decode "
+            f"max_abs_diff={err:.3e} (limit {limit * scale:.3e}, max|sig| "
+            f"{scale:.4e}, {float((y_cpu.abs() > 0.99).float().mean()):.3f}"
+            f" of the samples above 0.99); convert_ms={convert_ms:.1f} "
+            f"load_ms={load_ms:.1f}; cpu_seconds={cpu_s:.1f}; card: {card}")
+        if not same:
+            misses.append(f"{path}: tokens differ from the CPU path's")
+        if not bool(torch.isfinite(y).all()) or not err <= limit * scale:
+            misses.append(f"{path}: the decode disagrees with the CPU path")
+            _float64_gap(torch, path, cpu, toks, y, y_cpu)
+        if margin is not None:
+            margin(torch, path, codec, cpu, sig)
         del codec, cpu
         torch.cuda.empty_cache()
-        if name == "dac":
-            _dac_unit_gain(torch, mc, convert, spec, seed, requests[-1])
+        if name == "nanocodec":
+            _nanocodec_unit_gain(torch, mc, kw, schema, convert, seed, sig)
             torch.cuda.empty_cache()
+    if misses:
+        fail("; ".join(misses))
+
+
+def _float64_gap(torch, path, cpu, toks, y, y_cpu):
+    """The CPU path's float32 decode and the card's against the CPU path in
+    float64 (``cpu`` is cast), on the same tokens. Two gaps of one size
+    are fp32 conditioning; a card much further off than the CPU is not."""
+    with torch.inference_mode():
+        q = cpu._toks_to_qfeats(toks.cpu(), None)
+        y64 = cpu.double()._feats_to_sig(q.double(), None)
+    e_cpu = float((y_cpu.double() - y64).abs().max())
+    e_card = float((y.cpu().double() - y64).abs().max())
+    log(f"{path} against float64 on the CPU: CPU float32 {e_cpu:.3e}, "
+        f"card {e_card:.3e}")
+
+
+def _nanocodec_unit_gain(torch, mc, kw, schema, convert, seed, sig):
+    """NanoCodec-22.05k on phase 36's draw at unit gain (its units'
+    closing ``skip_conv`` not cut to a tenth), where the decode of the
+    same tokens parts from the CPU path's by more than 1e-4 of max|sig|
+    with no kernel on the path: its tanh-saturated share, and the card's
+    and the CPU path's float32 decodes against float64 (``_float64_gap``)."""
+    from audiocodecs_tpu_torch.models.nanocodec import NanoCodec
+
+    state = convert(_synth_checkpoint(schema(mc), seed, closing=1.0), mc)
+    sr = mc.sampling_rate
+    codec = NanoCodec(sr, sr, model_config=mc, state_dict=state,
+                      device="cuda", **kw)
+    cpu = NanoCodec(sr, sr, model_config=mc, state_dict=state,
+                    device="cpu", **kw)
+    del state
+    toks = codec.sig_to_toks(sig)
+    y, y_cpu = codec.toks_to_sig(toks).cpu(), cpu.toks_to_sig(toks.cpu())
+    scale = float(y_cpu.abs().max())
+    path = "nanocodec_22k_loaded unit gain"
+    log(f"{path}: decode max_abs_diff={float((y - y_cpu).abs().max()):.3e}"
+        f" (1e-4 of max|sig| is {1e-4 * scale:.3e}); "
+        f"{float((y_cpu.abs() > 0.99).float().mean()):.3f} of the samples "
+        f"above 0.99")
+    _float64_gap(torch, path, cpu, toks, y, y_cpu)
+    del codec, cpu
 
 
 def main() -> None:
@@ -3985,6 +4362,7 @@ def main() -> None:
         return out
 
     name, card, peaks = phase_card(torch)
+    prefetch_checkpoints()
     phase_build()
     rows = [*timed(phase_lstm, peaks), timed(phase_resblock, peaks),
             timed(phase_packed, peaks), timed(phase_dac_resunit, peaks),
@@ -4004,7 +4382,7 @@ def main() -> None:
                   phase_stablecodec, phase_magicodec, phase_zoo_one_pass,
                   phase_wavlm_kmeans, phase_dycast, phase_focalcodec,
                   phase_bicodec, phase_semanticodec,
-                  phase_checkpoint_loading):
+                  phase_checkpoint_loading, phase_zoo_loading):
         timed(phase, rows)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))

@@ -52,7 +52,11 @@ from audiocodecs_tpu_torch.params import (  # noqa: E402
     from_jax_params,
 )
 from test_zoo_converters import synth_state_dict  # noqa: E402
-from zoo_pairs import assert_same_state, one_thread  # noqa: E402,F401
+from zoo_pairs import (  # noqa: E402,F401
+    assert_same_state,
+    meta_codec,
+    one_thread,
+)
 
 
 def _wn_conv(k: str) -> bool:
@@ -115,9 +119,13 @@ def _synth(schema, synth):
     return synth(schema)
 
 
-def _codec(cls, cfg, sd):
+def _codec(cls, cfg, sd, build=None):
+    """The codec on ``sd`` on the CPU, or through ``build`` (``meta_codec``
+    for the layouts alone)."""
     sr = cfg.sampling_rate
     kw = {} if cls in (WavTokenizer, BigCodec) else {"num_codebooks": 2}
+    if build is not None:
+        return build(cls, sr, sr, model_config=cfg, state_dict=sd, **kw)
     return cls(sr, sr, model_config=cfg, state_dict=sd, device="cpu", **kw)
 
 
@@ -133,9 +141,7 @@ def test_matches_the_jax_converter(name, published):
     sd = _synth(jax_schema(jcfg), fast_synth if published else
                 synth_state_dict)
     got = port(sd, cfg)
-    codec = _codec(cls, cfg, got)
-    want = from_jax_params(ref(sd, jcfg), codec)
-    del codec
+    want = from_jax_params(ref(sd, jcfg), _codec(cls, cfg, got, meta_codec))
     assert_same_state(got, want, folded=_wn_conv)
 
 

@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``audiocodecs_tpu_torch`` (nor
-``chip_smoke.py``, nor ``tools/certify_torch.py``) imports ``jax``,
-``audiocodecs_tpu`` or ``transformers``, and its entry points run on the
-card unless the caller asks for the CPU."""
+``chip_smoke.py``, nor the port's tools ``tools/certify_torch.py``,
+``tools/convert_checkpoints_torch.py`` and ``tools/inspect_checkpoint_
+torch.py``) imports ``jax``, ``audiocodecs_tpu`` or ``transformers``, its
+entry points run on the card unless the caller asks for the CPU, and its
+converters read no environment."""
 
 import ast
 import json
@@ -97,7 +99,11 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.convert.zoo",
               "audiocodecs_tpu_torch.convert.mimi",
               "audiocodecs_tpu_torch.convert.wavlm",
-              "audiocodecs_tpu_torch.convert.w2vbert"):
+              "audiocodecs_tpu_torch.convert.w2vbert",
+              "audiocodecs_tpu_torch.convert.overlay",
+              "audiocodecs_tpu_torch.convert.audiomae",
+              "audiocodecs_tpu_torch.convert.ldm",
+              "audiocodecs_tpu_torch.convert.checkpoint_files"):
         assert m in mods
 
 
@@ -151,7 +157,9 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
 
 
 @pytest.mark.parametrize("path", ["audiocodecs_tpu_torch", "chip_smoke.py",
-                                  "tools/certify_torch.py"])
+                                  "tools/certify_torch.py",
+                                  "tools/convert_checkpoints_torch.py",
+                                  "tools/inspect_checkpoint_torch.py"])
 def test_no_import_statement_names_jax_or_reference(path):
     files = [REPO / path] if path.endswith(".py") else sorted(
         (REPO / path).rglob("*.py"))
@@ -272,3 +280,21 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_no_converter_reads_the_environment():
+    """The converters take every choice as an argument (HILCodec's partial
+    conversion is ``allow_partial=``): no module of the port's
+    ``convert/`` names ``os.environ`` or ``os.getenv``."""
+    files = sorted((PORT / "convert").glob("*.py"))
+    assert len(files) >= 10
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Attribute) and node.attr in (
+                    "environ", "getenv", "putenv"):
+                bad.append(f"{f.name}: {ast.unparse(node)}")
+            elif isinstance(node, ast.ImportFrom) and node.module == "os":
+                bad += [f"{f.name}: from os import {a.name}"
+                        for a in node.names]
+    assert not bad
