@@ -1,1 +1,3 @@
-"""Downstream evaluation: the metrics ported so far."""
+"""Downstream evaluation: the speech-resynthesis (SR) path — configs,
+corpora, the bucketed loader, the signal-metric battery and
+``recipes.sr``."""

@@ -106,13 +106,15 @@ class CodecServer:
         """Enqueue one mono request ``[T]``; returns its :class:`Reply`.
 
         Requests longer than the largest bucket are rejected: truncating
-        would deliver fewer samples than asked for.
+        would deliver fewer samples than asked for (route long audio through
+        :func:`audiocodecs_tpu_torch.utils.windowed.windowed_reconstruct`).
         """
         T = wav.shape[0]
         if T > self.buckets[-1]:
             raise ValueError(
                 f"request of {T} samples exceeds the largest bucket "
-                f"({self.buckets[-1]}); configure a larger bucket")
+                f"({self.buckets[-1]}); use windowed_reconstruct for "
+                f"long audio or configure a larger bucket")
         bucket = next(b for b in self.buckets if T <= b)
         reply = Reply(T)
         self.queues[bucket].put((wav, reply))

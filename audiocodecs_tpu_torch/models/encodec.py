@@ -197,6 +197,10 @@ class Encodec(SEANetStreaming, Codec):
     ``use_vocos`` the decoder's form changes nothing.
     """
 
+    @classmethod
+    def default_model_config(cls, orig_sample_rate: int = 24000):
+        return EncodecModelConfig(sampling_rate=orig_sample_rate)
+
     def __init__(
         self,
         sample_rate: int,
@@ -213,7 +217,7 @@ class Encodec(SEANetStreaming, Codec):
         decode_precision: str = "exact",
         encode_precision: str = "exact",
     ):
-        mc = model_config or EncodecModelConfig(sampling_rate=orig_sample_rate)
+        mc = model_config or self.default_model_config(orig_sample_rate)
         bandwidth_id = 0
         if use_vocos:
             if mc.chunk_length is not None:

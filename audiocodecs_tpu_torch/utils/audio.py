@@ -1,9 +1,12 @@
 """Host-side audio I/O and a test signal (numpy, no torch).
 
-Counterpart of ``audiocodecs_tpu/utils/audio.py``'s portable path: WAV files
-through Python's ``wave`` module and numpy, with the same numerics (PCM
-integers scaled to ``[-1, 1)``; written as 16-bit PCM). The reference's
-native reader (``csrc/wavio.cc`` over ctypes) has no binding here yet.
+Counterpart of ``audiocodecs_tpu/utils/audio.py``. WAV files go through the
+package's native reader and writer (``csrc/wavio.cc`` over ctypes,
+:mod:`..native.wavio`: one C++ pass for parse and int → float, float32
+WAVs too). ``native=False`` takes the plain version, Python's ``wave``
+module and numpy, with the same numerics (PCM integers scaled to
+``[-1, 1)``; written as 16-bit PCM, ``x * 32767`` truncated toward zero):
+both give the same arrays and the same bytes.
 """
 
 from __future__ import annotations
@@ -15,9 +18,14 @@ import numpy as np
 __all__ = ["read_wav", "write_wav", "example_signal"]
 
 
-def read_wav(path: str) -> tuple[np.ndarray, int]:
+def read_wav(path: str, native: bool = True) -> tuple[np.ndarray, int]:
     """Read a PCM WAV file → (``[channels, T]`` float32 in [-1, 1],
-    sample_rate). Sample widths of 1 (unsigned), 2, 3 and 4 bytes."""
+    sample_rate). Sample widths of 1 (unsigned), 2, 3 and 4 bytes; the
+    native reader also reads float32 files."""
+    if native:
+        from audiocodecs_tpu_torch.native.wavio import read_wav_native
+
+        return read_wav_native(path)
     with wave.open(path, "rb") as f:
         sr = f.getframerate()
         n = f.getnframes()
@@ -43,9 +51,14 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
     return data.reshape(-1, ch).T, sr
 
 
-def write_wav(path: str, sig: np.ndarray, sample_rate: int) -> None:
+def write_wav(path: str, sig: np.ndarray, sample_rate: int,
+              native: bool = True) -> None:
     """Write ``[channels, T]`` or ``[T]`` float audio as 16-bit PCM WAV
     (clipped to the int16 range)."""
+    if native:
+        from audiocodecs_tpu_torch.native.wavio import write_wav_native
+
+        return write_wav_native(path, sig, sample_rate)
     sig = np.asarray(sig, dtype=np.float32)
     if sig.ndim == 1:
         sig = sig[None]

@@ -219,6 +219,26 @@ it fails:
    closing convs drawn at a tenth, and NanoCodec at unit gain beside
    float64. The checkpoints of 35 and 36 are drawn on a host thread from
    the start (``prefetch_checkpoints``), while the kernels build.
+37. long audio: ``utils/windowed.py::windowed_reconstruct`` on EnCodec-24k
+   at B = 1 x 25 s in 10 s windows (three roundtrips: 12 kernel-1 and 24
+   kernel-2 launches) against the CPU path on the same weights (within
+   1e-4 of max|sig|); the native WAV writer and reader (``csrc/wavio.cc``,
+   built with ``g++`` on the card's host) against the ``wave`` path, bytes
+   and arrays equal; the ``reconstruct`` (EnCodec-24k, 4 kernel-1 and 8
+   kernel-2 launches) and ``stream`` (Mimi-24k, streamed tokens equal to
+   the batch encode's, no launch) examples' ``main()``;
+38. the SR evaluation: the ``sweep_sr`` example's ``main()`` over its four
+   default codecs at the registry's rates and published widths
+   (EnCodec-24k, DAC-16k, Mimi-24k, SpeechTokenizer-16k) on the synthetic
+   corpus of ``hparams/datasets/synthetic.yaml``: launches a roundtrip
+   (EnCodec 4 kernel-1 and 8 kernel-2, DAC 6 kernel-3, SpeechTokenizer 6
+   kernel-1, Mimi none; a roundtrip a batch and two a batch shape for the
+   timer), each codec's iRTF, RTF and battery; the summary keys against
+   the CPU run's, and EnCodec's per-utterance metrics against ``run_sr(...,
+   device="cpu")`` on the same weights (SI-SNR within 0.01 dB, MelD and
+   STFTD within 1e-3 relative, STOI 1e-3, PESQ 0.02, DNSMOS 1e-3) with
+   its tokens (token_match ≥ 0.999); the DNSMOS time an utterance. Both
+   phases write under the git-ignored ``results/chip_smoke/``.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -4343,6 +4363,242 @@ def _nanocodec_unit_gain(torch, mc, kw, schema, convert, seed, sig):
     del codec, cpu
 
 
+WORK_DIR = Path("results") / "chip_smoke"  # git-ignored, in the checkout
+LONG_AUDIO = (24000, 25.0, 10.0)  # EnCodec-24k: rate, request s, window s
+
+
+def phase_long_audio(torch, rows):
+    """``windowed_reconstruct`` on EnCodec-24k at B = 1 x 25 s in 10 s
+    windows (three: 4 B1 and 8 B2 launches each) against the CPU path on the
+    same weights; the native WAV writer and reader on the card's host
+    against the ``wave`` path; the ``reconstruct`` and ``stream`` examples'
+    ``main()`` on the card."""
+    from audiocodecs_tpu_torch.examples import reconstruct, stream
+    from audiocodecs_tpu_torch.models.encodec import Encodec
+    from audiocodecs_tpu_torch.utils.audio import read_wav, write_wav
+    from audiocodecs_tpu_torch.utils.windowed import windowed_reconstruct
+
+    sr, seconds, window = LONG_AUDIO
+    codec, cpu = _server_pair(torch, Encodec, sr, sr, num_codebooks=8)
+    sig = _noise(np.random.default_rng(37), [(1, int(sr * seconds))])[0]
+    path = "windowed_encodec_24k"
+    reset_counts()
+    t0 = time.perf_counter()
+    y = windowed_reconstruct(codec, sig, window_seconds=window)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"{path} launches: {json.dumps(counts)}")
+    want = _launch_table(12, 24)
+    if counts != want:
+        fail(f"{path}: expected launches {want}, got {counts}")
+    _add_launches(rows, path, counts)
+    t0 = time.perf_counter()
+    y_cpu = windowed_reconstruct(cpu, sig, window_seconds=window)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(y - y_cpu).max())
+    lim = 1e-4 * float(np.abs(y_cpu).max())
+    log(f"{path} B=1 x {seconds} s in {window} s windows: {wall * 1e3:.1f} "
+        f"ms wall on the card (first call); max_abs_diff against the CPU "
+        f"{err:.3e} (limit {lim:.3e}); cpu_seconds={cpu_s:.1f}")
+    if y.shape != sig.shape or not np.isfinite(y).all():
+        fail(f"{path}: output {y.shape}, finite {np.isfinite(y).all()}")
+    if not err <= lim:
+        fail(f"{path}: disagrees with the CPU path")
+    t0 = time.perf_counter()
+    windowed_reconstruct(codec, sig, window_seconds=window)
+    warm = time.perf_counter() - t0
+    log(f"{path} warm: {warm * 1e3:.1f} ms wall (host crossfade included), "
+        f"rtf={seconds / warm:.1f}")
+
+    # the two WAV paths in turns, five times each (the first call of the
+    # native path also loads its library)
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    wavs, ms = {}, {True: ([], []), False: ([], [])}
+    for _ in range(5):
+        for native in (True, False):
+            f = WORK_DIR / f"long_{native}.wav"
+            t0 = time.perf_counter()
+            write_wav(str(f), y, sr, native=native)
+            t1 = time.perf_counter()
+            back, back_sr = read_wav(str(f), native=native)
+            ms[native][0].append((t1 - t0) * 1e3)
+            ms[native][1].append((time.perf_counter() - t1) * 1e3)
+            wavs[native] = (f.read_bytes(), back, back_sr)
+    for native, (w, r) in ms.items():
+        log(f"wav {'native' if native else 'wave'} ({y.size} samples, 16-bit):"
+            f" write median {statistics.median(w):.3f} ms (first "
+            f"{w[0]:.3f}), read median {statistics.median(r):.3f} ms (first "
+            f"{r[0]:.3f})")
+    if wavs[True][0] != wavs[False][0]:
+        fail("native and wave writers wrote different bytes")
+    if not (wavs[True][2] == wavs[False][2] == sr and np.array_equal(
+            wavs[True][1], wavs[False][1])):
+        fail("native and wave readers disagree")
+
+    for name, main, argv, want in (
+            ("reconstruct_example", reconstruct.main,
+             ["--out", str(WORK_DIR / "reconstruction.wav")],
+             _launch_table(4, 8)),
+            ("stream_example", stream.main, [], _launch_table(0, 0))):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = main(argv)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"{name}: rc={rc}, {time.perf_counter() - t0:.1f} s, launches "
+            f"{json.dumps(counts)}")
+        if rc != 0:
+            fail(f"{name} exited {rc}")
+        if counts != want:
+            fail(f"{name}: expected launches {want}, got {counts}")
+        _add_launches(rows, name, counts)
+
+
+SWEEP_PER_ROUNDTRIP = {"encodec": (4, 8, 0), "dac": (0, 0, 6),
+                       "mimi": (0, 0, 0), "speechtokenizer": (6, 0, 0)}
+SR_LIMITS = {"sisnr": (0.01, 0), "meld": (0, 1e-3), "stftd": (0, 1e-3),
+             "stoi": (1e-3, 0), "pesq": (0.02, 0), "dnsmos": (1e-3, 0)}
+
+
+def _sr_stats(out_dir: Path) -> dict:
+    """Per-utterance values of the metric files ``run_sr`` wrote."""
+    out = {}
+    for f in sorted(out_dir.glob("*.txt")):
+        lines = f.read_text().splitlines()[1:-1]
+        out[f.stem] = {u: float(v) for u, v in (ln.split("\t")
+                                                for ln in lines)}
+    return out
+
+
+def phase_sweep_sr(torch, rows):
+    """The ``sweep_sr`` example over its four default codecs at their
+    published widths (EnCodec-24k, DAC-16k, Mimi-24k, SpeechTokenizer-16k
+    at the registry's rates) on the synthetic corpus of
+    ``hparams/datasets/synthetic.yaml``, on the card: launches a roundtrip,
+    the summary keys, EnCodec's summary against ``run_sr`` on the CPU with
+    the same weights, its tokens against the CPU's, and the DNSMOS time an
+    utterance."""
+    import yaml
+
+    from audiocodecs_tpu_torch.downstream.config import build_codec
+    from audiocodecs_tpu_torch.downstream.datasets.loader import (
+        BucketedLoader)
+    from audiocodecs_tpu_torch.downstream.datasets.manifest import (
+        read_manifest)
+    from audiocodecs_tpu_torch.downstream.metrics.dnsmos import dnsmos_p808
+    from audiocodecs_tpu_torch.downstream.recipes.common import prepare_data
+    from audiocodecs_tpu_torch.downstream.recipes.sr import run_sr
+    from audiocodecs_tpu_torch.examples import sweep_sr
+    from audiocodecs_tpu_torch.utils.audio import read_wav
+
+    work = WORK_DIR / "sweep_sr"
+    ds = yaml.safe_load(Path("hparams/datasets/synthetic.yaml").read_text())
+    ds["prep_dir"] = str(work / "corpus")
+    ds_path = work / "synthetic.yaml"
+    work.mkdir(parents=True, exist_ok=True)
+    ds_path.write_text(yaml.safe_dump(ds))
+    task = "hparams/tasks/sr.yaml"
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = sweep_sr.main(["--dataset", str(ds_path), "--task", task,
+                        "--output_folder", str(work / "card")])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"sweep_sr: rc={rc}, {time.perf_counter() - t0:.1f} s, launches "
+        f"{json.dumps(counts)}")
+    if rc != 0:
+        fail(f"sweep_sr exited {rc}")
+
+    # roundtrips a codec: one a batch, and two a distinct batch shape for
+    # the timer (a warm call and the timed one)
+    cfg = yaml.safe_load(Path(task).read_text())
+    test_rows = read_manifest(ds["test_csv"].replace("{prep_dir}",
+                                                     ds["prep_dir"]))
+    loader = BucketedLoader(test_rows, ds["sample_rate"],
+                            batch_size=4,
+                            num_buckets=int(cfg["num_length_buckets"]))
+    plan = loader._plan()
+    n_rt = len(plan) + 2 * len({(len(r), t) for r, t in plan})
+    lstm = n_rt * sum(v[0] for v in SWEEP_PER_ROUNDTRIP.values())
+    block = n_rt * sum(v[1] for v in SWEEP_PER_ROUNDTRIP.values())
+    unit = n_rt * sum(v[2] for v in SWEEP_PER_ROUNDTRIP.values())
+    want = _launch_table(lstm, block, unit)
+    if counts != want:
+        fail(f"sweep_sr: expected launches {want} ({n_rt} roundtrips a "
+             f"codec), got {counts}")
+    _add_launches(rows, "sweep_sr", counts)
+
+    card = {n: json.loads((work / "card" / n / "summary.json").read_text())
+            for n in SWEEP_PER_ROUNDTRIP}
+    for n, s in card.items():
+        log(f"sweep_sr {n}: iRTF={s['iRTF']:.3f} RTF={s['RTF']:.6f} "
+            f"RealTime={s['RealTime']:.4f} s ProcessTimeEncode="
+            f"{s['ProcessTimeEncode']:.6f} s ProcessTimeDecode="
+            f"{s['ProcessTimeDecode']:.6f} s SISNR={s['SISNR']:.3f} "
+            f"MelD={s['MelD']:.3f} STOI={s['STOI']:.4f} PESQ={s['PESQ']:.3f} "
+            f"DNSMOS={s['DNSMOS']:.4f} codebook_util="
+            f"{s['codebook_util']:.4f} batches={s['num_batches']}")
+
+    # EnCodec on the CPU, same weights (seed 0) and config
+    ecfg = prepare_data({**cfg, **ds, "codec": {"name": "encodec"},
+                         "test_batch_size": 4,
+                         "output_folder": str(work / "cpu" / "encodec")})
+    t0 = time.perf_counter()
+    cpu_summary = run_sr(ecfg, device="cpu")
+    log(f"sweep_sr encodec on the CPU: {time.perf_counter() - t0:.1f} s")
+    for n, s in card.items():
+        if sorted(s) != sorted(cpu_summary):
+            fail(f"sweep_sr {n}: summary keys {sorted(s)} != the CPU run's "
+                 f"{sorted(cpu_summary)}")
+    got = _sr_stats(work / "card" / "encodec")
+    ref = _sr_stats(work / "cpu" / "encodec")
+    worst = {}
+    for name, vals in ref.items():
+        metric = name
+        for prefix in ("rec", "ref", "orig"):
+            if name.startswith(prefix) and name[len(prefix):] in SR_LIMITS:
+                metric = name[len(prefix):]
+        atol, rtol = SR_LIMITS[metric]
+        for uid, w in vals.items():
+            d = abs(got[name][uid] - w)
+            worst[name] = max(worst.get(name, 0.0), d)
+            if not d <= atol + rtol * abs(w) + 1e-6:
+                fail(f"sweep_sr encodec {name} {uid}: card {got[name][uid]}"
+                     f" against CPU {w}")
+    log(f"sweep_sr encodec card against CPU, largest gap a metric: "
+        f"{json.dumps({k: round(v, 7) for k, v in worst.items()})}")
+    if cpu_summary["codebook_util"] != card["encodec"]["codebook_util"]:
+        log(f"sweep_sr encodec codebook_util card "
+            f"{card['encodec']['codebook_util']} CPU "
+            f"{cpu_summary['codebook_util']}")
+    gpu_codec = build_codec(ecfg, ds["sample_rate"])
+    cpu_codec = build_codec(ecfg, ds["sample_rate"], device="cpu")
+    mism = total = 0
+    for batch in loader:
+        t_gpu = gpu_codec.sig_to_toks(batch["sig"], batch["length"]).cpu()
+        t_cpu = cpu_codec.sig_to_toks(batch["sig"], batch["length"])
+        mism += int((t_gpu != t_cpu).sum())
+        total += t_cpu.numel()
+    match = 1.0 - mism / total
+    log(f"sweep_sr encodec tokens card against CPU: token_match="
+        f"{match:.6f} ({mism} of {total} differ)")
+    if not match >= 0.999:
+        fail(f"sweep_sr encodec: token_match {match} < 0.999")
+
+    # DNSMOS a test utterance on the card (wall, host included: the
+    # tiling, the copy in, the score out)
+    x, rate = read_wav(read_manifest(ecfg["test_csv"])[0]["wav"])
+    times = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        dnsmos_p808(x[0], rate)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"DNSMOS a {x.shape[1] / rate:.2f} s utterance on the card: "
+        f"median {statistics.median(times[2:]):.2f} ms wall (host "
+        f"included), {len(times) - 2} warm calls")
+    del gpu_codec, cpu_codec
+
+
 def main() -> None:
     import torch
 
@@ -4382,7 +4638,8 @@ def main() -> None:
                   phase_stablecodec, phase_magicodec, phase_zoo_one_pass,
                   phase_wavlm_kmeans, phase_dycast, phase_focalcodec,
                   phase_bicodec, phase_semanticodec,
-                  phase_checkpoint_loading, phase_zoo_loading):
+                  phase_checkpoint_loading, phase_zoo_loading,
+                  phase_long_audio, phase_sweep_sr):
         timed(phase, rows)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))

@@ -38,6 +38,7 @@ from audiocodecs_tpu_torch.ops.seanet_resblock import (
     seanet_resblock_packed,
     seanet_resblock_reference,
 )
+from zoo_pairs import one_thread  # noqa: F401 (autouse)
 
 F64 = torch.float64
 

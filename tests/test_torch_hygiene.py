@@ -39,6 +39,36 @@ def _is_transformers(name: str) -> bool:
     return name == "transformers" or name.startswith("transformers.")
 
 
+# long audio, native WAV I/O, train state and the SR evaluation path
+SLICE_16 = (
+    "audiocodecs_tpu_torch.utils",
+    "audiocodecs_tpu_torch.utils.windowed",
+    "audiocodecs_tpu_torch.utils.masking",
+    "audiocodecs_tpu_torch.native",
+    "audiocodecs_tpu_torch.native.wavio",
+    "audiocodecs_tpu_torch.examples.reconstruct",
+    "audiocodecs_tpu_torch.examples.stream",
+    "audiocodecs_tpu_torch.examples.sweep_sr",
+    "audiocodecs_tpu_torch.downstream.config",
+    "audiocodecs_tpu_torch.downstream.legacy",
+    "audiocodecs_tpu_torch.downstream.datasets",
+    "audiocodecs_tpu_torch.downstream.datasets.manifest",
+    "audiocodecs_tpu_torch.downstream.datasets.synthetic",
+    "audiocodecs_tpu_torch.downstream.datasets.librispeech",
+    "audiocodecs_tpu_torch.downstream.datasets.corpora",
+    "audiocodecs_tpu_torch.downstream.datasets.loader",
+    "audiocodecs_tpu_torch.downstream.metrics.base",
+    "audiocodecs_tpu_torch.downstream.metrics.codebook_util",
+    "audiocodecs_tpu_torch.downstream.metrics.stoi",
+    "audiocodecs_tpu_torch.downstream.metrics.pesq",
+    "audiocodecs_tpu_torch.downstream.metrics.dnsmos",
+    "audiocodecs_tpu_torch.downstream.recipes",
+    "audiocodecs_tpu_torch.downstream.recipes.common",
+    "audiocodecs_tpu_torch.downstream.recipes.quality",
+    "audiocodecs_tpu_torch.downstream.recipes.sr",
+)
+
+
 def test_module_list_covers_the_slice():
     mods = _port_modules()
     for m in ("audiocodecs_tpu_torch.models.encodec",
@@ -103,7 +133,8 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.convert.overlay",
               "audiocodecs_tpu_torch.convert.audiomae",
               "audiocodecs_tpu_torch.convert.ldm",
-              "audiocodecs_tpu_torch.convert.checkpoint_files"):
+              "audiocodecs_tpu_torch.convert.checkpoint_files",
+              *SLICE_16):
         assert m in mods
 
 
@@ -298,3 +329,86 @@ def test_no_converter_reads_the_environment():
                 bad += [f"{f.name}: from os import {a.name}"
                         for a in node.names]
     assert not bad
+
+
+def _docstrings(tree) -> set:
+    """The ids of the docstring nodes of a module, its classes and
+    functions."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    getattr(first, "value", None), ast.Constant):
+                out.add(id(first.value))
+    return out
+
+
+@pytest.mark.parametrize("module", SLICE_16)
+def test_slice_modules_read_no_environment_and_no_reference_path(module):
+    """No switch from the environment (the reference's ``ACX_NATIVE_WAVIO``,
+    ``ACX_WAVIO_LIB`` and ``ACX_NATIVE_CACHE`` are not carried over) and no
+    path into the JAX package: outside docstrings, no string names
+    ``audiocodecs_tpu`` or a path under it, and nothing is imported from
+    it."""
+    rel = Path(*module.split("."))
+    f = REPO / (f"{rel}.py" if (REPO / f"{rel}.py").is_file()
+                else f"{rel}/__init__.py")
+    tree = ast.parse(f.read_text())
+    docs = _docstrings(tree)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr in (
+                "environ", "getenv", "putenv"):
+            bad.append(ast.unparse(node))
+        elif isinstance(node, ast.ImportFrom) and node.module == "os":
+            bad += [f"from os import {a.name}" for a in node.names]
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            bad += [n for n in names if _is_reference(n)]
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+              and id(node) not in docs and (
+                  node.value == "audiocodecs_tpu"
+                  or "audiocodecs_tpu/" in node.value)):
+            bad.append(repr(node.value))
+    assert not bad, f"{f.name}: {bad}"
+
+
+@pytest.mark.parametrize("copy,original", [
+    ("audiocodecs_tpu_torch/csrc/wavio.cc", "csrc/wavio.cc"),
+    ("audiocodecs_tpu_torch/downstream/metrics/dnsmos_v8.npz",
+     "audiocodecs_tpu/downstream/metrics/dnsmos_v8.npz"),
+])
+def test_port_copies_are_byte_equal_to_the_reference(copy, original):
+    assert (REPO / copy).read_bytes() == (REPO / original).read_bytes()
+
+
+def test_sr_path_defaults_to_the_card(monkeypatch, tmp_path):
+    """Without a device the SR entry points and the examples ask for the
+    card and raise where there is none."""
+    from audiocodecs_tpu_torch.downstream.metrics.dnsmos import dnsmos_p808
+    from audiocodecs_tpu_torch.downstream.recipes.quality import PairBattery
+    from audiocodecs_tpu_torch.examples import reconstruct, stream, sweep_sr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dnsmos_p808([0.1, 0.2], 16000)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PairBattery({}, 16000)
+    for main, argv in ((reconstruct.main, ["--out",
+                                           str(tmp_path / "r.wav")]),
+                       (stream.main, [])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    dataset = tmp_path / "synthetic.yaml"
+    dataset.write_text(
+        (REPO / "hparams/datasets/synthetic.yaml").read_text().replace(
+            "/tmp/audiocodecs_tpu_synthetic", str(tmp_path / "corpus"))
+        .replace("num_utterances: 12", "num_utterances: 3"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sweep_sr.main(["--codecs", "encodec", "--output_folder",
+                       str(tmp_path / "out"), "--dataset", str(dataset),
+                       "--task", str(REPO / "hparams/tasks/sr.yaml")])
+    assert (tmp_path / "corpus" / "test.csv").is_file()

@@ -27,10 +27,13 @@ port's CPU path is dtype-generic; the JAX package runs under
   after one (the rounding above, amplified by Adam's sign-like first
   updates);
 * the EMA codebook update on the JAX package's restart rows: 1e-6.
+
+The train steps' cases are in ``tests/test_torch_train_steps.py`` (two
+pytest workers share the two files); the helpers in
+``tests/train_pairs.py``.
 """
 
 import csv
-import dataclasses
 
 import numpy as np
 import pytest
@@ -38,20 +41,15 @@ import torch
 
 import jax
 import jax.numpy as jnp
-import optax
 
 from audiocodecs_tpu.downstream.metrics import dsp as jdsp
 from audiocodecs_tpu.models.encodec import Encodec as JEncodec
-from audiocodecs_tpu.models.encodec import EncodecModelConfig as JConfig
-from audiocodecs_tpu.nn import layers as jlayers
-from audiocodecs_tpu.nn import seanet as jseanet
 from audiocodecs_tpu.parallel import train as jtrain
 from audiocodecs_tpu.quant.rvq import rvq_quantize as j_rvq_quantize
 from audiocodecs_tpu.utils import audio as jaudio
 from audiocodecs_tpu.utils.checkpoint import load_params as j_load_params
 from audiocodecs_tpu_torch.downstream.metrics import dsp
 from audiocodecs_tpu_torch.examples import train_codec
-from audiocodecs_tpu_torch.models.encodec import Encodec, EncodecModelConfig
 from audiocodecs_tpu_torch.parallel import train
 from audiocodecs_tpu_torch.params import from_jax_params, to_jax_params
 from audiocodecs_tpu_torch.quant.rvq import rvq_quantize, rvq_quantize_stats
@@ -61,76 +59,19 @@ from audiocodecs_tpu_torch.utils.audio import (
     write_wav,
 )
 from audiocodecs_tpu_torch.utils.checkpoint import load_params, save_params
-
-SR = 800
-K = 2
-
-
-def tiny_cfg():
-    return JConfig(sampling_rate=SR, num_filters=8, hidden_size=16,
-                   upsampling_ratios=(4, 2), codebook_size=64,
-                   codebook_dim=16, num_quantizers=2)
-
-
-@pytest.fixture(scope="module")
-def jax_codec():
-    return JEncodec(SR, SR, model_config=tiny_cfg(),
-                    key=jax.random.PRNGKey(0))
-
-
-def _port(jc):
-    tree = jax.tree.map(np.asarray, jc.params)
-    tc = Encodec(SR, SR, num_codebooks=K, device="cpu",
-                 model_config=EncodecModelConfig(
-                     **dataclasses.asdict(tiny_cfg())))
-    tc.load_state_dict(from_jax_params(tree, tc), strict=True)
-    return tc
-
-
-class _F64Names:
-    """``jnp`` as the JAX SEANet module sees it under ``jax_f64``: its
-    float32 casts (the LSTM islands) cast to float64."""
-
-    def __getattr__(self, name):
-        return jnp.float64 if name == "float32" else getattr(jnp, name)
-
-
-@pytest.fixture
-def jax_f64(monkeypatch):
-    """The JAX package in float64: x64 on, the conv stacks' activation
-    dtype and the LSTM islands float64 (nothing in the package changes)."""
-    monkeypatch.setattr(jseanet, "jnp", _F64Names())
-    monkeypatch.setattr(jlayers, "act_dtype",
-                        lambda role="encoder": jnp.float64)
-    with jax.enable_x64(True):
-        yield
-
-
-def _in_dtype(request, jc, dtype):
-    """The JAX params and the port (its weights from them) in ``dtype``."""
-    tc = _port(jc)
-    if dtype == "float32":
-        return jc.params, tc
-    request.getfixturevalue("jax_f64")
-    params = jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float64)),
-                          jc.params)
-    return params, tc.double()
-
-
-def _batch(seed, B=4, T=SR):
-    return (np.random.default_rng(seed).standard_normal((B, T))
-            * 0.1).astype(np.float32)
-
-
-def _rel(a, b):
-    a = a.detach() if isinstance(a, torch.Tensor) else a
-    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
-
-
-def _jax_rows(steps, num_codebooks, codebook_size, n):
-    key = jax.random.fold_in(jax.random.PRNGKey(0x5EAC0DE), steps)
-    rows = jax.random.randint(key, (num_codebooks, codebook_size), 0, n)
-    return torch.from_numpy(np.array(rows)).long()
+from train_pairs import (  # noqa: F401 (jax_f64: a fixture _in_dtype asks for)
+    K,
+    SR,
+    _batch,
+    _in_dtype,
+    _jax_rows,
+    _port,
+    _rel,
+    jax_codec,
+    jax_f64,
+    tiny_cfg,
+)
+from zoo_pairs import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -209,58 +150,6 @@ def test_stft_msstft_si_snr_match_jax(B, T):
     assert _rel(val, j_val) <= 1e-12
     np.testing.assert_allclose(r.grad.numpy(), j_g, rtol=0,
                                atol=1e-9 * np.abs(j_g).max())
-
-
-_STEP_CASES = {
-    # the chip's loss settings at the tiny config: EMA, spectral term live
-    # from the second update on
-    "ema_spec": dict(spec_weight=1.0, spec_delay=0, spec_ramp=2,
-                     commit_warmup=2),
-    "ema": dict(commit_warmup=2),
-    "gradient_codebooks": dict(ema_decay=None),
-    # gradient codebooks, spectral term at a fixed weight from the first
-    "gradient_codebooks_spec": dict(ema_decay=None, spec_weight=0.5),
-}
-
-
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("case", list(_STEP_CASES))
-def test_three_train_steps_match_jax(jax_codec, monkeypatch, request, case,
-                                     dtype):
-    """Adam (optax.adam against torch.optim.Adam), the EMA rule with its
-    restarts on the JAX package's rows, the commit warm-up and the spectral
-    curriculum, three steps on three batches."""
-    kw = _STEP_CASES[case]
-    ema = kw.get("ema_decay", 0.99) is not None
-    monkeypatch.setattr(train, "restart_rows", _jax_rows)
-    j_params, tc = _in_dtype(request, jax_codec, dtype)
-    opt = optax.adam(1e-3)
-    j_step = jax.jit(jtrain.make_codec_train_step(tiny_cfg(), K, opt, **kw))
-    j_state = (jtrain.init_codec_opt_state(opt, j_params, K) if ema
-               else opt.init(j_params))
-    optimizer = torch.optim.Adam(tc.parameters(), lr=1e-3)
-    state = (train.init_codec_opt_state(optimizer, tc, K) if ema
-             else optimizer)
-    step = train.make_codec_train_step(tc, K, **kw)
-    spec_updates = 0  # updates so far with a live spectral weight
-    for i in range(3):
-        sig = _batch(10 + i).astype(dtype)
-        j_params, j_state, j_met = j_step(j_params, j_state, sig)
-        met = step(state, sig)
-        assert sorted(met) == sorted(j_met)
-        limit = 1e-4 if dtype == "float64" or spec_updates == 0 else 1e-2
-        for k in j_met:
-            assert _rel(met[k], j_met[k]) <= limit, (i, k)
-        if kw.get("spec_weight", 0) > 0 and (not ema
-                                             or i > kw["spec_delay"]):
-            spec_updates += 1
-    assert tc.codebooks.dtype == getattr(torch, dtype)
-    if ema:
-        assert state[1]["steps"] == int(j_state[1]["steps"]) == 3
-    if dtype == "float64" or spec_updates == 0:
-        np.testing.assert_allclose(tc.codebooks.detach().numpy(),
-                                   np.asarray(j_params["codebooks"]),
-                                   rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("steps,threshold", [(0, 1e9), (3, 1e9), (3, 2.0)])
