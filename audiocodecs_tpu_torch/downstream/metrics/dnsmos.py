@@ -34,7 +34,8 @@ from audiocodecs_tpu_torch.nn.layers import exact_fp32
 from audiocodecs_tpu_torch.utils.melbank import mel_filterbank_slaney
 
 __all__ = ["DNSMOS", "DEFAULT_PARAMS_PATH", "dnsmos_p808",
-           "dnsmos_state_dict", "load_dnsmos"]
+           "dnsmos_state_dict", "load_dnsmos", "onnx_dnsmos",
+           "save_dnsmos_params"]
 
 SAMPLE_RATE = 16000
 INPUT_LENGTH = 9.01
@@ -97,15 +98,53 @@ def dnsmos_state_dict(params_path: str = DEFAULT_PARAMS_PATH) -> dict:
     ``conv{i}_w/b`` to ``convs.{i}.weight/bias``, ``dense{i}_w`` transposed
     to ``dense.{i}.weight``."""
     with np.load(params_path) as raw:
-        sd = {}
-        for i in range(len(_CONVS)):
-            sd[f"convs.{i}.weight"] = raw[f"conv{i}_w"]
-            sd[f"convs.{i}.bias"] = raw[f"conv{i}_b"]
-        for i in range(3):
-            sd[f"dense.{i}.weight"] = raw[f"dense{i}_w"].T
-            sd[f"dense.{i}.bias"] = raw[f"dense{i}_b"]
+        return _state_from_flat(raw)
+
+
+def _state_from_flat(raw) -> dict:
+    sd = {}
+    for i in range(len(_CONVS)):
+        sd[f"convs.{i}.weight"] = raw[f"conv{i}_w"]
+        sd[f"convs.{i}.bias"] = raw[f"conv{i}_b"]
+    for i in range(3):
+        sd[f"dense.{i}.weight"] = raw[f"dense{i}_w"].T
+        sd[f"dense.{i}.bias"] = raw[f"dense{i}_b"]
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
             for k, v in sd.items()}
+
+
+def _flat(params: dict) -> dict:
+    """:func:`..convert.dnsmos.convert_dnsmos_onnx`'s tree as the npz's
+    flat ``conv{i}_w/b``, ``dense{i}_w/b``."""
+    flat = {}
+    for i, p in enumerate(params["conv"]):
+        flat[f"conv{i}_w"], flat[f"conv{i}_b"] = p["w"], p["b"]
+    for i, p in enumerate(params["dense"]):
+        flat[f"dense{i}_w"], flat[f"dense{i}_b"] = p["w"], p["b"]
+    return flat
+
+
+def save_dnsmos_params(onnx_path: str, out_path: str) -> dict:
+    """Convert ``model_v8.onnx`` and save it as the npz this module reads
+    (the reference's ``save_dnsmos_params``); returns the flat arrays."""
+    from audiocodecs_tpu_torch.convert.dnsmos import convert_dnsmos_onnx
+
+    flat = _flat(convert_dnsmos_onnx(onnx_path))
+    np.savez(out_path, **flat)
+    return flat
+
+
+def onnx_dnsmos(onnx_path: str, device=None) -> DNSMOS:
+    """The model with the weights of ``model_v8.onnx`` on ``device`` (the
+    card when ``None``)."""
+    from audiocodecs_tpu_torch.codec import resolve_device
+    from audiocodecs_tpu_torch.convert.dnsmos import convert_dnsmos_onnx
+
+    dev = resolve_device(device)
+    model = DNSMOS()
+    model.load_state_dict(_state_from_flat(_flat(convert_dnsmos_onnx(
+        onnx_path))), strict=True)
+    return model.to(dev).eval()
 
 
 @lru_cache(maxsize=4)
@@ -118,10 +157,11 @@ def load_dnsmos(params_path: str = DEFAULT_PARAMS_PATH,
 
 
 def dnsmos_p808(sig, sample_rate: int, params_path: str = DEFAULT_PARAMS_PATH,
-                device=None) -> float:
+                device=None, model: DNSMOS | None = None) -> float:
     """P.808 MOS of one utterance (1-D array) on ``device`` (the card when
     ``None``), with the reference's windowing: tile to ≥ 9.01 s, slide in
-    1 s hops, average the windows' scores."""
+    1 s hops, average the windows' scores. ``model`` (on ``device``)
+    takes the place of ``params_path``'s."""
     from audiocodecs_tpu_torch.codec import resolve_device
     from audiocodecs_tpu_torch.downstream.metrics.stoi import _resample_np
 
@@ -140,7 +180,8 @@ def dnsmos_p808(sig, sample_rate: int, params_path: str = DEFAULT_PARAMS_PATH,
             if len(x[i * SAMPLE_RATE :]) >= SEG]
     if not segs:
         return float("nan")
-    model = load_dnsmos(params_path, str(dev))
+    if model is None:
+        model = load_dnsmos(params_path, str(dev))
     with torch.inference_mode():
         scores = model(torch.from_numpy(np.stack(segs)).to(dev))
         return float(scores.mean(dtype=torch.float32).cpu())

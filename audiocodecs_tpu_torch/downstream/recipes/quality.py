@@ -3,18 +3,24 @@
 Counterpart of ``audiocodecs_tpu/downstream/recipes/quality.py``. The
 reference instantiates the same metric "computers" in several recipes
 (``test_sr.py:102-143``, ``train_slm.py:265-296``, ``train_tts.py:266-281``);
-this module resolves the config keys to the port's backends:
+this module resolves the config keys to the port's backends, each on
+``device`` (the card when ``None``):
 
-  * ``dnsmos_params`` → DNSMOS on the codec's device
-    (:mod:`..metrics.dnsmos`; defaults to the shipped params, on by
-    default as in the reference);
+  * ``dnsmos_params`` → DNSMOS (:mod:`..metrics.dnsmos`; defaults to the
+    shipped params, on by default as in the reference);
+  * ``utmos_checkpoint`` (a converted checkpoint, :mod:`..metrics.utmos`,
+    ``utmos_bucket_seconds``) / ``utmos_model_path`` (TorchScript);
+  * ``whisper_checkpoint`` + ``whisper_tokenizer`` / ``whisper_path`` (an
+    HF directory) → dWER and dCER (:mod:`..metrics.dwer`);
+  * ``speaker_encoder_checkpoint`` (+ ``speaker_encoder_config``) /
+    ``speaker_encoder_model_path`` → SpkSim (the WavLM x-vector);
+  * ``lm_checkpoint`` + ``lm_tokenizer`` / ``lm_path`` → ASR perplexity
+    (GPT-2), which also needs a Whisper gate;
   * STOI, PESQ (host numpy), MelD and STFTD (:mod:`..metrics.dsp`, on the
     device) in :class:`PairBattery`.
 
-The model-backed metrics (UTMOS, dWER through Whisper, SpkSim, ASR
-perplexity) are not ported yet (``ROADMAP.md`` A.10): a config that sets
-one of their gates raises ``NotImplementedError`` instead of dropping the
-metric without a word.
+Every metric is optional: a missing gate omits the metric, as the
+reference's ``compute_metrics`` switches do.
 """
 
 from __future__ import annotations
@@ -25,15 +31,6 @@ import numpy as np
 
 __all__ = ["build_quality_metrics", "trim_row",
            "reconcile_length", "PairBattery"]
-
-# the gate keys of each model-backed metric the port does not have yet
-_NOT_PORTED_GATES = {
-    "utmos": ("utmos_checkpoint", "utmos_model_path"),
-    "dwer": ("whisper_checkpoint", "whisper_path"),
-    "spk": ("speaker_encoder_checkpoint", "speaker_encoder_model_path"),
-    "ppl": ("lm_checkpoint", "lm_path"),
-}
-
 
 def trim_row(sig_row: np.ndarray, rel_len: float) -> np.ndarray:
     """Cut one padded signal row to its valid length (relative)."""
@@ -54,20 +51,18 @@ def reconcile_length(rec: np.ndarray, T: int) -> np.ndarray:
 def build_quality_metrics(cfg: dict, sample_rate: int,
                           want: tuple = ("utmos", "dnsmos", "dwer", "spk",
                                          "ppl"), device=None) -> dict:
-    """Resolve config gates to metric callables.
+    """Resolve config gates to metric callables on ``device`` (the card
+    when ``None``).
 
-    Returns ``{"single": {name: fn(sig_1d) -> float}}``: the DNSMOS row,
-    on ``device`` (the card when ``None``). The reference's ``dwer``,
-    ``spk`` and ``ppl`` entries come with their metrics; their gates
-    raise until then.
+    Returns a dict with:
+      * ``single``: ``{name: fn(sig_1d) -> float}`` — UTMOS / DNSMOS rows.
+      * ``dwer``: MetricStats-like with ``.metric([hyp],[ref],sr)`` and
+        ``.cer``, or None.
+      * ``spk``: MetricStats-like with ``.metric(hyp[None],ref[None],sr)``
+        or None.
+      * ``ppl``: MetricStats-like with ``.metric([sig]|[text],sr)`` or None.
     """
-    for metric in want:
-        gates = [k for k in _NOT_PORTED_GATES.get(metric, ()) if cfg.get(k)]
-        if gates:
-            raise NotImplementedError(
-                f"{', '.join(gates)}: the {metric} metric is not ported to "
-                f"audiocodecs_tpu_torch yet (ROADMAP.md A.10)")
-    out: dict = {"single": {}}
+    out: dict = {"single": {}, "dwer": None, "spk": None, "ppl": None}
 
     if "dnsmos" in want:
         dnsmos_params = cfg.get("dnsmos_params")
@@ -84,6 +79,69 @@ def build_quality_metrics(cfg: dict, sample_rate: int,
 
             out["single"]["DNSMOS"] = (
                 lambda s: dnsmos_p808(s, sample_rate, dnsmos_params, device))
+
+    if "utmos" in want:
+        utmos = None
+        if cfg.get("utmos_checkpoint"):
+            from audiocodecs_tpu_torch.downstream.metrics.utmos import (
+                make_utmos_checkpoint_metric,
+            )
+            utmos = make_utmos_checkpoint_metric(
+                cfg["utmos_checkpoint"],
+                bucket_seconds=float(cfg.get("utmos_bucket_seconds", 0.0)),
+                device=device)
+        elif cfg.get("utmos_model_path"):  # a TorchScript file
+            from audiocodecs_tpu_torch.downstream.metrics.external import (
+                make_utmos_metric,
+            )
+            utmos = make_utmos_metric(cfg["utmos_model_path"], device)
+        if utmos is not None:
+            out["single"]["UTMOS"] = (
+                lambda s: float(utmos.metric([s], sample_rate)[0]))
+
+    if "dwer" in want and (cfg.get("whisper_checkpoint")
+                           or cfg.get("whisper_path")):
+        from audiocodecs_tpu_torch.downstream.metrics.external import (
+            make_dwer_metric,
+        )
+        out["dwer"] = make_dwer_metric(
+            cfg.get("whisper_path"),
+            cfg.get("dwer_language", "en"),
+            checkpoint=cfg.get("whisper_checkpoint"),
+            tokenizer_path=cfg.get("whisper_tokenizer"),
+            device=device,
+        )
+
+    if "spk" in want and (cfg.get("speaker_encoder_checkpoint")
+                          or cfg.get("speaker_encoder_model_path")):
+        from audiocodecs_tpu_torch.downstream.metrics.external import (
+            make_speaker_similarity_metric,
+        )
+        out["spk"] = make_speaker_similarity_metric(
+            model_path=cfg.get("speaker_encoder_model_path"),
+            checkpoint=cfg.get("speaker_encoder_checkpoint"),
+            config=cfg.get("speaker_encoder_config"),
+            device=device,
+        )
+
+    # PPL needs BOTH an LM and a transcription backend — recipes score
+    # signals, and the LM alone would raise mid-eval on the first signal
+    if ("ppl" in want
+            and (cfg.get("lm_checkpoint") or cfg.get("lm_path"))
+            and (cfg.get("whisper_checkpoint") or cfg.get("whisper_path"))):
+        from audiocodecs_tpu_torch.downstream.metrics.external import (
+            make_perplexity_metric,
+        )
+        out["ppl"] = make_perplexity_metric(
+            lm_path=cfg.get("lm_path"),
+            whisper_path=cfg.get("whisper_path"),
+            checkpoint=cfg.get("lm_checkpoint"),
+            tokenizer_path=cfg.get("lm_tokenizer"),
+            whisper_checkpoint=cfg.get("whisper_checkpoint"),
+            whisper_tokenizer=cfg.get("whisper_tokenizer"),
+            device=device,
+        )
+
     return out
 
 
@@ -144,6 +202,16 @@ class PairBattery:
             self.add(prefix + "MelD",
                      float(mel_distance(h, r, self.sample_rate)[0]))
             self.add(prefix + "STFTD", float(stft_distance(h, r)[0]))
+        if self.quality["dwer"] is not None:
+            dwer = self.quality["dwer"]
+            self.add(prefix + "dWER",
+                     dwer.metric([hyp], [ref], self.sample_rate)[0])
+            if hasattr(dwer, "cer"):
+                self.add(prefix + "dCER",
+                         dwer.cer([hyp], [ref], self.sample_rate)[0])
+        if self.quality["spk"] is not None:
+            self.add(prefix + "SpkSim", self.quality["spk"].metric(
+                hyp[None], ref[None], self.sample_rate)[0])
 
     def score_single(self, sig: np.ndarray, prefix: str = "",
                      uid: str | None = None):

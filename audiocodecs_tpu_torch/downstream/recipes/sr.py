@@ -3,18 +3,25 @@
 Counterpart of ``audiocodecs_tpu/downstream/recipes/sr.py`` (reference
 ``test_sr.py:54-167,241-335,379-391``): every manifest row is encoded and
 decoded by the codec on its device, then scored by the battery SI-SNR,
-MelD, STFTD, STOI, PESQ and DNSMOS (plus CodebookUtil), with the
-Rec/Ref/Orig control rows under ``compute_ref_metrics``. A row with an
-``in_wav`` column is evaluated noisy-in, clean-out (reference
+MelD, STFTD, STOI, PESQ and DNSMOS (plus CodebookUtil), and by the gated
+model-backed metrics of :mod:`.quality` (UTMOS, dWER and dCER, SpkSim),
+with the Rec/Ref/Orig control rows under ``compute_ref_metrics``. A row
+with an ``in_wav`` column is evaluated noisy-in, clean-out (reference
 ``test_sr.py:44-51``); otherwise both are the row's ``wav``.
 
 Batches come from the bucketed loader, so a codec sees a few shapes. RTF
 and iRTF come from timing the full public path (``sig_to_toks`` and
-``toks_to_sig``, resampling included) once for each bucket shape, after a
-warm call: on the card between two ``torch.cuda.Event`` records closed by a
-synchronise, with no host copy inside; on the CPU by ``perf_counter``. The
-times are summed over the batches as the reference sums its chained-loop
-slopes. Metrics and host copies are never inside a timed window.
+``toks_to_sig``, resampling included) once for each bucket shape by the
+reference's slope between two chain lengths (``rtf_reps``, default
+``(1, 4)``): ``R`` calls back to back, timed on the card between two
+``torch.cuda.Event`` records after a synchronise and on the CPU by
+``perf_counter``, the least of two runs of each length, and the
+difference over ``reps_hi - reps_lo`` calls, so the fixed cost of a timed
+window cancels. The times are summed over the batches as the reference
+sums its slopes. Metrics and host copies are never inside a timed window.
+``use_profiler`` adds :func:`..profiler.profile_codec`'s sweep
+(``profiler_seconds``, default 1, 2 and 4 s at B = 1): ``profiler.txt``
+and the summary's ``"profiler"`` key.
 
 Run:
     python -m audiocodecs_tpu_torch.downstream.recipes.sr \\
@@ -41,39 +48,63 @@ from audiocodecs_tpu_torch.downstream.recipes.quality import (
 __all__ = ["run_sr", "main"]
 
 
-def _seconds(fn, device: torch.device) -> float:
-    """Seconds of one call of ``fn`` after a warm call."""
-    fn()
+def _span_seconds(run, reps: int, device: torch.device) -> float:
+    """Seconds of ``run(reps)``: on the card between two
+    ``torch.cuda.Event`` records after a synchronise, closed by a
+    synchronise on the second; on the CPU by ``perf_counter``."""
     if device.type != "cuda":
         t0 = time.perf_counter()
-        fn()
+        run(reps)
         return time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(device)
     start.record()
-    fn()
+    run(reps)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 1e3
 
 
-def _make_shape_timers(codec):
-    """Encode and decode timers memoised by input shape."""
+def _chained_seconds(run, reps_lo: int, reps_hi: int,
+                     device: torch.device) -> float:
+    """Seconds a call by the slope between two chain lengths: ``run(R)``
+    makes R calls back to back; each length is run once warm and twice
+    timed, and the least of the two taken, so fixed cost (the sync, the
+    first launch's latency) cancels in the difference."""
+    run(reps_lo)  # warm both lengths
+    run(reps_hi)
+    t_lo = t_hi = float("inf")
+    for _ in range(2):
+        t_lo = min(t_lo, _span_seconds(run, reps_lo, device))
+        t_hi = min(t_hi, _span_seconds(run, reps_hi, device))
+    return max(t_hi - t_lo, 1e-9) / (reps_hi - reps_lo)
+
+
+def _make_shape_timers(codec, reps=(1, 4)):
+    """Encode and decode timers memoised by input shape; each times the
+    full public path (``sig_to_toks``, ``toks_to_sig``, resampling
+    included) by :func:`_chained_seconds` over ``reps``."""
     cache: dict = {}
+
+    def chain(fn):
+        def run(R):
+            for _ in range(R):
+                fn()
+        return run
 
     def encode_seconds(sig) -> float:
         key = ("enc", tuple(sig.shape))
         if key not in cache:
-            cache[key] = _seconds(lambda: codec.sig_to_toks(sig),
-                                  codec.device)
+            cache[key] = _chained_seconds(
+                chain(lambda: codec.sig_to_toks(sig)), *reps, codec.device)
         return cache[key]
 
     def decode_seconds(toks) -> float:
         key = ("dec", tuple(toks.shape))
         if key not in cache:
-            cache[key] = _seconds(lambda: codec.toks_to_sig(toks),
-                                  codec.device)
+            cache[key] = _chained_seconds(
+                chain(lambda: codec.toks_to_sig(toks)), *reps, codec.device)
         return cache[key]
 
     return encode_seconds, decode_seconds
@@ -119,10 +150,6 @@ def run_sr(cfg: dict, device=None) -> dict:
                 f"config is missing {required!r} — did you pass all three "
                 "axes (task.yaml codec.yaml dataset.yaml)?"
             )
-    if cfg.get("use_profiler", False):
-        raise NotImplementedError(
-            "use_profiler: downstream/profiler.py is not ported to "
-            "audiocodecs_tpu_torch yet (ROADMAP.md A.10)")
     sample_rate = int(cfg["sample_rate"])
     out_dir = cfg.get("output_folder", "results/sr")
     os.makedirs(out_dir, exist_ok=True)
@@ -166,6 +193,17 @@ def run_sr(cfg: dict, device=None) -> dict:
                                     want=("utmos", "dnsmos", "dwer", "spk"),
                                     device=dev)
     single = quality["single"]  # single-signal metrics: fn(sig_row) -> float
+    if quality["dwer"] is not None:
+        dwer = quality["dwer"]
+        pairwise["dWER"] = _per_utt(
+            lambda h, r: float(dwer.metric([h], [r], sample_rate)[0]))
+        if hasattr(dwer, "cer"):  # reference dWER also reports CER
+            pairwise["dCER"] = _per_utt(
+                lambda h, r: float(dwer.cer([h], [r], sample_rate)[0]))
+    if quality["spk"] is not None:
+        spk = quality["spk"]
+        pairwise["SpkSim"] = _per_utt(
+            lambda h, r: float(spk.metric(h[None], r[None], sample_rate)[0]))
 
     # hyp rows + Rec/Ref/Orig control rows (reference test_sr.py:115-143)
     stats: dict[str, MetricStats] = {}
@@ -187,7 +225,8 @@ def run_sr(cfg: dict, device=None) -> dict:
                               vocab_sizes=codec.config.vocab_sizes)
 
     encode_time = decode_time = real_time = 0.0
-    enc_seconds, dec_seconds = _make_shape_timers(codec)
+    timer_reps = tuple(cfg.get("rtf_reps", (1, 4)))
+    enc_seconds, dec_seconds = _make_shape_timers(codec, timer_reps)
     dump_audio = bool(cfg.get("save_audios", False))
     audio_dir = os.path.join(out_dir, "audios")
     if dump_audio:
@@ -229,7 +268,7 @@ def run_sr(cfg: dict, device=None) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-        # timed once per shape, then accumulated
+        # timed once per shape (the chain-length slope), then accumulated
         encode_time += enc_seconds(in_sig) * (2 if distinct_in else 1)
         decode_time += dec_seconds(hyp_toks) * (2 if distinct_in else 1)
         real_time += float(np.sum(lens) * out_np.shape[1]) / sample_rate
@@ -275,6 +314,21 @@ def run_sr(cfg: dict, device=None) -> dict:
             "norm_entropy": cbu.summarize("avg_norm_entropy"),
         }
     )
+
+    if cfg.get("use_profiler", False):
+        from audiocodecs_tpu_torch.downstream.profiler import (
+            format_report,
+            profile_codec,
+        )
+
+        prof = profile_codec(
+            codec, seconds=cfg.get("profiler_seconds", (1, 2, 4)), batch=1,
+        )
+        summary["profiler"] = {
+            k: v for k, v in prof.items() if not isinstance(v, dict)
+        }
+        with open(os.path.join(out_dir, "profiler.txt"), "w") as f:
+            f.write(format_report(prof))
 
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)

@@ -20,7 +20,8 @@ from torch import nn
 from audiocodecs_tpu_torch.nn.layers import exact_fp32
 from audiocodecs_tpu_torch.ops.lstm_recurrence import lstm_recurrence
 
-__all__ = ["BiLSTM", "LSTM", "LSTMLayer", "bilstm", "init_bilstm_params",
+__all__ = ["BiLSTM", "LSTM", "LSTMLayer", "bilstm", "bilstm_masked",
+           "init_bilstm_params",
            "init_lstm_params", "lstm", "lstm_cell_step"]
 
 
@@ -77,6 +78,33 @@ def bilstm(x: torch.Tensor, params) -> torch.Tensor:
         fwd, _ = _layer(x, p["fwd"])
         bwd, _ = _layer(torch.flip(x, dims=(1,)), p["bwd"])
         x = torch.cat([fwd, torch.flip(bwd, dims=(1,))], dim=-1)
+    return x
+
+
+def bilstm_masked(x: torch.Tensor, params, n_valid: torch.Tensor):
+    """:func:`bilstm` over only the first ``n_valid[b]`` frames of each
+    zero-padded row of ``x`` [B, T, C] (``n_valid`` [B] ints on ``x``'s
+    device), as the reference's ``bilstm_masked`` (JAX ``nn/lstm.py:
+    125-147``). Outputs at valid positions are those of :func:`bilstm` on
+    the unpadded row: the forward direction never sees padding before a
+    valid frame, and the backward direction runs over each row's valid
+    frames reversed first (the reference's per-row roll and flip, here one
+    gather: input frame ``(n - 1 - t) mod T`` at step t, and its output
+    read back at step ``T - 1 - ((t + T - n) mod T)``). Outputs at padded
+    positions are garbage: mask them downstream."""
+    B, T, _ = x.shape
+    t = torch.arange(T, device=x.device)[None]
+    n = n_valid.to(device=x.device, dtype=torch.long)[:, None]
+    take_in = torch.remainder(n - 1 - t, T)  # [B, T]
+    take_out = T - 1 - torch.remainder(t + T - n, T)
+    for p in params:
+        fwd, _ = _layer(x, p["fwd"])
+        xr = torch.gather(x, 1, take_in[..., None].expand(-1, -1,
+                                                          x.shape[-1]))
+        bwd, _ = _layer(xr, p["bwd"])
+        bwd = torch.gather(bwd, 1, take_out[..., None].expand(
+            -1, -1, bwd.shape[-1]))
+        x = torch.cat([fwd, bwd], dim=-1)
     return x
 
 

@@ -54,7 +54,8 @@ from audiocodecs_tpu_torch.nn.layers import exact_fp32
 from audiocodecs_tpu_torch.ops import _build
 from audiocodecs_tpu_torch.ops._autograd import recompute_vjp
 
-__all__ = ["FORMS", "PRECISIONS", "dac_resunit", "dac_resunit_info",
+__all__ = ["FORMS", "PRECISIONS", "dac_resunit", "dac_resunit_flops",
+           "dac_resunit_info",
            "dac_resunit_reference", "dac_resunit_stages", "default_errors",
            "default_head", "default_tail", "form_name", "operand_offsets",
            "pack_resunit_weights", "snake"]
@@ -306,6 +307,13 @@ def dac_resunit_reference(x, w7, b7, alpha1, w1, b1, alpha2, dilation: int,
         return x + F.conv1d(h, w1, b1)
 
 
+def dac_resunit_flops(B: int, C: int, T: int) -> int:
+    """FLOPs of one unit on [B, C, T] as
+    ``torch.utils.flop_counter.FlopCounterMode`` counts its plain version
+    (either form): the dilated k7 conv and the 1x1."""
+    return 2 * B * T * C * C * (7 + 1)
+
+
 def _check_form(x, precision):
     """The form's rules, on every device: a known precision, and bf16
     operands only in the default form."""
@@ -384,6 +392,9 @@ def _launch(x, w7, b7, alpha1, w1, b1, alpha2, dilation, packed, precision,
                            + lib.dac_resunit_error_string(err).decode())
     dac_resunit.launches_by_form[form_name(precision, snake_poly,
                                            x.dtype)] += 1
+    dac_resunit.flops += dac_resunit_flops(B, C, T)
+    dac_resunit.bytes += sum(t.nbytes for t in (x, w7, b7, alpha1, w1, b1,
+                                                alpha2, out))
     return out
 
 
@@ -446,6 +457,10 @@ def dac_resunit(x, w7, b7, alpha1, w1, b1, alpha2, dilation: int, *,
 
 # kernel launches in this process by form (their sum: every launch)
 dac_resunit.launches_by_form = dict.fromkeys(FORMS, 0)
+# every launch's FLOPs, as the flop counter counts the plain version's (it
+# does not see a kernel launched through ctypes)
+dac_resunit.flops = 0
+dac_resunit.bytes = 0  # their tensors' bytes, each read or written once
 
 
 def dac_resunit_stages(x, w7, b7, alpha1, w1, b1, alpha2, dilation: int, *,

@@ -26,8 +26,8 @@ import torch
 from audiocodecs_tpu_torch.ops import _build
 from audiocodecs_tpu_torch.ops._autograd import recompute_vjp
 
-__all__ = ["handoff_us", "lstm_recurrence", "lstm_recurrence_info",
-           "lstm_recurrence_reference", "MAX_HIDDEN"]
+__all__ = ["handoff_us", "lstm_recurrence", "lstm_recurrence_flops",
+           "lstm_recurrence_info", "lstm_recurrence_reference", "MAX_HIDDEN"]
 
 MAX_HIDDEN = 1536  # the kernel keeps a [H, 4U] slice of w_hh per SM
 
@@ -79,6 +79,13 @@ def lstm_recurrence_reference(gates_x: torch.Tensor, w_hh: torch.Tensor,
     if not ys:
         return gates_x.new_empty((0,) + tuple(h0.shape)), h0, c0
     return torch.stack(ys), h, c
+
+
+def lstm_recurrence_flops(T: int, B: int, H: int) -> int:
+    """FLOPs of the recurrence over [T, B] at width H as
+    ``torch.utils.flop_counter.FlopCounterMode`` counts its plain version:
+    one [B, H] x [H, 4H] product a step."""
+    return 2 * T * B * H * 4 * H
 
 
 def _check(gates_x, w_hh, h0, c0):
@@ -156,8 +163,11 @@ def _launch(gates_x, w_hh, h0, c0):
                     "lstm_recurrence kernel launch failed: "
                     + lib.lstm_recurrence_error_string(err).decode())
             lstm_recurrence.launches += 1
+            lstm_recurrence.flops += lstm_recurrence_flops(T, nb, H)
             if H > 1024:
                 lstm_recurrence.wide_launches += 1
+    lstm_recurrence.bytes += sum(t.nbytes for t in (
+        gates_x, w_hh, h0, c0, ys, h_t, c_t))
     return ys, h_t, c_t
 
 
@@ -201,6 +211,10 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
 
 lstm_recurrence.launches = 0  # kernel launches in this process
 lstm_recurrence.wide_launches = 0  # of them of the wide instance, H > 1024
+# the launches' FLOPs, as the flop counter counts the plain version's (it
+# does not see a kernel launched through ctypes)
+lstm_recurrence.flops = 0
+lstm_recurrence.bytes = 0  # their tensors' bytes, each read or written once
 
 
 def lstm_recurrence_info(H: int, B: int) -> dict:

@@ -70,7 +70,8 @@ from audiocodecs_tpu_torch.ops.dac_resunit import operand_offsets
 __all__ = ["DEFAULT_FORMS", "PRECISIONS", "default_errors", "default_head",
            "default_k3", "default_tail", "form_name",
            "operand_offsets", "pack_resblock_weights", "seanet_resblock",
-           "seanet_resblock_elu_check", "seanet_resblock_info",
+           "seanet_resblock_elu_check", "seanet_resblock_flops",
+           "seanet_resblock_info",
            "seanet_resblock_reference",
            "seanet_resblock_packed", "seanet_resblock_packed_reference",
            "seanet_resblock_stages"]
@@ -323,6 +324,17 @@ def seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs, *,
         return F.conv1d(x, ws, bs) + y
 
 
+def seanet_resblock_flops(B: int, C: int, Hc: int, T: int,
+                          precision: str = "exact") -> int:
+    """FLOPs of one block on [B, C, T] with Hc hidden channels as
+    ``torch.utils.flop_counter.FlopCounterMode`` counts its plain version:
+    the k3 conv (twice in the default form, whose plain version also sums
+    the terms' magnitudes), the 1x1 and the shortcut."""
+    k3 = 2 * B * T * Hc * C * 3
+    return (2 if precision == "default" else 1) * k3 + 2 * B * T * C * (
+        Hc + C)
+
+
 def _check_form(x, precision):
     """The form's rules, on every device: a known precision, and bf16
     operands only in the default form."""
@@ -415,6 +427,10 @@ def _forward(counter, x, halo, w1, b1, w2, b2, ws, bs, packed, precision):
         return seanet_resblock_reference(x, halo, w1, b1, w2, b2, ws, bs,
                                          precision=precision)
     out = _launch(x, halo, w1, b1, w2, b2, ws, bs, packed, precision)
+    B, C, T = x.shape
+    counter.flops += seanet_resblock_flops(B, C, w1.shape[0], T, precision)
+    counter.bytes += sum(t.nbytes for t in (x, halo, w1, b1, w2, b2, ws, bs,
+                                            out))
     if precision == "exact":
         counter.launches += 1
     else:
@@ -483,6 +499,10 @@ def seanet_resblock(x, halo, w1, b1, w2, b2, ws, bs, *, packed=None,
 seanet_resblock.launches = 0  # exact-form kernel launches in this process
 # one-pass kernel launches in this process, by the operands' dtype
 seanet_resblock.launches_by_form = dict.fromkeys(DEFAULT_FORMS, 0)
+# every launch's FLOPs, as the flop counter counts the plain version's (it
+# does not see a kernel launched through ctypes)
+seanet_resblock.flops = 0
+seanet_resblock.bytes = 0  # their tensors' bytes, each read or written once
 
 
 def seanet_resblock_stages(x, halo, w1, b1, w2, b2, ws, bs, *, packed=None):
@@ -642,3 +662,5 @@ def seanet_resblock_packed(x, w1, b1, w2, b2, ws, bs, *,
 
 seanet_resblock_packed.launches = 0  # exact-form kernel launches
 seanet_resblock_packed.launches_by_form = dict.fromkeys(DEFAULT_FORMS, 0)
+seanet_resblock_packed.flops = 0  # as seanet_resblock's
+seanet_resblock_packed.bytes = 0

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ["save_params", "load_params", "flatten_pytree", "unflatten_pytree",
-           "save_train_state", "load_train_state"]
+           "load_model_state", "save_train_state", "load_train_state"]
 
 _SEP = "::"
 _EMPTY_DICT = "__empty_dict__"
@@ -88,6 +88,18 @@ def load_params(path: str):
     """Read a tree written by :func:`save_params`."""
     with np.load(path) as data:
         return unflatten_pytree({k: data[k] for k in data.files})
+
+
+def load_model_state(path: str, model: torch.nn.Module) -> dict:
+    """The weights of ``path`` as ``model``'s state dict: a ``.npz`` param
+    tree in the reference's format (:func:`load_params`, then
+    :func:`..params.from_jax_params`) or a ``torch.save`` state dict
+    (``weights_only``), as the port's conversion tool writes."""
+    if str(path).endswith(".npz"):
+        from audiocodecs_tpu_torch.params import from_jax_params
+
+        return from_jax_params(load_params(path), model)
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _split_opt_state(opt_state):

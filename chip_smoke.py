@@ -232,13 +232,33 @@ it fails:
    (EnCodec-24k, DAC-16k, Mimi-24k, SpeechTokenizer-16k) on the synthetic
    corpus of ``hparams/datasets/synthetic.yaml``: launches a roundtrip
    (EnCodec 4 kernel-1 and 8 kernel-2, DAC 6 kernel-3, SpeechTokenizer 6
-   kernel-1, Mimi none; a roundtrip a batch and two a batch shape for the
-   timer), each codec's iRTF, RTF and battery; the summary keys against
+   kernel-1, Mimi none; a roundtrip a batch and 3 (lo + hi) a batch shape
+   for the timer), each codec's iRTF, RTF and battery; the summary keys against
    the CPU run's, and EnCodec's per-utterance metrics against ``run_sr(...,
    device="cpu")`` on the same weights (SI-SNR within 0.01 dB, MelD and
    STFTD within 1e-3 relative, STOI 1e-3, PESQ 0.02, DNSMOS 1e-3) with
-   its tokens (token_match ≥ 0.999); the DNSMOS time an utterance. Both
-   phases write under the git-ignored ``results/chip_smoke/``.
+   its tokens (token_match ≥ 0.999); the DNSMOS time an utterance. Each
+   shape is timed by the slope between two chain lengths (``rtf_reps``:
+   3 (lo + hi) encodes and decodes a shape); the shape timers then run
+   once more on each codec and both passes' iRTF are printed; the sweep
+   runs with ``use_profiler`` (1 s), and each codec's ``profiler.txt`` and
+   summary ``"profiler"`` key are checked;
+39. the metric models at their published widths on seeded weights and
+   synthetic vocabularies of each model's size (Whisper's special tokens
+   at their ids), on the synthetic test split: UTMOS22 strong
+   (wav2vec2-base tower, BiLSTM H = 512 through kernel 1, two launches an
+   utterance), unbucketed and bucketed, against the CPU path (1e-4 of
+   max|score|) and ``bilstm_masked``'s valid frames against ``bilstm``
+   (1e-6 relative); the WavLM x-vector (embeddings 1e-4 of max|e|, SpkSim
+   1e-5); Whisper large-v3 at full depth (B = 3 x 30 s: encode ms, ms a
+   decode step, dWER and dCER end to end) and at 2 + 2 layers against
+   the CPU (log-mel and encoder states 1e-4 relative, teacher-forced
+   logits 1e-4 of max, greedy ids identical, the least top-2 margin
+   beside the largest logit gap); GPT-2 large at full depth (NLL ms, PPL)
+   and at 2 layers against the CPU (1e-4 relative); the profiler on
+   EnCodec-24k at 1, 2 and 4 s (``gflops`` within 1 % of the CPU path's,
+   times, peak memory, 4 kernel-1 and 8 kernel-2 launches a roundtrip).
+   Phases 37-39 write under the git-ignored ``results/chip_smoke/``.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -4454,8 +4474,12 @@ def phase_long_audio(torch, rows):
         _add_launches(rows, name, counts)
 
 
+PROFILE_SECONDS = 1  # the SR sweep's use_profiler length
 SWEEP_PER_ROUNDTRIP = {"encodec": (4, 8, 0), "dac": (0, 0, 6),
                        "mimi": (0, 0, 0), "speechtokenizer": (6, 0, 0)}
+# (B1, B2, B4) launches of each codec's decode alone
+SWEEP_PER_DECODE = {"encodec": (2, 4, 0), "dac": (0, 0, 6),
+                    "mimi": (0, 0, 0), "speechtokenizer": (2, 0, 0)}
 SR_LIMITS = {"sisnr": (0.01, 0), "meld": (0, 1e-3), "stftd": (0, 1e-3),
              "stoi": (1e-3, 0), "pesq": (0.02, 0), "dnsmos": (1e-3, 0)}
 
@@ -4464,6 +4488,8 @@ def _sr_stats(out_dir: Path) -> dict:
     """Per-utterance values of the metric files ``run_sr`` wrote."""
     out = {}
     for f in sorted(out_dir.glob("*.txt")):
+        if f.name == "profiler.txt":
+            continue
         lines = f.read_text().splitlines()[1:-1]
         out[f.stem] = {u: float(v) for u, v in (ln.split("\t")
                                                 for ln in lines)}
@@ -4497,10 +4523,16 @@ def phase_sweep_sr(torch, rows):
     ds_path = work / "synthetic.yaml"
     work.mkdir(parents=True, exist_ok=True)
     ds_path.write_text(yaml.safe_dump(ds))
+    # the shipped task with use_profiler on: each codec also writes its
+    # profile at 1 s (profiler.txt and the summary's "profiler" key)
     task = "hparams/tasks/sr.yaml"
+    tcfg = yaml.safe_load(Path(task).read_text())
+    tcfg.update(use_profiler=True, profiler_seconds=[PROFILE_SECONDS])
+    task_path = work / "sr_profiled.yaml"
+    task_path.write_text(yaml.safe_dump(tcfg))
     reset_counts()
     t0 = time.perf_counter()
-    rc = sweep_sr.main(["--dataset", str(ds_path), "--task", task,
+    rc = sweep_sr.main(["--dataset", str(ds_path), "--task", str(task_path),
                         "--output_folder", str(work / "card")])
     torch.cuda.synchronize()
     counts = read_counts()
@@ -4509,16 +4541,21 @@ def phase_sweep_sr(torch, rows):
     if rc != 0:
         fail(f"sweep_sr exited {rc}")
 
-    # roundtrips a codec: one a batch, and two a distinct batch shape for
-    # the timer (a warm call and the timed one)
+    # roundtrips a codec: one a batch, and for the timer (the chain-length
+    # slope over rtf_reps = (lo, hi)) 3 (lo + hi) encodes and as many
+    # decodes a distinct batch shape: each length once warm, twice timed
     cfg = yaml.safe_load(Path(task).read_text())
+    lo, hi = cfg["rtf_reps"]
     test_rows = read_manifest(ds["test_csv"].replace("{prep_dir}",
                                                      ds["prep_dir"]))
     loader = BucketedLoader(test_rows, ds["sample_rate"],
                             batch_size=4,
                             num_buckets=int(cfg["num_length_buckets"]))
     plan = loader._plan()
-    n_rt = len(plan) + 2 * len({(len(r), t) for r, t in plan})
+    n_shapes = len({(len(r), t) for r, t in plan})
+    # and the profile: 2 warm calls, 1 counted, 5 timed, 2 spans of 4, 1
+    # for the memory
+    n_rt = len(plan) + 3 * (lo + hi) * n_shapes + 17
     lstm = n_rt * sum(v[0] for v in SWEEP_PER_ROUNDTRIP.values())
     block = n_rt * sum(v[1] for v in SWEEP_PER_ROUNDTRIP.values())
     unit = n_rt * sum(v[2] for v in SWEEP_PER_ROUNDTRIP.values())
@@ -4547,6 +4584,13 @@ def phase_sweep_sr(torch, rows):
     cpu_summary = run_sr(ecfg, device="cpu")
     log(f"sweep_sr encodec on the CPU: {time.perf_counter() - t0:.1f} s")
     for n, s in card.items():
+        report = work / "card" / n / "profiler.txt"
+        if sorted(s.pop("profiler", {})) != ["params_m"] or (
+                not report.is_file()):
+            fail(f"sweep_sr {n}: use_profiler wrote no profiler.txt or no "
+                 f"profiler key")
+        log(f"sweep_sr {n} profiler.txt: "
+            f"{' | '.join(report.read_text().splitlines()[1:])}")
         if sorted(s) != sorted(cpu_summary):
             fail(f"sweep_sr {n}: summary keys {sorted(s)} != the CPU run's "
                  f"{sorted(cpu_summary)}")
@@ -4585,6 +4629,41 @@ def phase_sweep_sr(torch, rows):
     if not match >= 0.999:
         fail(f"sweep_sr encodec: token_match {match} < 0.999")
 
+    # the shape timers once more on each codec: how far the slope's iRTF
+    # moves between two passes (the sweep's and this one) in one process
+    from audiocodecs_tpu_torch.downstream.recipes.sr import (
+        _make_shape_timers)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    for n in SWEEP_PER_ROUNDTRIP:
+        codec = build_codec(prepare_data({**cfg, **ds, "codec": {"name": n}}),
+                            ds["sample_rate"])
+        enc, dec = _make_shape_timers(codec, (lo, hi))
+        seconds = real = 0.0
+        for batch in loader:
+            sig = torch.from_numpy(np.asarray(batch["sig"])).cuda()
+            seconds += enc(sig) + dec(codec.sig_to_toks(sig))
+            real += float(np.sum(batch["length"])
+                          * sig.shape[1]) / ds["sample_rate"]
+        log(f"sweep_sr {n} iRTF, two passes of the shape timers (rtf_reps "
+            f"{lo}, {hi}): {card[n]['iRTF']:.3f} (the sweep's) and "
+            f"{real / seconds:.3f}")
+        del codec
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"sweep_sr second timer pass: {time.perf_counter() - t0:.1f} s, "
+        f"launches {json.dumps(counts)}")
+    # an encode a batch, then the timer's roundtrips
+    n_rt, n_enc = 3 * (lo + hi) * n_shapes, len(plan)
+    want = _launch_table(*(
+        sum(n_rt * v[i] + n_enc * (v[i] - SWEEP_PER_DECODE[n][i])
+            for n, v in SWEEP_PER_ROUNDTRIP.items()) for i in range(3)))
+    if counts != want:
+        fail(f"sweep_sr second timer pass: expected launches {want}, got "
+             f"{counts}")
+    _add_launches(rows, "sweep_sr_timer_pass", counts)
+
     # DNSMOS a test utterance on the card (wall, host included: the
     # tiling, the copy in, the score out)
     x, rate = read_wav(read_manifest(ecfg["test_csv"])[0]["wav"])
@@ -4597,6 +4676,388 @@ def phase_sweep_sr(torch, rows):
         f"median {statistics.median(times[2:]):.2f} ms wall (host "
         f"included), {len(times) - 2} warm calls")
     del gpu_codec, cpu_codec
+
+
+# Whisper large-v3's special tokens at their ids in its 51866-token
+# vocabulary (the synthetic vocabulary phase 39 writes keeps them there)
+WHISPER_V3_SPECIALS = {"<|endoftext|>": 50257, "<|startoftranscript|>": 50258,
+                       "<|en|>": 50259, "<|transcribe|>": 50360,
+                       "<|notimestamps|>": 50364}
+PPL_TEXTS = ["the cat sat on the hat", "that theatre is at the heath",
+             "a cat that sat there"]
+METRIC_SECONDS = (1, 2, 4)  # the profiler's sweep of EnCodec-24k, B = 1
+
+
+def _synthetic_vocab(d: Path, size: int, specials: dict) -> None:
+    """A byte-level vocabulary of ``size`` tokens (256 bytes, GPT-2's merge
+    chains for "the", " the" and "cat", filler tokens) with ``specials`` at
+    their ids, and its ``merges.txt``, written to ``d``."""
+    from audiocodecs_tpu_torch.utils.bytebpe import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    sp = b2u[ord(" ")]
+    merges = [("t", "h"), ("th", "e"), (sp, "t"), (sp + "t", "h"),
+              (sp + "th", "e"), ("a", "t"), ("c", "at")]
+    for a, b in merges:
+        vocab[a + b] = len(vocab)
+    free = (i for i in range(len(vocab), size)
+            if i not in specials.values())
+    while len(vocab) + len(specials) < size:
+        i = next(free)
+        vocab[f"<filler{i}>"] = i
+    vocab.update(specials)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "vocab.json").write_text(json.dumps(vocab))
+    (d / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n")
+
+
+def _on_card(torch, cls, cfg, init, seed: int):
+    """``cls(cfg)`` with ``init``'s seeded weights drawn on the card (a
+    CUDA generator), built on the meta device and assigned, so the weights
+    are never held twice."""
+    with torch.device("meta"):
+        model = cls(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model.load_state_dict(init(gen, cfg), strict=True, assign=True)
+    return model.eval()
+
+
+def _pair_cpu(torch, cls, cfg, init, seed: int):
+    """``cls(cfg)`` on the CPU from a seeded CPU draw, and its twin on the
+    card."""
+    cpu = cls(cfg)
+    cpu.load_state_dict(init(torch.Generator().manual_seed(seed), cfg))
+    card = cls(cfg)
+    card.load_state_dict(cpu.state_dict())
+    return cpu.eval(), card.to("cuda").eval()
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / max |want| (both moved to the CPU)."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _hold(label: str, value: float, limit: float) -> None:
+    log(f"{label}: {value:.3e} (limit {limit:.0e})")
+    if not value <= limit:
+        fail(f"{label} {value} above {limit}")
+
+
+def _utmos_check(torch, rows, work, utts, noisy):
+    from audiocodecs_tpu_torch.downstream.metrics import utmos
+    from audiocodecs_tpu_torch.nn.lstm import bilstm, bilstm_masked
+
+    cfg = utmos.UTMOSConfig()
+    path = work / "utmos.pt"
+    torch.save(utmos.init_utmos_params(torch.Generator().manual_seed(0),
+                                       cfg), path)
+    scores = {}
+    for dev in ("cuda", "cpu"):
+        for bucket in (0.0, 1.0):
+            metric = utmos.make_utmos_checkpoint_metric(
+                str(path), bucket_seconds=bucket, device=dev)
+            if dev == "cuda":
+                metric.metric(utts[:1], 16000)  # warm
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+            scores[dev, bucket] = np.asarray(metric.metric(utts, 16000))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = read_counts()
+                log(f"UTMOS22 strong (bucket {bucket} s) on the card: "
+                    f"{ms:.1f} ms wall for {len(utts)} utterances, B1 "
+                    f"launches {counts['lstm_recurrence']}")
+                if counts["lstm_recurrence"] != 2 * len(utts):
+                    fail(f"UTMOS: expected {2 * len(utts)} B1 launches, "
+                         f"got {counts}")
+                _add_launches(rows, f"utmos_bucket{bucket:g}", counts)
+                model = metric.model
+    for bucket in (0.0, 1.0):
+        card, cpu = scores["cuda", bucket], scores["cpu", bucket]
+        log(f"UTMOS (bucket {bucket} s) card {card.tolist()} CPU "
+            f"{cpu.tolist()}")
+        _hold(f"UTMOS (bucket {bucket} s) card-CPU / max|score|",
+              float(np.abs(card - cpu).max() / np.abs(cpu).max()), 1e-4)
+    # bilstm_masked's valid frames against bilstm on each unpadded row,
+    # the UTMOS BiLSTM's weights, on the card: each row alone (its padded
+    # row against its valid frames: the masking, and the kernel's rows),
+    # and the three rows in one padded batch, whose input projection is
+    # one [3 · 150, 1024] x [1024, 2048] product where the unpadded rows'
+    # are [n, 1024] ones: cuBLAS sums those in another order; beside them
+    # the plain bilstm's own card-CPU gap on a row, that order's scale
+    params = [p.params() for p in model.blstm]
+    cpu_params = [{d: {k: t.cpu() for k, t in q.items()} for d, q in
+                   p.items()} for p in params]
+    lens = [150, 97, 33]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(3, 150, cfg.feat_dim, device="cuda", generator=gen)
+    with torch.inference_mode():
+        alone = max(_rel(bilstm_masked(x[i:i + 1], params, torch.tensor(
+            [n], device="cuda"))[0, :n], bilstm(x[i:i + 1, :n], params)[0])
+            for i, n in enumerate(lens))
+        masked = bilstm_masked(x, params, torch.tensor(lens, device="cuda"))
+        batch = max(_rel(masked[i, :n], bilstm(x[i:i + 1, :n], params)[0])
+                    for i, n in enumerate(lens))
+        plain = _rel(bilstm(x[2:3, :33], params),
+                     bilstm(x[2:3, :33].cpu(), cpu_params))
+    log(f"bilstm_masked against bilstm on the unpadded rows, relative: "
+        f"{alone:.3e} each row alone, {batch:.3e} in the B = 3 batch; "
+        f"bilstm card-CPU {plain:.3e}")
+    _hold("bilstm_masked valid frames against bilstm (each row alone), "
+          "relative", alone, 1e-6)
+    del model
+
+
+def _xvector_check(torch, work, utts, noisy):
+    from audiocodecs_tpu_torch.downstream.metrics import external
+    from audiocodecs_tpu_torch.downstream.models import speaker_encoder as xv
+
+    path = work / "xvector.pt"
+    torch.save(xv.init_xvector_params(torch.Generator().manual_seed(1),
+                                      xv.XVectorConfig()), path)
+    card = external.make_speaker_similarity_metric(checkpoint=str(path))
+    cpu = external.make_speaker_similarity_metric(checkpoint=str(path),
+                                                  device="cpu")
+    card.embed(utts[:1], 16000)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e_card = card.embed(utts, 16000)
+    ms = (time.perf_counter() - t0) * 1e3
+    e_cpu = cpu.embed(utts, 16000)
+    log(f"WavLM x-vector on the card: {ms:.1f} ms wall for {len(utts)} "
+        f"utterances, embeddings {e_card.shape}")
+    _hold("x-vector card-CPU / max|e|",
+          float(np.abs(e_card - e_cpu).max() / np.abs(e_cpu).max()), 1e-4)
+    s_card = np.asarray(card.metric(noisy, utts, 16000))
+    s_cpu = np.asarray(cpu.metric(noisy, utts, 16000))
+    log(f"SpkSim card {s_card.tolist()} CPU {s_cpu.tolist()}")
+    _hold("SpkSim card-CPU", float(np.abs(s_card - s_cpu).max()), 1e-5)
+
+
+def _whisper_v3():
+    from audiocodecs_tpu_torch.nn.whisper import WhisperConfig
+
+    # openai/whisper-large-v3's config.json
+    return WhisperConfig(
+        vocab_size=51866, num_mel_bins=128, d_model=1280,
+        encoder_layers=32, encoder_heads=20, decoder_layers=32,
+        decoder_heads=20, encoder_ffn=5120, decoder_ffn=5120,
+        max_source_positions=1500, max_target_positions=448,
+        eos_token=50257, decoder_start_token=50258)
+
+
+def _whisper_check(torch, work, utts, noisy):
+    import dataclasses
+
+    from audiocodecs_tpu_torch.downstream.metrics.dwer import (
+        dwer_metric, whisper_forced_tokens)
+    from audiocodecs_tpu_torch.nn import whisper
+    from audiocodecs_tpu_torch.utils.bytebpe import ByteLevelBPE
+
+    tok = work / "whisper_vocab"
+    cfg = _whisper_v3()
+    _synthetic_vocab(tok, cfg.vocab_size, WHISPER_V3_SPECIALS)
+    forced = whisper_forced_tokens(ByteLevelBPE.from_dir(str(tok)),
+                                   cfg.decoder_start_token)
+    wav = np.zeros((len(utts), 30 * 16000), np.float32)
+    for i, u in enumerate(utts):
+        wav[i, :u.size] = u
+    wav_t = torch.from_numpy(wav)
+
+    # full depth on the card: encode, a decode step, dWER end to end
+    t0 = time.perf_counter()
+    full = _on_card(torch, whisper.Whisper, cfg,
+                    whisper.init_whisper_params, 0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in full.parameters())
+    log(f"Whisper large-v3 ({n_params / 1e9:.3f} G parameters) drawn on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode():
+        mel = whisper.log_mel_spectrogram(wav_t.cuda(), cfg.num_mel_bins)
+        enc_ms = cuda_ms(torch, lambda: whisper.whisper_encode(full, mel),
+                         reps=3, warmup=1)
+        enc = whisper.whisper_encode(full, mel)
+        steps = len(forced) + 31  # the prompt's and 31 of 32 new tokens
+        gen_ms = cuda_ms(torch, lambda: whisper.whisper_generate(
+            full, mel, forced, 32, enc_states=enc), reps=2, warmup=1)
+    log(f"Whisper large-v3 at B = {len(utts)} x 30 s: encode "
+        f"{enc_ms:.2f} ms; 32 new tokens {gen_ms:.2f} ms, "
+        f"{gen_ms / steps:.3f} ms a decode step ({steps} steps, the "
+        f"cross-attention K/V included)")
+    metric = dwer_metric(full, str(tok), max_new_tokens=32)
+    t0 = time.perf_counter()
+    w = metric.metric(noisy, utts, 16000)
+    c = metric.cer(noisy, utts, 16000)
+    log(f"dWER {w} dCER {c} (full depth, 32 new tokens, "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms wall)")
+    if not all(np.isfinite(w + c)):
+        fail("dWER/dCER not finite")
+    del full, metric, enc
+    torch.cuda.empty_cache()
+
+    # the same widths at 2 + 2 layers, card against CPU
+    cfg2 = dataclasses.replace(cfg, encoder_layers=2, decoder_layers=2)
+    cpu, card = _pair_cpu(torch, whisper.Whisper, cfg2,
+                          whisper.init_whisper_params, 1)
+    with torch.inference_mode():
+        mel_cpu = whisper.log_mel_spectrogram(wav_t, cfg.num_mel_bins)
+        mel_card = whisper.log_mel_spectrogram(wav_t.cuda(),
+                                               cfg.num_mel_bins)
+        _hold("Whisper log-mel card-CPU, relative", _rel(mel_card, mel_cpu),
+              1e-4)
+        enc_cpu = whisper.whisper_encode(cpu, mel_cpu)
+        enc_card = whisper.whisper_encode(card, mel_card)
+        _hold("Whisper encoder states (2 layers) card-CPU, relative",
+              _rel(enc_card, enc_cpu), 1e-4)
+        ids_cpu, n_cpu = whisper.whisper_generate(cpu, mel_cpu, forced, 32,
+                                                  enc_states=enc_cpu)
+        ids_card, n_card = whisper.whisper_generate(card, mel_card, forced,
+                                                    32, enc_states=enc_card)
+        seq = torch.cat([torch.tensor([forced] * len(utts)), ids_cpu], 1)
+        lg_cpu = whisper.whisper_decode(cpu, seq, enc_cpu)
+        lg_card = whisper.whisper_decode(card, seq.cuda(), enc_card).cpu()
+    gap = float((lg_card - lg_cpu).abs().max())
+    _hold("Whisper teacher-forced logits (2 + 2 layers) card-CPU / "
+          "max|logits|", gap / float(lg_cpu.abs().max()), 1e-4)
+    top2 = lg_cpu[:, len(forced) - 1:-1].topk(2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    log(f"Whisper greedy ids: {int((ids_card.cpu() != ids_cpu).sum())} of "
+        f"{ids_cpu.numel()} differ; least top-2 logit margin {margin:.3e} "
+        f"against the largest card-CPU logit gap {gap:.3e}")
+    if not torch.equal(ids_card.cpu(), ids_cpu) or not torch.equal(
+            n_card.cpu(), n_cpu):
+        fail("Whisper greedy ids differ between the card and the CPU")
+    del cpu, card
+
+
+def _gpt2_check(torch, work):
+    import dataclasses
+
+    from audiocodecs_tpu_torch.downstream.metrics.ppl import (
+        perplexity_metric)
+    from audiocodecs_tpu_torch.nn import gpt2
+    from audiocodecs_tpu_torch.utils.bytebpe import ByteLevelBPE
+
+    tok = work / "gpt2_vocab"
+    # openai-community/gpt2-large's config.json
+    cfg = gpt2.GPT2Config(vocab_size=50257, n_positions=1024, n_embd=1280,
+                          n_layer=36, n_head=20)
+    _synthetic_vocab(tok, cfg.vocab_size, {"<|endoftext|>": 50256})
+    bpe = ByteLevelBPE.from_dir(str(tok))
+    ids = [bpe.encode(t) for t in PPL_TEXTS]
+    L = max(map(len, ids))
+    toks = torch.zeros(len(ids), L, dtype=torch.long)
+    for i, row in enumerate(ids):
+        toks[i, :len(row)] = torch.tensor(row)
+    lens = torch.tensor([len(r) for r in ids])
+    full = _on_card(torch, gpt2.GPT2, cfg, gpt2.init_gpt2_params, 2)
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: gpt2.gpt2_nll(full, toks.cuda(),
+                                                  lens.cuda()),
+                     reps=5, warmup=2)
+        nll = gpt2.gpt2_nll(full, toks.cuda(), lens.cuda()).cpu()
+    ppl = perplexity_metric(full, str(tok)).metric(PPL_TEXTS)
+    log(f"GPT-2 large (36 x 1280) NLL of {len(ids)} texts ({L} tokens): "
+        f"{ms:.2f} ms; NLL {nll.tolist()}; PPL {ppl}")
+    if not all(np.isfinite(ppl)):
+        fail("GPT-2 PPL not finite")
+    del full
+    torch.cuda.empty_cache()
+    cpu, card = _pair_cpu(torch, gpt2.GPT2, dataclasses.replace(
+        cfg, n_layer=2), gpt2.init_gpt2_params, 3)
+    with torch.inference_mode():
+        got = gpt2.gpt2_nll(card, toks.cuda(), lens.cuda())
+        want = gpt2.gpt2_nll(cpu, toks, lens)
+    _hold("GPT-2 NLL (2 layers) card-CPU, relative", _rel(got, want), 1e-4)
+    del cpu, card
+
+
+def _profiler_check(torch, rows):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from audiocodecs_tpu_torch.downstream.profiler import profile_codec
+    from audiocodecs_tpu_torch.models.encodec import Encodec
+    from audiocodecs_tpu_torch.nn.layers import exact_fp32
+
+    codec, cpu = _server_pair(torch, Encodec, 24000)
+    reset_counts()
+    t0 = time.perf_counter()
+    prof = profile_codec(codec, seconds=METRIC_SECONDS, batch=1)
+    t_card = time.perf_counter() - t0
+    counts = read_counts()
+    # a length: 2 warm calls, 1 counted, 5 timed, 2 spans of 4, 1 for the
+    # memory; 4 B1 and 8 B2 launches a roundtrip
+    n = len(METRIC_SECONDS) * (2 + 1 + 5 + 2 * 4 + 1)
+    want = _launch_table(4 * n, 8 * n)
+    if counts != want:
+        fail(f"profiler: expected launches {want}, got {counts}")
+    _add_launches(rows, "profiler", counts)
+    for sec in METRIC_SECONDS:
+        r = prof[f"{sec}s"]
+        sig = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (1, 24000 * sec)).astype(np.float32))
+        with torch.inference_mode(), exact_fp32(), FlopCounterMode(
+                display=False) as counter:
+            cpu._toks_to_sig(cpu._sig_to_toks(sig, None), None)
+        g_cpu = counter.get_total_flops() / 1e9
+        log(f"profiler EnCodec-24k {sec} s: time_s {r['time_s'] * 1e3:.3f} "
+            f"ms, time_min_s {r['time_min_s'] * 1e3:.3f} ms, "
+            f"time_pipelined_s {r['time_pipelined_s'] * 1e3:.3f} ms, rtf "
+            f"{r['rtf']:.1f}, gflops {r['gflops']:.4f} (CPU path "
+            f"{g_cpu:.4f}), bytes_accessed_gb {r['bytes_accessed_gb']:.4f}, "
+            f"peak {r['memory']['peak_bytes_in_use'] / 2 ** 20:.1f} MiB, "
+            f"temp {r['memory']['temp_bytes'] / 2 ** 20:.1f} MiB")
+        _hold(f"profiler {sec} s gflops card-CPU, relative",
+              abs(r["gflops"] - g_cpu) / g_cpu, 0.01)
+    log(f"profiler params_m {prof['params_m']:.3f}; profile_codec on the "
+        f"card {t_card:.1f} s, the CPU path's counts "
+        f"{time.perf_counter() - t0 - t_card:.1f} s")
+    del codec, cpu
+
+
+def phase_metric_models(torch, rows):
+    """The SR evaluation's model-backed metrics at their published widths
+    on seeded weights, and the profiler: UTMOS22 strong (B1 in its BiLSTM)
+    and the WavLM x-vector on the synthetic test split against the CPU
+    path; Whisper large-v3 at full depth (encode, a decode step, dWER and
+    dCER) and at 2 + 2 layers against the CPU (log-mel, encoder states,
+    teacher-forced logits, greedy ids with the token margin); GPT-2 large
+    at full depth (NLL, PPL) and at 2 layers against the CPU; the profiler
+    on EnCodec-24k at 1, 2 and 4 s (FLOPs against the CPU path's, times,
+    peak memory, launches)."""
+    import yaml
+
+    from audiocodecs_tpu_torch.downstream.datasets.manifest import (
+        read_manifest)
+    from audiocodecs_tpu_torch.downstream.recipes.common import prepare_data
+    from audiocodecs_tpu_torch.utils.audio import read_wav
+
+    work = WORK_DIR / "metric_models"
+    work.mkdir(parents=True, exist_ok=True)
+    ds = yaml.safe_load(Path("hparams/datasets/synthetic.yaml").read_text())
+    ds["prep_dir"] = str(work / "corpus")
+    ds = prepare_data(ds)
+    utts = [read_wav(r["wav"])[0][0] for r in read_manifest(ds["test_csv"])]
+    rng = np.random.default_rng(7)
+    noisy = [(u + 0.05 * rng.standard_normal(u.size)).astype(np.float32)
+             for u in utts]
+    log(f"metric models: {len(utts)} test utterances of "
+        f"{[round(u.size / 16000, 2) for u in utts]} s")
+    for label, check in (("UTMOS", lambda: _utmos_check(
+            torch, rows, work, utts, noisy)),
+            ("x-vector", lambda: _xvector_check(torch, work, utts, noisy)),
+            ("Whisper", lambda: _whisper_check(torch, work, utts, noisy)),
+            ("GPT-2", lambda: _gpt2_check(torch, work)),
+            ("profiler", lambda: _profiler_check(torch, rows))):
+        t0 = time.perf_counter()
+        check()
+        torch.cuda.empty_cache()
+        log(f"metric models {label} seconds: {time.perf_counter() - t0:.1f}")
 
 
 def main() -> None:
@@ -4639,7 +5100,7 @@ def main() -> None:
                   phase_wavlm_kmeans, phase_dycast, phase_focalcodec,
                   phase_bicodec, phase_semanticodec,
                   phase_checkpoint_loading, phase_zoo_loading,
-                  phase_long_audio, phase_sweep_sr):
+                  phase_long_audio, phase_sweep_sr, phase_metric_models):
         timed(phase, rows)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))

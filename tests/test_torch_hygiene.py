@@ -69,6 +69,26 @@ SLICE_16 = (
 )
 
 
+# the SR evaluation's profiler and its model-backed metrics
+SLICE_17 = (
+    "audiocodecs_tpu_torch.downstream.profiler",
+    "audiocodecs_tpu_torch.downstream.metrics.utmos",
+    "audiocodecs_tpu_torch.downstream.metrics.external",
+    "audiocodecs_tpu_torch.downstream.metrics.dwer",
+    "audiocodecs_tpu_torch.downstream.metrics.ppl",
+    "audiocodecs_tpu_torch.downstream.metrics.text_norm",
+    "audiocodecs_tpu_torch.downstream.models",
+    "audiocodecs_tpu_torch.downstream.models.speaker_encoder",
+    "audiocodecs_tpu_torch.nn.whisper",
+    "audiocodecs_tpu_torch.nn.gpt2",
+    "audiocodecs_tpu_torch.convert.whisper",
+    "audiocodecs_tpu_torch.convert.gpt2",
+    "audiocodecs_tpu_torch.convert.dnsmos",
+    "audiocodecs_tpu_torch.convert.onnx_lite",
+    "audiocodecs_tpu_torch.utils.bytebpe",
+)
+
+
 def test_module_list_covers_the_slice():
     mods = _port_modules()
     for m in ("audiocodecs_tpu_torch.models.encodec",
@@ -134,7 +154,7 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.convert.audiomae",
               "audiocodecs_tpu_torch.convert.ldm",
               "audiocodecs_tpu_torch.convert.checkpoint_files",
-              *SLICE_16):
+              *SLICE_16, *SLICE_17):
         assert m in mods
 
 
@@ -345,7 +365,7 @@ def _docstrings(tree) -> set:
     return out
 
 
-@pytest.mark.parametrize("module", SLICE_16)
+@pytest.mark.parametrize("module", SLICE_16 + SLICE_17)
 def test_slice_modules_read_no_environment_and_no_reference_path(module):
     """No switch from the environment (the reference's ``ACX_NATIVE_WAVIO``,
     ``ACX_WAVIO_LIB`` and ``ACX_NATIVE_CACHE`` are not carried over) and no
@@ -380,6 +400,12 @@ def test_slice_modules_read_no_environment_and_no_reference_path(module):
     ("audiocodecs_tpu_torch/csrc/wavio.cc", "csrc/wavio.cc"),
     ("audiocodecs_tpu_torch/downstream/metrics/dnsmos_v8.npz",
      "audiocodecs_tpu/downstream/metrics/dnsmos_v8.npz"),
+    ("audiocodecs_tpu_torch/downstream/metrics/text_norm.py",
+     "audiocodecs_tpu/downstream/metrics/text_norm.py"),
+    ("audiocodecs_tpu_torch/utils/bytebpe.py",
+     "audiocodecs_tpu/utils/bytebpe.py"),
+    ("audiocodecs_tpu_torch/convert/onnx_lite.py",
+     "audiocodecs_tpu/convert/onnx_lite.py"),
 ])
 def test_port_copies_are_byte_equal_to_the_reference(copy, original):
     assert (REPO / copy).read_bytes() == (REPO / original).read_bytes()
@@ -412,3 +438,97 @@ def test_sr_path_defaults_to_the_card(monkeypatch, tmp_path):
                        str(tmp_path / "out"), "--dataset", str(dataset),
                        "--task", str(REPO / "hparams/tasks/sr.yaml")])
     assert (tmp_path / "corpus" / "test.csv").is_file()
+
+
+def test_metric_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Without a device the metric factories, the x-vector loader and the
+    profiler ask for the card and raise where there is none, before any
+    file is read."""
+    from audiocodecs_tpu_torch.downstream.metrics import external, utmos
+    from audiocodecs_tpu_torch.downstream.metrics.dwer import (
+        make_dwer_checkpoint_metric,
+    )
+    from audiocodecs_tpu_torch.downstream.metrics.ppl import (
+        make_perplexity_checkpoint_metric,
+    )
+    from audiocodecs_tpu_torch.downstream.models.speaker_encoder import (
+        load_xvector,
+    )
+    from audiocodecs_tpu_torch.downstream.profiler import profile_codec
+    from audiocodecs_tpu_torch.downstream.recipes.quality import (
+        build_quality_metrics,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    (tmp_path / "config.json").write_text("{}")
+    (tmp_path / "model_v8.onnx").write_bytes(b"")
+    calls = [
+        lambda: utmos.make_utmos_checkpoint_metric(missing),
+        lambda: utmos.load_utmos(missing),
+        lambda: make_dwer_checkpoint_metric(missing, str(tmp_path)),
+        lambda: make_perplexity_checkpoint_metric(missing, str(tmp_path)),
+        lambda: load_xvector(missing),
+        lambda: external.make_dwer_metric(str(tmp_path)),
+        lambda: external.make_dwer_metric(checkpoint=missing,
+                                          tokenizer_path=str(tmp_path)),
+        lambda: external.make_speaker_similarity_metric(str(tmp_path)),
+        lambda: external.make_speaker_similarity_metric(
+            checkpoint=missing),
+        lambda: external.make_perplexity_metric(str(tmp_path)),
+        lambda: external.make_perplexity_metric(
+            checkpoint=missing, tokenizer_path=str(tmp_path)),
+        lambda: external.make_utmos_metric(missing),
+        lambda: external.make_dnsmos_metric(str(tmp_path / "model_v8.onnx")),
+        lambda: build_quality_metrics({"utmos_checkpoint": missing}, 16000),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+    class _Codec:
+        device = None
+        sample_rate = 16000
+
+        def state_dict(self):
+            return {}
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_codec(_Codec(), seconds=(0.1,))
+
+
+def test_metric_conversion_kinds_stand_alone(tmp_path):
+    """``tools/convert_checkpoints_torch.py``'s metric-model kinds
+    (whisper, gpt2, utmos, wavlm_xvector, dnsmos) in a fresh interpreter:
+    each converts without importing ``transformers``, jax or the reference
+    package."""
+    code = (
+        "import json, sys\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import numpy as np, torch\n"
+        "import convert_checkpoints_torch as cli\n"
+        "from audiocodecs_tpu_torch.downstream.metrics import utmos\n"
+        "from audiocodecs_tpu_torch.convert.torch_utils import "
+        "synth_state_dict\n"
+        "cfg = utmos.UTMOSConfig()\n"
+        f"out = {str(tmp_path)!r}\n"
+        "sd = {k: torch.from_numpy(v) for k, v in synth_state_dict("
+        "utmos.utmos_schema(cfg)).items()}\n"
+        "torch.save(sd, out + '/u.pt')\n"
+        "assert cli.main(['convert', 'utmos', out + '/u.pt', "
+        "out + '/o.pt']) == 0\n"
+        "for kind in ('whisper', 'gpt2', 'wavlm_xvector', 'dnsmos'):\n"
+        "    assert kind in cli.HF_CONVERTERS or kind in "
+        "cli.METRIC_CONVERTERS\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = {"PATH": os.environ.get("PATH", ""), "PYTHONPATH": str(REPO),
+           "HOME": os.environ.get("HOME", str(REPO)),
+           "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         cwd=str(REPO), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "audiocodecs_tpu_torch.downstream.metrics.utmos" in loaded
+    assert not [m for m in loaded if _is_reference(m)]
+    assert not [m for m in loaded if _is_transformers(m)]

@@ -341,19 +341,32 @@ def test_run_sr_matches_jax(tmp_path, monkeypatch, sr_inputs, jax_codec,
 
 
 def test_unported_gates_and_profiler_raise(sr_inputs, tmp_path):
+    """Every model-backed gate now builds its metric, so a gate whose file
+    is missing raises (as the reference's ``_require`` does) instead of
+    dropping the metric; ``use_profiler`` no longer raises but writes
+    ``profiler.txt`` and the summary's ``"profiler"`` key."""
     for key in ("utmos_checkpoint", "whisper_path",
-                "speaker_encoder_model_path"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-            quality.build_quality_metrics({key: "x"}, 16000,
-                                          ("utmos", "dnsmos", "dwer", "spk"),
-                                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        quality.build_quality_metrics({"lm_path": "x"}, 16000, device="cpu")
+                "speaker_encoder_model_path", "speaker_encoder_checkpoint",
+                "whisper_checkpoint"):
+        with pytest.raises((RuntimeError, OSError, ValueError)):
+            quality.build_quality_metrics(
+                {key: str(tmp_path / "missing")}, 16000,
+                ("utmos", "dnsmos", "dwer", "spk"), device="cpu")
+    with pytest.raises(RuntimeError, match="unavailable"):
+        quality.build_quality_metrics(
+            {"lm_path": str(tmp_path / "missing"),
+             "whisper_path": str(tmp_path / "missing")}, 16000,
+            device="cpu")
     ckpt, test_csv, _ = sr_inputs
-    with pytest.raises(NotImplementedError, match="profiler"):
-        sr.run_sr({"sample_rate": 16000, "test_csv": test_csv,
-                   "codec": dict(TINY_CODEC), "use_profiler": True,
-                   "output_folder": str(tmp_path)}, device="cpu")
+    summary = sr.run_sr({"sample_rate": 16000, "test_csv": test_csv,
+                         "codec": dict(TINY_CODEC), "checkpoint": ckpt,
+                         "use_profiler": True, "profiler_seconds": [0.25],
+                         "compute_metrics": False,
+                         "output_folder": str(tmp_path / "out")},
+                        device="cpu")
+    assert sorted(summary["profiler"]) == ["params_m"]
+    report = (tmp_path / "out" / "profiler.txt").read_text()
+    assert "GMACs" in report and "0.25s" in report
 
 
 def test_pair_battery_matches_the_recipe_metrics():

@@ -20,6 +20,16 @@ weights_only=True)``. No ``transformers`` and no JAX: an HF directory's
     python tools/convert_checkpoints_torch.py convert hilcodec \\
         hilcodec.pt out.pt [--allow-partial]
 
+    # the metric models: an HF directory (whisper, gpt2, wavlm_xvector),
+    # a vendor file (utmos: hub or lightning layout, --key-map taken) or
+    # DNSMOS's ONNX file (written as the npz the DNSMOS module reads)
+    python tools/convert_checkpoints_torch.py convert whisper \\
+        /path/to/whisper-large-v3 whisper.pt
+    python tools/convert_checkpoints_torch.py convert utmos \\
+        utmos22_strong.pt utmos.pt
+    python tools/convert_checkpoints_torch.py convert dnsmos \\
+        model_v8.onnx dnsmos.npz
+
     # build every registered codec once on the card
     python tools/convert_checkpoints_torch.py warmup
 
@@ -37,6 +47,13 @@ Then a codec at the checkpoint's config takes it, for example (EnCodec
 
     sd = torch.load("encodec_24khz.pt", weights_only=True)
     codec = get_codec_class("encodec")(24000, state_dict=sd)
+
+and a metric takes its file, keeping the HF directory beside it for the
+tokenizer and ``config.json``: ``make_dwer_metric(checkpoint="whisper.pt",
+tokenizer_path=...)``, ``make_perplexity_metric(checkpoint="gpt2.pt",
+tokenizer_path=...)``, ``make_utmos_checkpoint_metric("utmos.pt")``,
+``make_speaker_similarity_metric(checkpoint="xvector.pt")`` (at the
+default ``XVectorConfig``, or ``config=`` overrides).
 """
 
 from __future__ import annotations
@@ -57,7 +74,14 @@ HF_CONVERTERS = {
     "dac": ("dac", "convert_dac_state_dict", "dac_config_from_hf"),
     "mimi": ("mimi", "convert_mimi_state_dict", "mimi_config_from_hf"),
     "wavlm": ("wavlm", "convert_wavlm_state_dict", "wavlm_config_from_hf"),
+    # the metric models' transcriber and language model
+    "whisper": ("whisper", "convert_whisper_state_dict",
+                "whisper_config_from_hf"),
+    "gpt2": ("gpt2", "convert_gpt2_state_dict", "gpt2_config_from_hf"),
 }
+
+# the metric models that are no codec: (kind, converter of this module)
+METRIC_CONVERTERS = ("utmos", "wavlm_xvector", "dnsmos")
 
 # vendor families: (codec class, converter of convert.zoo)
 VENDOR_CONVERTERS = {
@@ -159,6 +183,52 @@ def convert_vendor(family: str, src: str, out: str, key_map=None,
     return _save(family, src, out, convert(sd, _model_config(family), **kw))
 
 
+def convert_utmos(src: str, out: str, key_map=None) -> int:
+    """A UTMOS22-strong file (the hub's or a lightning checkpoint, the
+    layout detected) → :class:`UTMOS`'s state dict at the default
+    config."""
+    from audiocodecs_tpu_torch.convert.checkpoint_files import (
+        load_checkpoint)
+    from audiocodecs_tpu_torch.downstream.metrics.utmos import (
+        UTMOSConfig, convert_utmos_state_dict)
+
+    return _save("utmos", src, out, convert_utmos_state_dict(
+        load_checkpoint(src), UTMOSConfig(), key_map=key_map))
+
+
+def convert_xvector(src: str, out: str) -> int:
+    """An HF ``WavLMForXVector`` directory → :class:`XVector`'s state dict
+    at the directory's config."""
+    from audiocodecs_tpu_torch.convert.checkpoint_files import (
+        read_hf_directory)
+    from audiocodecs_tpu_torch.convert.wavlm import wavlm_config_from_hf
+    from audiocodecs_tpu_torch.downstream.models.speaker_encoder import (
+        XVectorConfig, convert_xvector_state_dict)
+
+    config, sd = read_hf_directory(src)
+    cfg = XVectorConfig(
+        wavlm=wavlm_config_from_hf(SimpleNamespace(**config)),
+        tdnn_dim=tuple(config["tdnn_dim"]),
+        tdnn_kernel=tuple(config["tdnn_kernel"]),
+        tdnn_dilation=tuple(config["tdnn_dilation"]),
+        xvector_dim=config["xvector_output_dim"],
+        use_weighted_layer_sum=config["use_weighted_layer_sum"])
+    return _save("wavlm_xvector", src, out,
+                 convert_xvector_state_dict(sd, cfg))
+
+
+def convert_dnsmos(src: str, out: str) -> int:
+    """DNSMOS's ``model_v8.onnx`` → the npz of the port's DNSMOS
+    (``dnsmos_p808(..., params_path=out)``)."""
+    from audiocodecs_tpu_torch.downstream.metrics.dnsmos import (
+        save_dnsmos_params)
+
+    flat = save_dnsmos_params(src, out)
+    n = sum(a.size for a in flat.values())
+    print(f"dnsmos: {src} -> {out} ({n / 1e3:.1f} K parameters)")
+    return 0
+
+
 def warmup() -> int:
     """Build every registered codec once on the card (its published
     config, its own seeded weights); non-zero if any fails, each failure
@@ -212,16 +282,22 @@ def main(argv=None) -> int:
         print(USAGE)
         return 2
     _, family, src, out = argv
-    if family in HF_CONVERTERS:
-        if key_map or allow_partial or w2v:
+    if family in HF_CONVERTERS or family in METRIC_CONVERTERS:
+        if (key_map and family != "utmos") or allow_partial or w2v:
             print(f"--key-map, --allow-partial and --w2v are for vendor "
-                  f"families, not {family!r}")
+                  f"families (and --key-map for utmos), not {family!r}")
             return 2
+        if family == "utmos":
+            return convert_utmos(src, out, key_map)
+        if family == "wavlm_xvector":
+            return convert_xvector(src, out)
+        if family == "dnsmos":
+            return convert_dnsmos(src, out)
         return convert_hf(family, src, out)
     if family not in VENDOR_CONVERTERS:
         print(f"no converter for {family!r}; available: "
-              f"{sorted(HF_CONVERTERS) + sorted(VENDOR_CONVERTERS)} (the "
-              f"metric models are not ported yet)")
+              f"{sorted(HF_CONVERTERS) + sorted(METRIC_CONVERTERS)}"
+              f" + {sorted(VENDOR_CONVERTERS)}")
         return 2
     if allow_partial and family != "hilcodec":
         print("--allow-partial is for hilcodec")
