@@ -171,9 +171,13 @@ def build_codec(cfg: dict, sample_rate: int, mode: str = "reconstruct",
     codec = cls(sample_rate=sample_rate, mode=mode, device=device, **spec,
                 **kwargs)
     if checkpoint:
-        from audiocodecs_tpu_torch.params import from_jax_params
+        from audiocodecs_tpu_torch.params import flatten_tree, from_jax_params
         from audiocodecs_tpu_torch.utils.checkpoint import load_params
 
-        codec.load_state_dict(from_jax_params(load_params(checkpoint), codec),
-                              strict=True)
+        # a full checkpoint in a mode that builds half the codec (encode:
+        # no decoder): the parts the mode dropped are dropped here too
+        built = {k.split(".")[0] for k in codec.state_dict()}
+        tree = {k: v for k, v in flatten_tree(load_params(checkpoint)).items()
+                if k.split(".")[0] in built}
+        codec.load_state_dict(from_jax_params(tree, codec), strict=True)
     return codec

@@ -1,1 +1,2 @@
-"""Downstream models: the WavLM x-vector speaker encoder."""
+"""Downstream models: the WavLM x-vector speaker encoder, the multi-codebook
+embedding and head, codebook pooling and the Llama-style decoder."""

@@ -163,6 +163,8 @@ def _launch(gates_x, w_hh, h0, c0):
                     "lstm_recurrence kernel launch failed: "
                     + lib.lstm_recurrence_error_string(err).decode())
             lstm_recurrence.launches += 1
+            by_h = lstm_recurrence.launches_by_hidden
+            by_h[H] = by_h.get(H, 0) + 1
             lstm_recurrence.flops += lstm_recurrence_flops(T, nb, H)
             if H > 1024:
                 lstm_recurrence.wide_launches += 1
@@ -211,6 +213,7 @@ def lstm_recurrence(gates_x: torch.Tensor, w_hh: torch.Tensor,
 
 lstm_recurrence.launches = 0  # kernel launches in this process
 lstm_recurrence.wide_launches = 0  # of them of the wide instance, H > 1024
+lstm_recurrence.launches_by_hidden = {}  # of them by width: {H: launches}
 # the launches' FLOPs, as the flop counter counts the plain version's (it
 # does not see a kernel launched through ctypes)
 lstm_recurrence.flops = 0

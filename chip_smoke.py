@@ -18,7 +18,8 @@ it fails:
    and its launch shapes B=32 and 24), the wide instance (H > 1024) at
    BigCodec's 10 s layers (T=800, H=1536, B=8 and 1), X-Codec 2.0's
    (T=500, H=1536, B=8, timed beside its plain version and ``nn.LSTM``),
-   a ragged shape, 20
+   the downstream probes' width (T=150, B=4, H=128, timed beside its plain
+   version, the port's layer and ``nn.LSTM``), a ragged shape, 20
    rows over three launches, T=1 and H=1088, and two pairs of launches
    back to back; timings at B and at B=1 (per step) at the main shape,
    H=1024, T=1, T=500, T=6, T=150 (B=32, 24) and T=800 at H=1536
@@ -258,7 +259,22 @@ it fails:
    and at 2 layers against the CPU (1e-4 relative); the profiler on
    EnCodec-24k at 1, 2 and 4 s (``gflops`` within 1 % of the CPU path's,
    times, peak memory, 4 kernel-1 and 8 kernel-2 launches a roundtrip).
-   Phases 37-39 write under the git-ignored ``results/chip_smoke/``.
+40. the downstream trainer on EnCodec-24k's seeded weights and the
+   synthetic corpus of ``hparams/datasets/synthetic.yaml``: (a)
+   ``run_classification`` at ``ic.yaml``'s widths for 2 epochs, with
+   kernel 1's launches at H = 512 (the codec's encoder, uncached batches
+   only) and at H = 128 (the probe, one a forward) and kernel 2's counted
+   against the batches; then 3 train steps on the card against the CPU
+   from one init and the run's cached tokens (loss 1e-5 relative, params
+   1e-4), the probe's gradient non-zero and within 1e-4 of the CPU's, and
+   one batch's tokens against the CPU codec (token_match ≥ 0.999); (b)
+   ``run_asr`` at ``asr.yaml``'s widths (BPE) for 1 epoch: both LSTM
+   directions launch kernel 1, the train loss is finite, one batch's CTC
+   loss within 1e-5 of the CPU's; (c) the Llama decoder at ``slm.yaml``'s
+   widths (d 256, 4 layers, 4 heads, 2 KV heads, FFN 688; K = 8,
+   C = 1024): logits 1e-4 relative of the CPU's, 32 greedy tokens equal,
+   and the time of a decode step.
+   Phases 37-40 write under the git-ignored ``results/chip_smoke/``.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -291,11 +307,15 @@ LSTM_SHAPES = [(750, 8, 512), (257, 3, 512), (40, 100, 512), (750, 8, 1024),
                (1, 8, 512), (500, 8, 1024), (500, 1, 1024), (6, 8, 512),
                (150, 32, 512), (150, 24, 512), (150, 88, 512),
                (800, 8, 1536), (800, 1, 1536), (257, 3, 1536),
-               (40, 20, 1536), (1, 8, 1536), (33, 5, 1088), (500, 8, 1536)]
+               (40, 20, 1536), (1, 8, 1536), (33, 5, 1088), (500, 8, 1536),
+               (150, 4, 128)]
 # each also timed at B = 1
 LSTM_TIMED = [(750, 8, 512), (750, 8, 1024), (1, 8, 512), (500, 8, 1024),
               (6, 8, 512), (150, 32, 512), (150, 24, 512), (800, 8, 1536),
-              (500, 8, 1536)]
+              (500, 8, 1536), (150, 4, 128)]
+# the downstream probes' recurrence (hparams/tasks/ic.yaml, asr.yaml:
+# probe_hidden 128) over a 2 s utterance at 75 Hz, B = 4
+LSTM_PROBE = (150, 4, 128)
 LSTM_WIDE = (800, 8, 1536)  # BigCodec-16k's LSTM layer at B = 8 x 10 s
 LSTM_XCODEC2 = (500, 8, 1536)  # X-Codec 2.0-16k's encoder LSTM, B = 8 x 10 s
 RESBLOCK_SHAPES = [(8, 32, 240000), (8, 64, 120000), (8, 128, 30000),
@@ -616,6 +636,18 @@ def phase_lstm(torch, peaks):
         f"latency floor T x hand-off = {T * hand / 1e3:.4f} ms at T={T}")
     row.update(max_abs_err=worst, per_shape=per_shape, handoff_us=hand,
                latency_floor_ms=T * hand / 1e3)
+    # the probes' width: its bound is the larger of the latency floor and
+    # its bytes over HBM (its products over the fp32 peak are less)
+    T, B, H = LSTM_PROBE
+    probe = row["probe_h128"]
+    floor_ms = T * hand / 1e3
+    b_ms, b_by = _lstm_bound(T, B, H, peaks)
+    probe.update(latency_floor_ms=floor_ms, bytes_or_ops_ms=b_ms,
+                 bound_ms=max(floor_ms, b_ms),
+                 bound_by="latency" if floor_ms >= b_ms else b_by)
+    log(f"lstm probe layer T={T} B={B} H={H}: latency floor "
+        f"{floor_ms:.4f} ms, {b_by} {b_ms:.4f} ms, bound_ms "
+        f"{probe['bound_ms']:.4f}")
     T = LSTM_WIDE[0]
     wide_row.update(handoff_us=hand, latency_floor_ms=T * hand / 1e3)
     log(f"lstm_recurrence_wide T={T}: latency floor T x hand-off = "
@@ -732,6 +764,29 @@ def _lstm_library(torch, gen) -> dict:
                 {"T": T, "B": B, "H": H, "kernel_call_ms": call_ms,
                  "plain_ms": plain_ms, "port_layer_ms": layer_ms,
                  "library_ms": lib_ms, "library_vs_port": err})
+
+    # the downstream probes' layer (phase 40): the kernel call, its plain
+    # version, the port's layer and nn.LSTM
+    T, B, H = LSTM_PROBE
+    p = cuda_params(H, H)
+    ref = torch.nn.LSTM(H, H, 1, batch_first=True).to("cuda")
+    x = (torch.randn(B, T, H, generator=gen) * 0.5).to("cuda")
+    h0 = c0 = torch.zeros(B, H, device="cuda")
+    with torch.inference_mode(), exact_fp32():
+        load(ref, p, "")
+        gx = (torch.matmul(x.transpose(0, 1), p["w_ih"]) + p["b"]).contiguous()
+        call_ms = cuda_ms(torch, lambda: lstm_recurrence(gx, p["w_hh"], h0, c0))
+        plain_ms = cuda_ms(torch, lambda: lstm_recurrence_reference(
+            gx, p["w_hh"], h0, c0), reps=3)
+        layer_ms = cuda_ms(torch, lambda: _layer(x, p))
+        lib_ms = cuda_ms(torch, lambda: ref(x))
+        err = float((ref(x)[0] - _layer(x, p)[0]).abs().max())
+    log(f"lstm probe layer T={T} B={B} H={H}: kernel_call_ms={call_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} port_layer_ms={layer_ms:.4f} "
+        f"library_ms(nn.LSTM)={lib_ms:.4f} library_vs_port_max_abs={err:.3e}")
+    out["probe_h128"] = {"T": T, "B": B, "H": H, "kernel_call_ms": call_ms,
+                         "plain_ms": plain_ms, "port_layer_ms": layer_ms,
+                         "library_ms": lib_ms, "library_vs_port": err}
     return out
 
 
@@ -1224,6 +1279,7 @@ def reset_counts() -> None:
             for form in f.launches_by_form:
                 f.launches_by_form[form] = 0
     _counters()["lstm_recurrence"].wide_launches = 0
+    _counters()["lstm_recurrence"].launches_by_hidden.clear()
     by_form = _counters()["dac_resunit"].launches_by_form
     for form in by_form:
         by_form[form] = 0
@@ -1248,6 +1304,12 @@ def read_counts() -> dict:
         for form, n in _counters()[name].launches_by_form.items():
             counts[f"{name}_{form}"] = n
     return counts
+
+
+def lstm_launches_by_hidden() -> dict:
+    """The LSTM kernel's launches since ``reset_counts`` by width:
+    ``{H: launches}``."""
+    return dict(_counters()["lstm_recurrence"].launches_by_hidden)
 
 
 def _server_pair(torch, cls, *args, **kwargs):
@@ -5060,6 +5122,332 @@ def phase_metric_models(torch, rows):
         log(f"metric models {label} seconds: {time.perf_counter() - t0:.1f}")
 
 
+DOWNSTREAM_EPOCHS = {"ic": 2, "asr": 1}
+LLAMA_GREEDY = 32  # greedy tokens held equal on the card and the CPU
+
+
+def _downstream_cfg(task: str, work: Path) -> dict:
+    """``hparams/tasks/<task>.yaml`` + ``codecs/encodec.yaml`` +
+    ``datasets/synthetic.yaml`` (its corpus prepared under ``work``), the
+    run's output under ``work/<task>``, emptied first."""
+    import shutil
+
+    from audiocodecs_tpu_torch.downstream.config import parse_cli
+    from audiocodecs_tpu_torch.downstream.recipes.common import prepare_data
+
+    # a fresh run: no token cache or checkpoint of an earlier one
+    shutil.rmtree(work / task, ignore_errors=True)
+    cfg, _ = parse_cli([f"hparams/tasks/{task}.yaml",
+                        "hparams/codecs/encodec.yaml",
+                        "hparams/datasets/synthetic.yaml",
+                        "--prep_dir", str(work / "corpus"),
+                        "--output_folder", str(work / task),
+                        "--epochs", str(DOWNSTREAM_EPOCHS[task])])
+    return prepare_data(cfg)
+
+
+def _batches_by_split(cfg: dict) -> dict:
+    """The loader's batches of each split, as the recipe iterates them."""
+    from audiocodecs_tpu_torch.downstream.datasets.loader import (
+        BucketedLoader)
+    from audiocodecs_tpu_torch.downstream.recipes.common import (
+        loader_kwargs, read_split_manifests)
+
+    rows = read_split_manifests(cfg)
+    return {split: list(BucketedLoader(rows[split], int(cfg["sample_rate"]),
+                                       shuffle=split == "train",
+                                       seed=int(cfg.get("seed", 0)),
+                                       **loader_kwargs(cfg)))
+            for split in rows}
+
+
+def _cached_batch(torch, batch, cache, dev):
+    toks = cache.get_batch(batch["ids"])
+    if toks is None:
+        fail("downstream: a batch of the run is missing from its cache")
+    return (torch.from_numpy(toks).to(dev),
+            torch.from_numpy(np.asarray(batch["length"])).to(dev))
+
+
+def _ic_check(torch, rows, work):
+    """(a): run_classification on the card, launches against the batches,
+    3 steps card against CPU, the probe's gradient, one batch's tokens."""
+    from audiocodecs_tpu_torch.downstream.cache import TokenCache
+    from audiocodecs_tpu_torch.downstream.config import build_codec
+    from audiocodecs_tpu_torch.downstream.recipes import classification
+    from audiocodecs_tpu_torch.downstream.recipes.common import (
+        encode_labels, vocab_spec)
+    from audiocodecs_tpu_torch.downstream.recipes.trainer import (
+        Trainer, params_to_jax)
+
+    cfg = _downstream_cfg("ic", work)
+    batches = _batches_by_split(cfg)
+    n = {k: len(v) for k, v in batches.items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = classification.run_classification(cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    by_h = lstm_launches_by_hidden()
+    epochs = DOWNSTREAM_EPOCHS["ic"]
+    encodes = n["train"] + n["valid"] + n["test"]  # each batch once, cached
+    probe = epochs * (n["train"] + n["valid"]) + n["test"]
+    log(f"downstream IC: {json.dumps(summary)} in {secs:.1f} s; batches "
+        f"{n}; B1 launches by width {by_h}, B2 "
+        f"{counts['seanet_resblock']}")
+    want = {512: 2 * encodes, 128: probe}
+    if by_h != want or counts["seanet_resblock"] != 4 * encodes:
+        fail(f"downstream IC: expected B1 launches {want} and B2 "
+             f"{4 * encodes}, got {by_h} and {counts['seanet_resblock']}")
+    _add_launches(rows, "downstream_ic", counts)
+
+    # 3 steps on the card and on the CPU from one init, on the run's cached
+    # tokens
+    codec = build_codec(cfg, int(cfg["sample_rate"]), mode="encode")
+    C = vocab_spec(codec)
+    label_map, labels = encode_labels(
+        [r for split in batches.values() for b in split for r in b["rows"]],
+        cfg["label_field"])
+    init = params_to_jax(classification.build_probe_params(
+        torch.Generator().manual_seed(0), codec.config.num_codebooks, C,
+        int(cfg["embedding_dim_probe"]), int(cfg["probe_hidden"]),
+        len(labels), codec_embs=codec.embs()))
+    cache = TokenCache(str(work / "ic" / "token_cache.npz"))
+    steps = (batches["train"] * 3)[:3]
+
+    def loss_fn(params, batch, generator):
+        return classification.classification_loss(params, batch, generator,
+                                                  vocab_size=C)
+
+    losses, trained, step_ms = {}, {}, []
+    for dev in ("cuda", "cpu"):
+        t = Trainer(loss_fn, classification.probe_params_from_jax(init, dev),
+                    lr=float(cfg["lr"]), output_folder=str(work / f"ic_{dev}"))
+        losses[dev] = []
+        for b in steps:
+            toks, length = _cached_batch(torch, b, cache, dev)
+            label = torch.tensor([label_map[r[cfg["label_field"]]]
+                                  for r in b["rows"]], device=dev)
+            batch = {"toks": toks, "length": length, "label": label}
+            if not losses[dev]:
+                # the probe's gradient: the recurrence's backward
+                # recomputes through the plain version
+                loss, _ = t.compute_loss(batch, None)
+                w_hh = t.params["lstm"][0]["w_hh"]
+                (g,) = torch.autograd.grad(loss, [w_hh])
+                trained[dev, "grad"] = g.detach()
+            t1 = time.perf_counter()
+            losses[dev].append(t.step(batch, None)[0])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+        trained[dev] = t.params
+    log(f"downstream IC 3 steps: card losses {losses['cuda']}, CPU "
+        f"{losses['cpu']}; card step ms (host clock, synchronised) "
+        f"{[round(v, 2) for v in step_ms]}")
+    _hold("downstream IC step losses card-CPU, relative",
+          max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"])), 1e-5)
+    g, gc = trained["cuda", "grad"], trained["cpu", "grad"]
+    if not float(g.abs().max()) > 0:
+        fail("downstream IC: the probe's w_hh gradient is zero on the card")
+    _hold("downstream IC probe w_hh gradient card-CPU / max", _rel(g, gc),
+          1e-4)
+    p_card, p_cpu = params_to_jax(trained["cuda"]), params_to_jax(
+        trained["cpu"])
+    worst = 0.0
+    for key in ("embedding", "pool", "head"):
+        for k in p_cpu[key]:
+            worst = max(worst, _rel(torch.from_numpy(p_card[key][k]),
+                                    torch.from_numpy(p_cpu[key][k])))
+    for k in p_cpu["lstm"][0]:
+        worst = max(worst, _rel(torch.from_numpy(p_card["lstm"][0][k]),
+                                torch.from_numpy(p_cpu["lstm"][0][k])))
+    _hold("downstream IC params after 3 steps card-CPU / max (worst leaf)",
+          worst, 1e-4)
+
+    # one batch's tokens on the card against the CPU codec
+    cpu = build_codec(cfg, int(cfg["sample_rate"]), mode="encode",
+                      device="cpu")
+    b = batches["train"][0]
+    toks = codec.sig_to_toks(b["sig"], b["length"]).cpu()
+    want_toks = cpu.sig_to_toks(b["sig"], b["length"])
+    match = float((toks == want_toks).double().mean())
+    log(f"downstream IC batch tokens {tuple(toks.shape)}: token_match "
+        f"{match:.6f}")
+    if not match >= 0.999:
+        fail(f"downstream IC: token_match {match} < 0.999")
+    return secs
+
+
+def _asr_check(torch, rows, work):
+    """(b): run_asr on the card, both directions on B1, a finite loss, one
+    batch's CTC loss card against CPU."""
+    from audiocodecs_tpu_torch.downstream.cache import TokenCache
+    from audiocodecs_tpu_torch.downstream.config import build_codec
+    from audiocodecs_tpu_torch.downstream.recipes import asr
+    from audiocodecs_tpu_torch.downstream.recipes.common import (
+        read_split_manifests, vocab_spec)
+    from audiocodecs_tpu_torch.downstream.recipes.trainer import (
+        Trainer, params_to_jax)
+    from audiocodecs_tpu_torch.downstream.text import build_tokenizer
+
+    cfg = _downstream_cfg("asr", work)
+    batches = _batches_by_split(cfg)
+    n = {k: len(v) for k, v in batches.items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = asr.run_asr(cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    by_h = lstm_launches_by_hidden()
+    log(f"downstream ASR: {json.dumps(summary)} in {secs:.1f} s; batches "
+        f"{n}; B1 launches by width {by_h}, B2 "
+        f"{counts['seanet_resblock']}")
+    encodes = n["train"] + n["valid"] + n["test"]
+    # two directions a forward: train steps, valid WER, test WER and the
+    # frequency matrix's pass
+    want = {512: 2 * encodes,
+            128: 2 * (n["train"] + n["valid"] + 2 * n["test"])}
+    if by_h != want:
+        fail(f"downstream ASR: expected B1 launches {want}, got {by_h}")
+    _add_launches(rows, "downstream_asr", counts)
+    log_lines = (work / "asr" / "train_log.txt").read_text().splitlines()
+    train_loss = json.loads(log_lines[-1])["train_loss"]
+    if not math.isfinite(train_loss):
+        fail(f"downstream ASR: train loss {train_loss}")
+    log(f"downstream ASR train loss {train_loss}")
+
+    # one batch's CTC loss, card against CPU, from one init
+    codec = build_codec(cfg, int(cfg["sample_rate"]), mode="encode")
+    C = vocab_spec(codec)
+    rows_ = read_split_manifests(cfg)
+    tokenizer = build_tokenizer(
+        [r["wrd"] for r in rows_["train"]], token_type=cfg["token_type"],
+        num_tokens=int(cfg["num_tokens"]),
+        character_coverage=float(cfg["character_coverage"]))
+    init = params_to_jax(asr.build_asr_params(
+        torch.Generator().manual_seed(0), codec.config.num_codebooks, C,
+        int(cfg["embedding_dim_probe"]), int(cfg["probe_hidden"]),
+        tokenizer.vocab_size, codec_embs=codec.embs()))
+    cache = TokenCache(str(work / "asr" / "token_cache.npz"))
+    b = batches["train"][0]
+    max_label = int(cfg["max_label_len"])
+    labels = np.zeros((len(b["ids"]), max_label), np.int64)
+    label_pad = np.ones((len(b["ids"]), max_label), np.float32)
+    for i, r in enumerate(b["rows"]):
+        ids = tokenizer.encode(r["wrd"])[:max_label]
+        labels[i, :len(ids)] = ids
+        label_pad[i, :len(ids)] = 0.0
+    loss, card_batch = {}, None
+    for dev in ("cuda", "cpu"):
+        toks, length = _cached_batch(torch, b, cache, dev)
+        batch = {"toks": toks, "length": length,
+                 "labels": torch.from_numpy(labels).to(dev),
+                 "label_pad": torch.from_numpy(label_pad).to(dev)}
+        card_batch = card_batch or batch
+        with torch.no_grad():
+            loss[dev] = float(asr.asr_loss(
+                asr.asr_params_from_jax(init, dev), batch, None,
+                vocab_size=C, blank_id=tokenizer.blank_id)[0])
+    # a train step on the card: the CTC recursion forward and backward
+    t = Trainer(lambda p, bt, g: asr.asr_loss(
+        p, bt, g, vocab_size=C, blank_id=tokenizer.blank_id),
+        asr.asr_params_from_jax(init, "cuda"), lr=float(cfg["lr"]),
+        output_folder=str(work / "asr_cuda"))
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        t.step(card_batch, None)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    log(f"downstream ASR card step ms (host clock, synchronised; "
+        f"{tuple(card_batch['toks'].shape)} tokens) "
+        f"{[round(v, 2) for v in step_ms]}")
+    log(f"downstream ASR one batch's CTC loss: card {loss['cuda']}, CPU "
+        f"{loss['cpu']}")
+    if not math.isfinite(loss["cuda"]):
+        fail("downstream ASR: the CTC loss on the card is not finite")
+    _hold("downstream ASR CTC loss card-CPU, relative",
+          abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"]), 1e-5)
+    return secs
+
+
+def _llama_check(torch, work):
+    """(c): the decoder at slm.yaml's widths, card against CPU."""
+    import yaml
+
+    from audiocodecs_tpu_torch.downstream.models import llama
+
+    task = yaml.safe_load(Path("hparams/tasks/slm.yaml").read_text())
+    cfg = llama.LlamaConfig(
+        vocab_size=1024, num_codebooks=8, hidden_size=task["d_model"],
+        num_layers=task["num_layers"], num_heads=task["num_heads"],
+        num_kv_heads=task["num_kv_heads"], intermediate_size=task["ffn_dim"],
+        max_seq_len=task["max_seq_len"])
+    state = llama.init_llama_params(torch.Generator().manual_seed(0), cfg)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        m = llama.Llama(cfg)
+        m.load_state_dict(state)
+        models[dev] = m.to(dev).eval()
+    rng = np.random.default_rng(0)
+    frames = 16
+    prompt = rng.integers(0, cfg.vocab_size, (2, 1 + frames * 8))
+    prompt[:, 0] = cfg.bos_token
+    out = {}
+    with torch.no_grad():
+        for dev, m in models.items():
+            toks = torch.from_numpy(prompt).to(dev)
+            logits = llama.llama_forward(m, llama.llama_embed(m, toks, cfg),
+                                         cfg)
+            gen, lengths = llama.llama_generate(m, cfg, toks, LLAMA_GREEDY)
+            out[dev] = (logits, gen.cpu(), lengths.cpu())
+    _hold("downstream Llama logits card-CPU / max", _rel(out["cuda"][0],
+                                                        out["cpu"][0]), 1e-4)
+    same = torch.equal(out["cuda"][1], out["cpu"][1]) and torch.equal(
+        out["cuda"][2], out["cpu"][2])
+    log(f"downstream Llama {LLAMA_GREEDY} greedy tokens card == CPU: {same}")
+    if not same:
+        fail("downstream Llama: greedy tokens differ on the card and the "
+             "CPU")
+    # one decode step at position L: the prefill fills the cache first
+    m = models["cuda"]
+    toks = torch.from_numpy(prompt).cuda()
+    L = toks.shape[1]
+    with torch.no_grad():
+        cache = llama.init_kv_cache(cfg, 2, L + 1, device="cuda")
+        llama._run_cached(m, cfg, llama.llama_embed(m, toks, cfg), cache, 0)
+        emb = m.embedding.table[toks[:, -1:]]
+        step_ms = cuda_ms(torch, lambda: llama._run_cached(m, cfg, emb, cache,
+                                                           L), reps=20)
+        gen_ms = cuda_ms(torch, lambda: llama.llama_generate(
+            m, cfg, toks, LLAMA_GREEDY), reps=3, warmup=1)
+    log(f"downstream Llama (d {cfg.hidden_size}, {cfg.num_layers} layers, "
+        f"K {cfg.num_codebooks}) at B = 2, prompt {L}: a decode step "
+        f"{step_ms:.3f} ms; {LLAMA_GREEDY} greedy tokens {gen_ms:.1f} ms")
+
+
+def phase_downstream_train(torch, rows):
+    """The downstream trainer on the card: the classification probe (IC,
+    2 epochs), CTC ASR (BPE, 1 epoch) and the Llama decoder, each against
+    the CPU path."""
+    work = WORK_DIR / "downstream_train"
+    work.mkdir(parents=True, exist_ok=True)
+    for label, check in (("IC", lambda: _ic_check(torch, rows, work)),
+                         ("ASR", lambda: _asr_check(torch, rows, work)),
+                         ("Llama", lambda: _llama_check(torch, work))):
+        t0 = time.perf_counter()
+        check()
+        torch.cuda.empty_cache()
+        log(f"downstream {label} seconds: {time.perf_counter() - t0:.1f}")
+
+
 def main() -> None:
     import torch
 
@@ -5100,7 +5488,8 @@ def main() -> None:
                   phase_wavlm_kmeans, phase_dycast, phase_focalcodec,
                   phase_bicodec, phase_semanticodec,
                   phase_checkpoint_loading, phase_zoo_loading,
-                  phase_long_audio, phase_sweep_sr, phase_metric_models):
+                  phase_long_audio, phase_sweep_sr, phase_metric_models,
+                  phase_downstream_train):
         timed(phase, rows)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))

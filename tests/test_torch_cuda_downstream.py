@@ -1,15 +1,21 @@
 """The port's downstream pieces on the card's machine: the native WAV
 reader and writer against the ``wave`` path, DNSMOS on the card against
 its CPU version, UTMOS (its BiLSTM through the LSTM kernel) against its CPU
-version, and the profiler's FLOPs on the card against the CPU's. Every
-test needs an NVIDIA GPU and skips without one. The file imports neither
-JAX nor the JAX package:
+version, the profiler's FLOPs on the card against the CPU's, the LSTM
+kernel at the downstream probes' width (T = 150, B = 4, H = 128) against
+its plain version, and one train step of the classification probe on the
+card against the CPU. Every test needs an NVIDIA GPU and skips without
+one. The file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_downstream.py
 
 Tolerances: WAV arrays and bytes equal; DNSMOS within 1e-4 MOS (its convs
 and mel projection run with TF32 off on both sides); UTMOS within 1e-4 of
-max|score|; the profiler's card FLOPs within 1 % of the CPU's.
+max|score|; the profiler's card FLOPs within 1 % of the CPU's; the probe
+width's outputs within 1e-5 absolute of the plain version and its
+gradients (recomputed through the plain version) within 1e-4 of the
+largest; the probe's step loss within 1e-5 relative and its params within
+1e-4 of the largest entry of each leaf.
 """
 
 import wave
@@ -102,3 +108,81 @@ def test_profiler_flops_on_the_card_match_cpu(dev):
     want = profile_codec(cpu, seconds=(1,), runs=1, warmups=0)["1s"]
     assert abs(got["gflops"] - want["gflops"]) <= 0.01 * want["gflops"]
     assert got["memory"]["peak_bytes_in_use"] > 0
+
+
+def test_lstm_kernel_at_the_probe_width_forward_and_gradient(dev):
+    """B1 at (T, B, H) = (150, 4, 128): the kernel's outputs against its
+    plain version, and the Function's gradient (the backward recomputes
+    through the plain version) against the plain version's own."""
+    from audiocodecs_tpu_torch.nn.layers import exact_fp32
+    from audiocodecs_tpu_torch.ops.lstm_recurrence import (
+        lstm_recurrence, lstm_recurrence_reference)
+
+    T, B, H = 150, 4, 128
+    g = torch.Generator().manual_seed(0)
+    args = [(torch.randn(T, B, 4 * H, generator=g) * 0.5),
+            (torch.rand(H, 4 * H, generator=g) * 2 - 1) / H ** 0.5,
+            torch.randn(B, H, generator=g) * 0.1,
+            torch.randn(B, H, generator=g) * 0.1]
+    outs = [torch.randn(T, B, H, generator=g), torch.randn(B, H, generator=g),
+            torch.randn(B, H, generator=g)]
+    grads = {}
+    with exact_fp32():
+        for name, fn in (("kernel", lstm_recurrence),
+                         ("plain", lstm_recurrence_reference)):
+            xs = [a.to(dev).requires_grad_(True) for a in args]
+            before = lstm_recurrence.launches
+            ys = fn(*xs)
+            launched = lstm_recurrence.launches - before
+            assert launched == (1 if name == "kernel" else 0)
+            torch.autograd.backward(ys, [o.to(dev) for o in outs])
+            grads[name] = ([y.detach() for y in ys],
+                           [x.grad for x in xs])
+    for got, want in zip(grads["kernel"][0], grads["plain"][0]):
+        assert float((got - want).abs().max()) <= 1e-5
+    for got, want in zip(grads["kernel"][1], grads["plain"][1]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+
+
+def test_probe_train_step_on_the_card_matches_cpu(dev, tmp_path):
+    """One Trainer step of the classification probe at ic.yaml's widths
+    (H = 128, 128-wide embedding, K = 8 codebooks of 1024) on the card
+    against the CPU, from one init and one batch of tokens."""
+    from audiocodecs_tpu_torch.downstream.recipes import classification
+    from audiocodecs_tpu_torch.downstream.recipes.trainer import (
+        Trainer, params_to_jax)
+    from audiocodecs_tpu_torch.ops.lstm_recurrence import lstm_recurrence
+
+    K, C, N = 8, 1024, 150
+    init = params_to_jax(classification.build_probe_params(
+        torch.Generator().manual_seed(0), K, C, 128, 128, 3))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, C, (4, N, K)))
+    length = torch.tensor([1.0, 0.8, 0.5, 0.3])
+    label = torch.tensor([0, 2, 1, 0])
+
+    def loss_fn(params, batch, generator):
+        return classification.classification_loss(params, batch, generator,
+                                                  vocab_size=C)
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        t = Trainer(loss_fn, classification.probe_params_from_jax(init, d),
+                    output_folder=str(tmp_path / d.type))
+        before = lstm_recurrence.launches
+        loss, _, applied = t.step({"toks": toks.to(d),
+                                   "length": length.to(d),
+                                   "label": label.to(d)}, None)
+        assert applied
+        assert lstm_recurrence.launches - before == (d.type == "cuda")
+        out[d.type] = loss, t.jax_params()
+    (lc, pc), (lh, ph) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    for key in ("embedding", "pool", "head"):
+        for k, want in ph[key].items():
+            got = pc[key][k]
+            assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    for k, want in ph["lstm"][0].items():
+        got = pc["lstm"][0][k]
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

@@ -89,6 +89,20 @@ SLICE_17 = (
 )
 
 
+# the downstream trainer, its first recipes and the decoder
+SLICE_18 = (
+    "audiocodecs_tpu_torch.downstream.cache",
+    "audiocodecs_tpu_torch.downstream.text",
+    "audiocodecs_tpu_torch.downstream.augment",
+    "audiocodecs_tpu_torch.downstream.models.pooling",
+    "audiocodecs_tpu_torch.downstream.models.multihead",
+    "audiocodecs_tpu_torch.downstream.models.llama",
+    "audiocodecs_tpu_torch.downstream.recipes.trainer",
+    "audiocodecs_tpu_torch.downstream.recipes.classification",
+    "audiocodecs_tpu_torch.downstream.recipes.asr",
+)
+
+
 def test_module_list_covers_the_slice():
     mods = _port_modules()
     for m in ("audiocodecs_tpu_torch.models.encodec",
@@ -154,7 +168,7 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.convert.audiomae",
               "audiocodecs_tpu_torch.convert.ldm",
               "audiocodecs_tpu_torch.convert.checkpoint_files",
-              *SLICE_16, *SLICE_17):
+              *SLICE_16, *SLICE_17, *SLICE_18):
         assert m in mods
 
 
@@ -203,6 +217,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.models.semanticodec" in loaded
     assert "audiocodecs_tpu_torch.nn.ldm_unet" in loaded
     assert "audiocodecs_tpu_torch.convert.zoo" in loaded
+    assert "audiocodecs_tpu_torch.downstream.recipes.asr" in loaded
+    assert "audiocodecs_tpu_torch.downstream.models.llama" in loaded
     assert not [m for m in loaded if _is_reference(m)]
     assert not [m for m in loaded if _is_transformers(m)]
 
@@ -274,6 +290,17 @@ def test_default_device_is_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.main(["--codec", "dac", "--quality", quality,
                         "--requests", "1"])
+    # the training recipes and their entry points ask for the card before
+    # they read anything
+    from audiocodecs_tpu_torch.downstream.recipes import asr, classification
+
+    for run in (classification.run_classification, asr.run_asr):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run({})
+    for main in (classification.main, asr.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([str(REPO / "hparams" / "tasks" / "ic.yaml"), "--dataset",
+                  "none"])
     with pytest.raises(RuntimeError):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -365,7 +392,7 @@ def _docstrings(tree) -> set:
     return out
 
 
-@pytest.mark.parametrize("module", SLICE_16 + SLICE_17)
+@pytest.mark.parametrize("module", SLICE_16 + SLICE_17 + SLICE_18)
 def test_slice_modules_read_no_environment_and_no_reference_path(module):
     """No switch from the environment (the reference's ``ACX_NATIVE_WAVIO``,
     ``ACX_WAVIO_LIB`` and ``ACX_NATIVE_CACHE`` are not carried over) and no
