@@ -284,15 +284,9 @@ def run_classification(cfg: dict, device=None, init_params=None) -> dict:
 def main(argv=None):
     """``task.yaml codec.yaml dataset.yaml [--key value ...]``; ``--device
     cpu`` runs on the CPU (the card otherwise)."""
-    from audiocodecs_tpu_torch.downstream.config import parse_cli
-    from audiocodecs_tpu_torch.downstream.recipes.common import prepare_data
+    from audiocodecs_tpu_torch.downstream.recipes.common import run_cli
 
-    cfg, _ = parse_cli(argv if argv is not None else sys.argv[1:])
-    device = cfg.pop("device", None)
-    cfg = prepare_data(cfg)
-    summary = run_classification(cfg, device=device)
-    print(json.dumps(summary, indent=2, default=float))
-    return 0
+    return run_cli(run_classification, argv)
 
 
 if __name__ == "__main__":

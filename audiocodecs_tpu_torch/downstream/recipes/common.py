@@ -12,7 +12,7 @@ import os
 
 __all__ = ["prepare_data", "encode_labels", "CharTokenizer",
            "read_split_manifests", "loader_kwargs", "vocab_spec",
-           "is_main_process"]
+           "is_main_process", "read_field_signals", "run_cli"]
 
 
 def is_main_process() -> bool:
@@ -193,6 +193,22 @@ def read_split_manifests(cfg: dict, splits=("train", "valid", "test")):
     return out
 
 
+def read_field_signals(batch, field: str):
+    """The batch's rows read from the manifest column ``field`` (the first
+    channel), zero-padded or cut to the length of ``batch["sig"]``: the
+    SE recipe's clean signals and the SS recipe's sources."""
+    import numpy as np
+
+    from audiocodecs_tpu_torch.utils.audio import read_wav
+
+    out = np.zeros_like(batch["sig"])
+    for i, r in enumerate(batch["rows"]):
+        w = read_wav(r[field])[0][0]
+        n = min(len(w), out.shape[1])
+        out[i, :n] = w[:n]
+    return out
+
+
 def loader_kwargs(cfg: dict) -> dict:
     """BucketedLoader kwargs from config, including the reference's
     dynamic-batching surface (``dynamic_batching`` +
@@ -214,3 +230,20 @@ def loader_kwargs(cfg: dict) -> dict:
         if cfg.get("max_batch_size"):
             kw["batch_size"] = int(cfg["max_batch_size"])
     return kw
+
+
+def run_cli(run, argv=None) -> int:
+    """A recipe's command line: ``task.yaml codec.yaml dataset.yaml
+    [--key value ...]`` merged and its data prepared, then ``run(cfg,
+    device=...)`` (``--device cpu`` runs on the CPU, the card otherwise)
+    and its summary printed as JSON."""
+    import json
+    import sys
+
+    from audiocodecs_tpu_torch.downstream.config import parse_cli
+
+    cfg, _ = parse_cli(argv if argv is not None else sys.argv[1:])
+    device = cfg.pop("device", None)
+    summary = run(prepare_data(cfg), device=device)
+    print(json.dumps(summary, indent=2, default=float))
+    return 0

@@ -340,15 +340,9 @@ def run_sr(cfg: dict, device=None) -> dict:
 def main(argv=None):
     """``task.yaml codec.yaml dataset.yaml [--key value ...]``; ``--device
     cpu`` runs on the CPU (the card otherwise)."""
-    from audiocodecs_tpu_torch.downstream.config import parse_cli
-    from audiocodecs_tpu_torch.downstream.recipes.common import prepare_data
+    from audiocodecs_tpu_torch.downstream.recipes.common import run_cli
 
-    cfg, _ = parse_cli(argv if argv is not None else sys.argv[1:])
-    device = cfg.pop("device", None)
-    cfg = prepare_data(cfg)
-    summary = run_sr(cfg, device=device)
-    print(json.dumps(summary, indent=2, default=float))
-    return 0
+    return run_cli(run_sr, argv)
 
 
 if __name__ == "__main__":

@@ -274,7 +274,33 @@ it fails:
    widths (d 256, 4 layers, 4 heads, 2 KV heads, FFN 688; K = 8,
    C = 1024): logits 1e-4 relative of the CPU's, 32 greedy tokens equal,
    and the time of a decode step.
-   Phases 37-40 write under the git-ignored ``results/chip_smoke/``.
+41. the rest of the downstream recipes on EnCodec-24k's seeded weights
+   and the synthetic corpus, at the task YAMLs' widths, 1 epoch each:
+   (a) ``run_se`` with the Conformer (d 256, 4 layers, k 31), every batch
+   encoded again each pass (noisy + clean, 2B rows a call); (b)
+   ``run_ss`` (mixture + 2 sources, 3B rows a call); (c) ``run_slm`` with
+   ``slm.yaml``'s Llama, generation and ``consistency_eval``; (d)
+   ``run_tts`` (char tokens); each with kernel 1's and kernel 2's launches
+   against the batches (rows above ``max_batch(512)`` split into serial
+   launches), then 3 train steps on the card against the CPU from one
+   init (the first step's gradients 1e-4 of each leaf's largest, losses
+   1e-5 relative; after the steps each leaf's largest gap within 2e-3 of
+   the leaf's largest element and the share of elements within 1e-4 of
+   their leaf's largest ≥ 0.99999: Adam's first steps turn rounding in
+   near-zero gradients into step-sized moves on either device; beside
+   them, the leaves on which the CPU's last step left out would fail
+   these limits) with the card's step ms and one more
+   step's device busy time and idle share (torch.profiler), one
+   batch's argmax tokens of the card model against its weights on the CPU
+   (SE, SS: token_match ≥ 0.999) or its greedy continuation (SLM, TTS:
+   equal) and a decode step's time; (e) ``run_vc`` at ``max_pairs: 2`` on
+   EnCodec-24k (``acoustic_splice``), BigCodec-16k (``knn_feats``,
+   ``latent: false``: kernel 1 wide and kernel 3) and BiCodec-16k
+   (``global_token_swap``: kernel 3), with the launches against the
+   pairs and a pair's time, then each pair converted on the CPU on the
+   card codec's weights (token grids equal, converted waveforms within
+   1e-4 of max|sig|).
+   Phases 37-41 write under the git-ignored ``results/chip_smoke/``.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -5122,27 +5148,31 @@ def phase_metric_models(torch, rows):
         log(f"metric models {label} seconds: {time.perf_counter() - t0:.1f}")
 
 
-DOWNSTREAM_EPOCHS = {"ic": 2, "asr": 1}
+DOWNSTREAM_EPOCHS = {"ic": 2, "asr": 1, "se": 1, "ss": 1, "slm": 1,
+                     "tts": 1, "vc": 1}
 LLAMA_GREEDY = 32  # greedy tokens held equal on the card and the CPU
 
 
-def _downstream_cfg(task: str, work: Path) -> dict:
-    """``hparams/tasks/<task>.yaml`` + ``codecs/encodec.yaml`` +
-    ``datasets/synthetic.yaml`` (its corpus prepared under ``work``), the
-    run's output under ``work/<task>``, emptied first."""
+def _downstream_cfg(task: str, work: Path, codec: str = "encodec",
+                    extra=(), out: str | None = None) -> dict:
+    """``hparams/tasks/<task>.yaml`` + ``codecs/<codec>.yaml`` +
+    ``datasets/synthetic.yaml`` (its corpus prepared under ``work``) with
+    the CLI overrides ``extra``, the run's output under ``work/<out>``
+    (``<task>`` by default), emptied first."""
     import shutil
 
     from audiocodecs_tpu_torch.downstream.config import parse_cli
     from audiocodecs_tpu_torch.downstream.recipes.common import prepare_data
 
     # a fresh run: no token cache or checkpoint of an earlier one
-    shutil.rmtree(work / task, ignore_errors=True)
+    out = out or task
+    shutil.rmtree(work / out, ignore_errors=True)
     cfg, _ = parse_cli([f"hparams/tasks/{task}.yaml",
-                        "hparams/codecs/encodec.yaml",
+                        f"hparams/codecs/{codec}.yaml",
                         "hparams/datasets/synthetic.yaml",
                         "--prep_dir", str(work / "corpus"),
-                        "--output_folder", str(work / task),
-                        "--epochs", str(DOWNSTREAM_EPOCHS[task])])
+                        "--output_folder", str(work / out),
+                        "--epochs", str(DOWNSTREAM_EPOCHS[task]), *extra])
     return prepare_data(cfg)
 
 
@@ -5448,6 +5478,550 @@ def phase_downstream_train(torch, rows):
         log(f"downstream {label} seconds: {time.perf_counter() - t0:.1f}")
 
 
+# SE's encoder at full width (se.yaml's d 256, 4 layers, 4 heads; k 31)
+SE_CONFORMER = ("--encoder_type", "conformer")
+TASK_STEPS = 3  # train steps held card against CPU, each task
+# after them: each leaf's largest card-CPU gap over its largest element,
+# and the share of elements within 1e-4 of their leaf's largest
+PARAM_GAP, PARAM_MATCH = 2e-3, 0.99999
+# the VC cases: (codec yaml, strategy, overrides); BigCodec's kNN-VC needs
+# its features and quantized features in one space (``latent: false``)
+VC_CASES = (("encodec", "acoustic_splice", ()),
+            ("bigcodec", "knn_feats", ("--codec.kwargs.latent", "false")),
+            ("bicodec", "global_token_swap", ()))
+
+
+def _encodec_launches(torch, calls) -> tuple[int, int]:
+    """EnCodec-24k's launches for codec calls of the given row counts (an
+    encode or a decode each): kernel 1 two layers a call, each in
+    ``ceil(rows / max_batch(512))`` serial launches; kernel 2 four a
+    call."""
+    from audiocodecs_tpu_torch.ops.lstm_recurrence import (
+        lstm_recurrence_info)
+
+    most = lstm_recurrence_info(512, 1)["max_batch"]
+    return sum(2 * math.ceil(r / most) for r in calls), 4 * len(calls)
+
+
+def _task_run(torch, rows, work, task, run, calls, extra=()):
+    """``run(cfg)`` on the card (the recipe's defaults, ``extra``
+    overrides), its kernel launches against ``calls(batches)``: the row
+    count of each EnCodec call the run makes."""
+    cfg = _downstream_cfg(task, work, extra=extra)
+    batches = _batches_by_split(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = run(cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    by_h = lstm_launches_by_hidden()
+    b1, b2 = _encodec_launches(torch, calls(batches))
+    sizes = {k: [len(b["ids"]) for b in v] for k, v in batches.items()}
+    log(f"downstream {task.upper()}: {json.dumps(summary)} in {secs:.1f} "
+        f"s; batches {sizes}; B1 launches by width {by_h}, B2 "
+        f"{counts['seanet_resblock']}")
+    if by_h != ({512: b1} if b1 else {}) or counts["seanet_resblock"] != b2:
+        fail(f"downstream {task.upper()}: expected B1 launches {{512: {b1}}}"
+             f" and B2 {b2}, got {by_h} and {counts['seanet_resblock']}")
+    _add_launches(rows, f"downstream_{task}", counts)
+    return cfg, batches, summary, secs
+
+
+def _steps_card_cpu(torch, work, label, make_model, loss_fn, batches, lr):
+    """``TASK_STEPS`` Trainer steps of ``make_model(dev)`` from one init
+    over ``batches`` (dicts of CPU tensors) on the card and on the CPU. The
+    first step's gradients card against CPU within 1e-4 of each leaf's
+    largest; the losses within 1e-5 relative; after the steps, each leaf's
+    largest gap within ``PARAM_GAP`` of the leaf's largest element, and the
+    share of parameter elements within 1e-4 of their leaf's largest
+    (``param_match``) at least ``PARAM_MATCH``. Adam moves each element by
+    about ``lr · g / (|g| + eps)``, so an element whose gradient is near
+    ``eps`` moves by an amount that rounding sets, on either device: hence
+    limits above 1e-4. Beside them, what they see of a fault: the CPU's
+    last step left out on one leaf at a time, the leaves on which that
+    fails the limits. Then one more card step under the profiler: its
+    device busy time and idle share beside the steps' median ms. Returns
+    the card's model and its step ms."""
+    from audiocodecs_tpu_torch.downstream.recipes.trainer import Trainer
+    from audiocodecs_tpu_torch.params import flatten_tree
+
+    losses, params, grads, trainers, step_ms = {}, {}, {}, {}, []
+    for dev in ("cuda", "cpu"):
+        t = Trainer(loss_fn, make_model(dev), lr=lr,
+                    output_folder=str(work / f"{label.lower()}_{dev}"))
+        first = {k: v.to(dev) for k, v in batches[0].items()}
+        loss, _ = t.compute_loss(first, None)
+        grads[dev] = [g.detach().cpu() for g in torch.autograd.grad(
+            loss, t._leaves)]
+        losses[dev] = []
+        for i, b in enumerate((batches * TASK_STEPS)[:TASK_STEPS]):
+            b = {k: v.to(dev) for k, v in b.items()}
+            if dev == "cpu" and i == TASK_STEPS - 1:
+                before_last = {k: np.array(v) for k, v in
+                               flatten_tree(t.jax_params()).items()}
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss, _, applied = t.step(b, None)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            if not applied or not math.isfinite(loss):
+                fail(f"downstream {label}: step not applied (loss {loss})")
+            losses[dev].append(loss)
+        params[dev], trainers[dev] = flatten_tree(t.jax_params()), t
+    log(f"downstream {label} {TASK_STEPS} steps: card losses "
+        f"{losses['cuda']}, CPU {losses['cpu']}; card step ms (host clock, "
+        f"synchronised) {[round(v, 2) for v in step_ms]}")
+    _hold(f"downstream {label} first step's gradients card-CPU / max "
+          "(worst leaf)", max(_rel(a, b) for a, b in zip(grads["cuda"],
+                                                          grads["cpu"])),
+          1e-4)
+    _hold(f"downstream {label} step losses card-CPU, relative",
+          max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"])), 1e-5)
+
+    def gaps(got):
+        """Each leaf's (elements off the CPU's by more than 1e-4 of the
+        leaf's largest, the largest gap over the leaf's largest)."""
+        out = {}
+        for k, w in params["cpu"].items():
+            top = max(float(np.abs(w).max()), 1e-30)
+            gap = np.abs(got[k] - w)
+            out[k] = (int((gap > 1e-4 * top).sum()), float(gap.max()) / top)
+        return out
+
+    total = sum(w.size for w in params["cpu"].values())
+    card, stale = gaps(params["cuda"]), gaps(before_last)
+    off = sum(n for n, _ in card.values())
+    worst = max(card, key=lambda k: card[k][1])
+    most = max(card, key=lambda k: card[k][0])
+    share = 1.0 - off / total
+    # the fault: the card's leaf k as the CPU's before its last step
+    missed = [k for k, (n, r) in stale.items() if r <= PARAM_GAP and
+              1.0 - (off - card[k][0] + n) / total >= PARAM_MATCH]
+    log(f"downstream {label} params after {TASK_STEPS} steps card-CPU: "
+        f"param_match {share:.7f} of {total} elements (most off: {most}, "
+        f"{card[most][0]}); worst leaf {worst} {card[worst][1]:.3e}; the "
+        f"CPU's last step left out on one leaf fails the limits on "
+        f"{len(stale) - len(missed)} of {len(stale)} leaves (the smallest "
+        f"such gap {min(r for _, r in stale.values()):.3e}; missed: "
+        f"{missed[:8]})")
+    _hold(f"downstream {label} params after {TASK_STEPS} steps card-CPU / "
+          "max (worst leaf)", card[worst][1], PARAM_GAP)
+    if not share >= PARAM_MATCH:
+        fail(f"downstream {label}: param_match {share} < {PARAM_MATCH}")
+    card = trainers["cuda"]
+    first = {k: v.cuda() for k, v in batches[0].items()}
+    phase_profile(torch, lambda: card.step(first, None),
+                  statistics.median(step_ms), what=f"{label} train step")
+    return card.params, step_ms
+
+
+def _card_twin_on_cpu(torch, card_model, make_model):
+    """``make_model("cpu")`` loaded with the card model's weights."""
+    cpu = make_model("cpu")
+    cpu.load_state_dict({k: v.detach().cpu()
+                         for k, v in card_model.state_dict().items()})
+    return cpu
+
+
+def _argmax_match(torch, label, forward, card, cpu, toks):
+    """One batch's argmax tokens of the card model against its weights on
+    the CPU: token_match ≥ 0.999."""
+    with torch.no_grad():
+        got = torch.argmax(forward(card, toks.cuda()), -1).cpu()
+        want = torch.argmax(forward(cpu, toks), -1)
+    match = float((got == want).double().mean())
+    log(f"downstream {label} argmax tokens {tuple(got.shape)}: token_match "
+        f"{match:.6f}")
+    if not match >= 0.999:
+        fail(f"downstream {label}: token_match {match} < 0.999")
+
+
+def _se_check(torch, rows, work):
+    """(a) SE with the Conformer."""
+    from audiocodecs_tpu_torch.downstream.config import build_codec
+    from audiocodecs_tpu_torch.downstream.recipes import se
+    from audiocodecs_tpu_torch.downstream.recipes.common import (
+        read_field_signals)
+
+    def calls(batches):  # noisy + clean a batch; test twice; decode test
+        n = [len(b["ids"]) for split in ("train", "valid", "test", "test")
+             for b in batches[split]]
+        return [2 * B for B in n] + [len(b["ids"]) for b in batches["test"]]
+
+    cfg, batches, summary, secs = _task_run(
+        torch, rows, work, "se", se.run_se, calls, SE_CONFORMER)
+    if not 0.0 <= summary["test_TER"] <= 1.0:
+        fail(f"downstream SE: test_TER {summary['test_TER']}")
+    codec = build_codec(cfg, int(cfg["sample_rate"]), mode="encode")
+    K, C = codec.config.num_codebooks, codec.config.vocab_size
+    cfg_t = se.encoder_config(cfg)
+    state = se.init_token_model(torch.Generator().manual_seed(0), K, C,
+                                cfg_t).state_dict()
+
+    def make_model(dev):
+        m = se.TokenModel(K, C, cfg_t)
+        m.load_state_dict(state)
+        return m.to(dev)
+
+    steps = []
+    for b in batches["train"]:
+        both = np.concatenate([read_field_signals(b, "noisy_wav"),
+                               read_field_signals(b, "wav")])
+        toks = codec.sig_to_toks(both, np.tile(b["length"], 2)).cpu().clone()
+        B = len(b["ids"])
+        steps.append({"in_toks": toks[:B], "out_toks": toks[B:],
+                      "length": torch.from_numpy(np.asarray(b["length"]))})
+    card, step_ms = _steps_card_cpu(
+        torch, work, "SE", make_model,
+        lambda m, b, g: se.se_loss(m, b, g, vocab_size=C, num_codebooks=K),
+        steps, float(cfg["lr"]))
+
+    def forward(m, toks):
+        return se.se_forward(m, toks, vocab_size=C, num_codebooks=K)
+
+    _argmax_match(torch, "SE", forward, card,
+                  _card_twin_on_cpu(torch, card, make_model),
+                  steps[0]["in_toks"])
+    return secs, step_ms
+
+
+def _ss_check(torch, rows, work):
+    """(b) SS, 2 speakers."""
+    import itertools
+
+    from audiocodecs_tpu_torch.downstream.config import build_codec
+    from audiocodecs_tpu_torch.downstream.recipes import se, ss
+    from audiocodecs_tpu_torch.downstream.recipes.common import (
+        read_field_signals)
+
+    S = 2
+
+    def calls(batches):  # mixture + sources; test twice; S decodes a test
+        n = [len(b["ids"]) for split in ("train", "valid", "test", "test")
+             for b in batches[split]]
+        return [(S + 1) * B for B in n] + [
+            len(b["ids"]) for b in batches["test"] for _ in range(S)]
+
+    cfg, batches, summary, secs = _task_run(
+        torch, rows, work, "ss", ss.run_ss, calls)
+    if not math.isfinite(summary["test_PIT_loss"]):
+        fail(f"downstream SS: test_PIT_loss {summary['test_PIT_loss']}")
+    codec = build_codec(cfg, int(cfg["sample_rate"]), mode="encode")
+    K, C = codec.config.num_codebooks, codec.config.vocab_size
+    cfg_t = se.encoder_config({**cfg, "encoder_type": "transformer"})
+    shape = (K, C, cfg_t, S * K, ss.head_vocab(C, S))
+    state = se.init_token_model(torch.Generator().manual_seed(0),
+                                *shape).state_dict()
+
+    def make_model(dev):
+        m = se.TokenModel(*shape)
+        m.load_state_dict(state)
+        return m.to(dev)
+
+    perms = list(itertools.permutations(range(S)))
+    steps = []
+    for b in batches["train"]:
+        stacked = np.concatenate([read_field_signals(b, f) for f in (
+            "mix_wav", "wav", "src2_wav")])
+        toks = codec.sig_to_toks(stacked,
+                                 np.tile(b["length"], S + 1)).cpu().clone()
+        B = len(b["ids"])
+        steps.append({"mix": toks[:B],
+                      "src": toks[B:].reshape(S, B, *toks.shape[1:])
+                      .transpose(0, 1),
+                      "length": torch.from_numpy(np.asarray(b["length"]))})
+
+    def forward(m, toks):
+        return ss.ss_forward(m, toks, vocab_size=C, num_codebooks=K,
+                             num_speakers=S)
+
+    card, step_ms = _steps_card_cpu(
+        torch, work, "SS", make_model,
+        lambda m, b, g: (ss.pit_loss(forward(m, b["mix"]), b["src"],
+                                     b["length"], perms), {}),
+        steps, float(cfg["lr"]))
+    _argmax_match(torch, "SS", forward, card,
+                  _card_twin_on_cpu(torch, card, make_model),
+                  steps[0]["mix"])
+    return secs, step_ms
+
+
+def _decode_step_ms(torch, model, lcfg, prompt) -> float:
+    """One KV-cached decode step of ``model`` after a prefill of
+    ``prompt`` [B, L] (CUDA events, median of 20)."""
+    from audiocodecs_tpu_torch.downstream.models import llama
+
+    B, L = prompt.shape
+    with torch.no_grad():
+        cache = llama.init_kv_cache(lcfg, B, L + 1, device="cuda")
+        llama._run_cached(model, lcfg, llama.llama_embed(model, prompt,
+                                                         lcfg), cache, 0)
+        emb = model.embedding.table[prompt[:, -1:].long()]
+        return cuda_ms(torch, lambda: llama._run_cached(model, lcfg, emb,
+                                                        cache, L), reps=20)
+
+
+def _greedy_equal(torch, label, card, cpu, lcfg, prompt, n: int):
+    """``n`` greedy tokens of the card model and of its weights on the CPU
+    from ``prompt``: equal."""
+    from audiocodecs_tpu_torch.downstream.models import llama
+
+    got, _ = llama.llama_generate(card, lcfg, prompt.cuda(), n)
+    want, _ = llama.llama_generate(cpu, lcfg, prompt, n)
+    same = torch.equal(got.cpu(), want)
+    log(f"downstream {label} {n} greedy tokens card == CPU: {same}")
+    if not same:
+        fail(f"downstream {label}: greedy tokens differ on the card and the "
+             "CPU")
+
+
+def _llama_task_check(torch, rows, work, task):
+    """(c) SLM or (d) TTS: the run, 3 steps card against CPU on its cached
+    tokens, the greedy continuation, a decode step's time."""
+    from audiocodecs_tpu_torch.downstream.cache import TokenCache
+    from audiocodecs_tpu_torch.downstream.config import build_codec
+    from audiocodecs_tpu_torch.downstream.models.llama import (
+        Llama, init_llama_params)
+    from audiocodecs_tpu_torch.downstream.recipes import slm, tts
+    from audiocodecs_tpu_torch.downstream.recipes.common import (
+        read_split_manifests)
+    from audiocodecs_tpu_torch.downstream.text import build_tokenizer
+
+    def calls(batches):  # each batch encoded once (cached); decode test
+        return [len(b["ids"]) for split in ("train", "valid", "test", "test")
+                for b in batches[split]]
+
+    run = slm.run_slm if task == "slm" else tts.run_tts
+    cfg, batches, summary, secs = _task_run(torch, rows, work, task, run,
+                                            calls)
+    key = "test_PPL" if task == "slm" else "test_loss"
+    if not math.isfinite(summary[key]) or summary["generated"] <= 0:
+        fail(f"downstream {task.upper()}: {key} {summary[key]}, generated "
+             f"{summary['generated']}")
+    codec = build_codec(cfg, int(cfg["sample_rate"]), mode="encode")
+    K, C = codec.config.num_codebooks, codec.config.vocab_size
+    cache = TokenCache(str(work / task / "token_cache.npz"))
+    if task == "slm":
+        lcfg = slm.llama_config(cfg, K, C)
+
+        def sequences(b, toks):
+            return slm.flatten_with_specials(
+                toks, b["length"], lcfg.bos_token, lcfg.eos_token,
+                lcfg.pad_token, int(cfg["max_flat_len"]))
+    else:
+        tok = build_tokenizer(
+            [r["wrd"] for r in read_split_manifests(cfg)["train"]],
+            token_type=cfg.get("token_type", "char"),
+            num_tokens=int(cfg.get("num_tokens", 1000)),
+            character_coverage=float(cfg.get("character_coverage", 1.0)))
+        lcfg = slm.llama_config(cfg, K, C, num_special=3 + tok.vocab_size)
+
+        def sequences(b, toks):
+            return tts.build_sequences(
+                toks, b["length"], [tok.encode(r["wrd"]) for r in b["rows"]],
+                lcfg, int(cfg["max_text_len"]), int(cfg["max_flat_len"]))
+    state = init_llama_params(torch.Generator().manual_seed(0), lcfg)
+    slm.seed_embeddings(state, codec.embs(), K, C)
+
+    def make_model(dev):
+        m = Llama(lcfg)
+        m.load_state_dict(state)
+        return m.to(dev)
+
+    steps = []
+    for b in batches["train"]:
+        toks = cache.get_batch(b["ids"])
+        if toks is None:
+            fail(f"downstream {task.upper()}: a batch is missing from its "
+                 "cache")
+        flat, mask = sequences(b, toks)
+        steps.append({"flat": torch.from_numpy(flat),
+                      "mask": torch.from_numpy(mask)})
+    label = task.upper()
+    card, step_ms = _steps_card_cpu(
+        torch, work, label, make_model,
+        lambda m, b, g: (slm.next_token_nll(m, b["flat"], b["mask"], lcfg),
+                         {}), steps, float(cfg["lr"]))
+    cpu = _card_twin_on_cpu(torch, card, make_model)
+    flat = steps[0]["flat"]
+    L = flat.shape[1]
+    prompt_len = ((min(L // 2, 64) // K) * K + 1 if task == "slm"
+                  else tts.text_prompt_len(int(cfg["max_text_len"]), K) + 1)
+    prompt = flat[:, :prompt_len]
+    _greedy_equal(torch, label, card, cpu, lcfg, prompt,
+                  int(cfg["gen_frames"]) * K)
+    step = _decode_step_ms(torch, card, lcfg, prompt.cuda())
+    log(f"downstream {label} decoder (d {lcfg.hidden_size}, "
+        f"{lcfg.num_layers} layers, K {K}) at B = {prompt.shape[0]}, prompt "
+        f"{prompt_len}: a decode step {step:.3f} ms")
+    return secs, step_ms
+
+
+def _vc_pair_ms(torch, codec, strategy, cfg) -> float:
+    """The first pair's conversion (``vc.convert_pair``, the waveform back
+    on the host) on the card codec: median ms of 3 after a warm call."""
+    from audiocodecs_tpu_torch.downstream.datasets.manifest import (
+        read_manifest)
+    from audiocodecs_tpu_torch.downstream.recipes import vc
+    from audiocodecs_tpu_torch.utils.audio import read_wav
+
+    src_row, ref_row = vc.vc_pairs(read_manifest(cfg["test_csv"]))[0]
+    src, ref = read_wav(src_row["wav"])[0], read_wav(ref_row["wav"])[0]
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vc.convert_pair(codec, strategy, src, ref, int(cfg["topk"]))[0].cpu()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def _recording_grids(torch, grids: list):
+    """Within the block, every token grid the port's codecs make
+    (``sig_to_toks``) or decode (``toks_to_sig``) is appended to
+    ``grids`` as a CPU tensor."""
+    from audiocodecs_tpu_torch import codec as codec_mod
+
+    enc, dec = codec_mod.Codec.sig_to_toks, codec_mod.Codec.toks_to_sig
+
+    def sig_to_toks(self, *a, **kw):
+        out = enc(self, *a, **kw)
+        grids.append(out.cpu().clone())
+        return out
+
+    def toks_to_sig(self, toks, *a, **kw):
+        grids.append(torch.as_tensor(toks).cpu().clone())
+        return dec(self, toks, *a, **kw)
+
+    codec_mod.Codec.sig_to_toks = sig_to_toks
+    codec_mod.Codec.toks_to_sig = toks_to_sig
+    try:
+        yield
+    finally:
+        codec_mod.Codec.sig_to_toks, codec_mod.Codec.toks_to_sig = enc, dec
+
+
+def _vc_check(torch, rows, work):
+    """(e) VC on EnCodec-24k, BigCodec-16k and BiCodec-16k, 2 pairs each:
+    ``run_vc`` on the card, its launches against the pairs, then each
+    pair's conversion on the card codec's weights on the CPU: every token
+    grid equal and each converted waveform within 1e-4 of max|sig|."""
+    from audiocodecs_tpu_torch.downstream import config as config_mod
+    from audiocodecs_tpu_torch.downstream.datasets.manifest import (
+        read_manifest)
+    from audiocodecs_tpu_torch.downstream.recipes import vc
+    from audiocodecs_tpu_torch.utils import audio
+
+    build, write = config_mod.build_codec, audio.write_wav
+    for name, strategy, extra in VC_CASES:
+        grids, wavs, built = {"cuda": [], "cpu": []}, [], []
+
+        def build_card(cfg_, sr, mode="reconstruct", device=None):
+            built.append(build(cfg_, sr, mode, device))
+            return built[-1]
+
+        def write_wav(path, sig, *a, **kw):
+            wavs.append(np.array(sig))
+            return write(path, sig, *a, **kw)
+
+        cfg = _downstream_cfg("vc", work, codec=name,
+                              extra=("--max_pairs", "2", *extra),
+                              out=f"vc_{name}")
+        config_mod.build_codec, audio.write_wav = build_card, write_wav
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with _recording_grids(torch, grids["cuda"]):
+                summary = vc.run_vc(cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            config_mod.build_codec, audio.write_wav = build, write
+        counts, by_h = read_counts(), lstm_launches_by_hidden()
+        card = built[0]
+        pair_ms = _vc_pair_ms(torch, card, strategy, cfg)
+        pairs = summary["pairs"]
+        if summary["strategy"] != strategy or pairs != 2:
+            fail(f"downstream VC {name}: {summary}")
+        # per pair: EnCodec 2 encodes + 1 decode (B = 1); BigCodec 2
+        # encodes and a decode, 2 wide LSTM layers each, the decoder's 9
+        # units; BiCodec its decoder's 6 units
+        want = {"encodec": ({512: 2 * 3 * pairs}, 4 * 3 * pairs, 0),
+                "bigcodec": ({1536: 2 * 3 * pairs}, 0, 9 * pairs),
+                "bicodec": ({}, 0, 6 * pairs)}[name]
+        got = (by_h, counts["seanet_resblock"], counts["dac_resunit"])
+        log(f"downstream VC {name} ({strategy}): {json.dumps(summary)} in "
+            f"{secs:.1f} s (the codec's build and the battery included); a "
+            f"pair's conversion {pair_ms:.2f} ms (host clock, synchronised, "
+            f"median of 3); B1 by width {by_h}, B2 {got[1]}, B4 {got[2]}")
+        if got != want:
+            fail(f"downstream VC {name}: expected launches (B1, B2, B4) "
+                 f"{want}, got {got}")
+        _add_launches(rows, f"downstream_vc_{name}", counts)
+
+        # the pairs again on the CPU, on the card codec's weights
+        spec = dict(cfg["codec"])
+        spec["kwargs"] = {**spec.get("kwargs", {}), "state_dict": {
+            k: v.detach().cpu() for k, v in card.state_dict().items()}}
+        del built[:], card
+        torch.cuda.empty_cache()
+        cpu = build({**cfg, "codec": spec}, int(cfg["sample_rate"]),
+                    device="cpu")
+        t0 = time.perf_counter()
+        outs = []
+        with _recording_grids(torch, grids["cpu"]):
+            for src_row, ref_row in vc.vc_pairs(
+                    read_manifest(cfg["test_csv"]))[:pairs]:
+                src = audio.read_wav(src_row["wav"])[0]
+                ref = audio.read_wav(ref_row["wav"])[0]
+                outs.append(vc.convert_pair(cpu, strategy, src, ref,
+                                            int(cfg["topk"]))[0].numpy())
+        cpu_s = time.perf_counter() - t0
+        del cpu
+        toks_c, toks_h = grids["cuda"], grids["cpu"]
+        if len(toks_c) != len(toks_h) or not all(
+                torch.equal(a, b) for a, b in zip(toks_c, toks_h)):
+            fail(f"downstream VC {name}: token grids differ on the card and "
+                 "the CPU")
+        log(f"downstream VC {name}: {len(toks_c)} token grids equal; CPU "
+            f"conversions {cpu_s:.1f} s")
+        if len(wavs) != len(outs) or any(a.shape != b.shape
+                                         for a, b in zip(wavs, outs)):
+            fail(f"downstream VC {name}: converted waveforms' shapes differ")
+        _hold(f"downstream VC {name} converted waveforms card-CPU / max|sig|",
+              max(float(np.abs(a - b).max()) / float(np.abs(b).max())
+                  for a, b in zip(wavs, outs)), 1e-4)
+
+
+def phase_downstream_tasks(torch, rows):
+    """The rest of the downstream recipes on the card, each against the CPU
+    path: SE with the Conformer, SS, SLM and TTS (1 epoch each, then 3
+    steps card against CPU), and VC on three codecs."""
+    work = WORK_DIR / "downstream_tasks"
+    work.mkdir(parents=True, exist_ok=True)
+    times = {}
+    for label, check in (
+            ("SE", lambda: _se_check(torch, rows, work)),
+            ("SS", lambda: _ss_check(torch, rows, work)),
+            ("SLM", lambda: _llama_task_check(torch, rows, work, "slm")),
+            ("TTS", lambda: _llama_task_check(torch, rows, work, "tts")),
+            ("VC", lambda: _vc_check(torch, rows, work))):
+        t0 = time.perf_counter()
+        check()
+        torch.cuda.empty_cache()
+        times[label] = time.perf_counter() - t0
+        log(f"downstream {label} seconds: {times[label]:.1f}")
+
+
 def main() -> None:
     import torch
 
@@ -5489,7 +6063,7 @@ def main() -> None:
                   phase_bicodec, phase_semanticodec,
                   phase_checkpoint_loading, phase_zoo_loading,
                   phase_long_audio, phase_sweep_sr, phase_metric_models,
-                  phase_downstream_train):
+                  phase_downstream_train, phase_downstream_tasks):
         timed(phase, rows)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))

@@ -1,9 +1,11 @@
 """Helpers for the downstream recipes' port-against-JAX runs
-(``tests/test_torch_classification.py``, ``tests/test_torch_asr.py``): the
+(``tests/test_torch_{classification,asr,se,ss,slm,tts,vc}.py``): the
 small EnCodec of ``tests/test_recipes.py`` in one checkpoint for both
-packages, a 6-utterance synthetic corpus, and a JAX run whose initial
-probe params are captured for the port's run."""
+packages, a 6-utterance synthetic corpus, a JAX run whose initial params
+are captured for the port's run, and the checks of the two runs'
+checkpoints, caches, decoded grids and summaries."""
 
+import fnmatch
 import os
 
 import numpy as np
@@ -81,17 +83,88 @@ def run_jax_capturing_init(monkeypatch, run, cfg):
     return summary, seen["init"]
 
 
-def assert_same_outputs(port_dir, jax_dir, rtol=1e-4):
+def record_codec(monkeypatch, codec_cls, as_np, encodes=False,
+                 audio_mod=None):
+    """From now on, in order: every token grid ``codec_cls.toks_to_sig``
+    decodes (with ``encodes``, also every grid ``sig_to_toks`` makes), as
+    ``as_np`` gives it, under ``"toks"``; with ``audio_mod``, every
+    waveform its ``write_wav`` writes, as (file name, array), under
+    ``"wavs"``. The lists fill as the run goes."""
+    seen = {"toks": [], "wavs": []}
+    enc, dec = codec_cls.sig_to_toks, codec_cls.toks_to_sig
+
+    def sig_to_toks(self, *a, **kw):
+        out = enc(self, *a, **kw)
+        seen["toks"].append(as_np(out))
+        return out
+
+    def toks_to_sig(self, toks, *a, **kw):
+        seen["toks"].append(as_np(toks))
+        return dec(self, toks, *a, **kw)
+
+    if encodes:
+        monkeypatch.setattr(codec_cls, "sig_to_toks", sig_to_toks)
+    monkeypatch.setattr(codec_cls, "toks_to_sig", toks_to_sig)
+    if audio_mod is not None:
+        write = audio_mod.write_wav
+
+        def write_wav(path, sig, *a, **kw):
+            seen["wavs"].append((os.path.basename(path), np.asarray(sig)))
+            return write(path, sig, *a, **kw)
+
+        monkeypatch.setattr(audio_mod, "write_wav", write_wav)
+    return seen
+
+
+def assert_same_outputs(port_dir, jax_dir, rtol=1e-4, token_cache=True,
+                        loose=None):
     """The best checkpoints within ``rtol`` of the largest entry of each
-    leaf, and the token caches equal."""
+    leaf (a leaf matching a pattern of ``loose``, ``{fnmatch pattern:
+    rtol}``, within that pattern's; each pattern matches a leaf), and the
+    token caches equal (with ``token_cache`` False, none written: SE and SS
+    keep none)."""
     got = flatten_tree(jload_params(os.path.join(port_dir, "ckpt_best.npz")))
     want = flatten_tree(jload_params(os.path.join(jax_dir, "ckpt_best.npz")))
     assert sorted(got) == sorted(want)
+    loose = loose or {}
+    for pattern in loose:
+        assert fnmatch.filter(want, pattern), pattern
     for k, w in want.items():
         err = float(np.abs(got[k] - w).max())
-        assert err <= rtol * float(np.abs(w).max()), (k, err)
+        tol = next((t for pat, t in loose.items() if fnmatch.fnmatch(k, pat)),
+                   rtol)
+        assert err <= tol * float(np.abs(w).max()), (k, err)
+    if not token_cache:
+        assert not os.path.exists(os.path.join(port_dir, "token_cache.npz"))
+        return
     with np.load(os.path.join(port_dir, "token_cache.npz")) as a, \
             np.load(os.path.join(jax_dir, "token_cache.npz")) as b:
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             assert np.array_equal(a[k], b[k]), k
+
+
+# The battery's means, port against JAX: the per-utterance tolerances of
+# tests/test_torch_sr.py (absolute in dB for SI-SNR, for STOI and PESQ;
+# relative for the distances and the MOS); a loss, an error rate or a
+# perplexity within 1e-4 relative.
+SUMMARY_TOL = {"SISNR": ("abs", 1e-3), "STOI": ("abs", 1e-4),
+               "PESQ": ("abs", 1e-3), "MelD": ("rel", 1e-4),
+               "STFTD": ("rel", 1e-4), "DNSMOS": ("rel", 1e-4)}
+
+
+def assert_same_summary(got: dict, want: dict):
+    """The same keys; counts and strings equal; each battery mean (its
+    name after a ``Rec``/``Ref`` prefix and a ``test_`` one) within
+    :data:`SUMMARY_TOL`, every other number within 1e-4 relative."""
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, (str, int)) and not isinstance(w, bool):
+            assert g == w, (k, g, w)
+            continue
+        base = k[4:] if k.startswith(("Rec", "Ref")) else k
+        base = base.replace("test_", "").replace("_pit", "")
+        kind, tol = SUMMARY_TOL.get(base, ("rel", 1e-4))
+        limit = tol * (abs(w) if kind == "rel" else 1.0)
+        assert abs(g - w) <= limit, (k, g, w)

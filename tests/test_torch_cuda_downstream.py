@@ -3,9 +3,11 @@ reader and writer against the ``wave`` path, DNSMOS on the card against
 its CPU version, UTMOS (its BiLSTM through the LSTM kernel) against its CPU
 version, the profiler's FLOPs on the card against the CPU's, the LSTM
 kernel at the downstream probes' width (T = 150, B = 4, H = 128) against
-its plain version, and one train step of the classification probe on the
-card against the CPU. Every test needs an NVIDIA GPU and skips without
-one. The file imports neither JAX nor the JAX package:
+its plain version, one train step of the classification probe on the
+card against the CPU, the Conformer at ``se.yaml``'s widths, one SE step
+with it and ``knn_convert`` on tied similarities on the card against the
+CPU. Every test needs an NVIDIA GPU and skips without one. The file
+imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_downstream.py
 
@@ -15,7 +17,11 @@ max|score|; the profiler's card FLOPs within 1 % of the CPU's; the probe
 width's outputs within 1e-5 absolute of the plain version and its
 gradients (recomputed through the plain version) within 1e-4 of the
 largest; the probe's step loss within 1e-5 relative and its params within
-1e-4 of the largest entry of each leaf.
+1e-4 of the largest entry of each leaf; the Conformer's output within 1e-5
+of its largest and its gradients within 1e-4 of each leaf's largest; the
+SE step's loss within 1e-5 relative, its gradients within 1e-4 of each
+leaf's largest and 99.9 % of its params after the step within 1e-4 of
+their leaf's largest; ``knn_convert``'s picks equal.
 """
 
 import wave
@@ -186,3 +192,99 @@ def test_probe_train_step_on_the_card_matches_cpu(dev, tmp_path):
     for k, want in ph["lstm"][0].items():
         got = pc["lstm"][0][k]
         assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def _conformer_pair(dev):
+    from audiocodecs_tpu_torch.nn import conformer
+
+    cfg = conformer.ConformerConfig(hidden_size=256, num_layers=4,
+                                    num_heads=4, conv_kernel=31)
+    state = conformer.init_conformer_params(torch.Generator().manual_seed(0),
+                                            cfg)
+    models = {}
+    for d in (dev, torch.device("cpu")):
+        m = conformer.Conformer(cfg)
+        m.load_state_dict(state)
+        models[d.type] = m.to(d)
+    return cfg, models
+
+
+def test_conformer_on_the_card_matches_cpu(dev):
+    """``se.yaml``'s Conformer (d 256, 4 layers, k 31) at B = 4, T = 151:
+    the output and every parameter's gradient of a weighted sum."""
+    from audiocodecs_tpu_torch.nn import conformer
+
+    cfg, models = _conformer_pair(dev)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 151, 256)).astype(
+        np.float32))
+    r = torch.from_numpy(rng.standard_normal((4, 151, 256)).astype(
+        np.float32))
+    out = {}
+    for d, m in models.items():
+        y = conformer.apply_conformer(m, x.to(d), cfg)
+        grads = torch.autograd.grad((y * r.to(d)).sum(),
+                                    list(m.parameters()))
+        out[d] = y.detach().cpu(), [g.cpu() for g in grads]
+    (y, g), (yc, gc) = out["cuda"], out["cpu"]
+    assert float((y - yc).abs().max()) <= 1e-5 * float(yc.abs().max())
+    for a, b in zip(g, gc):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_se_step_on_the_card_matches_cpu(dev, tmp_path):
+    """One Trainer step of SE's Conformer model (K = 8 codebooks of 1024)
+    on the card against the CPU, from one init and one batch: the
+    gradients, the loss, and the share of parameter elements within 1e-4
+    of their leaf's largest after the step (Adam's first step moves an
+    element by about ``lr · g / (|g| + eps)``, so an element whose gradient
+    is near ``eps`` moves by what rounding sets, on either device)."""
+    from audiocodecs_tpu_torch.downstream.recipes import se
+    from audiocodecs_tpu_torch.downstream.recipes.trainer import Trainer
+    from audiocodecs_tpu_torch.params import flatten_tree
+
+    K, C = 8, 1024
+    cfg_t = se.encoder_config({"encoder_type": "conformer"})
+    state = se.init_token_model(torch.Generator().manual_seed(0), K, C,
+                                cfg_t).state_dict()
+    rng = np.random.default_rng(1)
+    batch = {"in_toks": torch.from_numpy(rng.integers(0, C, (4, 150, K))),
+             "out_toks": torch.from_numpy(rng.integers(0, C, (4, 150, K))),
+             "length": torch.tensor([1.0, 0.8, 0.5, 0.3])}
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = se.TokenModel(K, C, cfg_t)
+        model.load_state_dict(state)
+        t = Trainer(lambda m, b, g: se.se_loss(m, b, g, vocab_size=C,
+                                               num_codebooks=K),
+                    model.to(d), output_folder=str(tmp_path / d.type))
+        b = {k: v.to(d) for k, v in batch.items()}
+        loss, _ = t.compute_loss(b, None)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, t._leaves)]
+        loss, _, applied = t.step(b, None)
+        assert applied
+        out[d.type] = loss, grads, flatten_tree(t.jax_params())
+    (lc, gc, pc), (lh, gh, ph) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    for a, b in zip(gc, gh):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    off = sum(int((np.abs(pc[k] - w) > 1e-4 * np.abs(w).max()).sum())
+              for k, w in ph.items())
+    assert off <= 1e-3 * sum(w.size for w in ph.values())
+
+
+def test_knn_convert_ties_on_the_card(dev):
+    """Tied similarities pick the lower index on the card too (a stable
+    descending sort), and the conversion equals the CPU's."""
+    from audiocodecs_tpu_torch.downstream.recipes.vc import knn_convert
+
+    rng = np.random.default_rng(2)
+    match = rng.standard_normal((300, 64)).astype(np.float32)
+    match[100:200] = match[:100] * 2.0  # every row tied with another
+    src = rng.standard_normal((250, 64)).astype(np.float32)
+    src[:50] = match[:50] * 3.0
+    got = knn_convert(torch.from_numpy(src).to(dev),
+                      torch.from_numpy(match).to(dev)).cpu()
+    want = knn_convert(torch.from_numpy(src), torch.from_numpy(match))
+    assert float((got - want).abs().max()) <= 1e-6 * float(
+        want.abs().max())

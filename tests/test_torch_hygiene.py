@@ -103,6 +103,18 @@ SLICE_18 = (
 )
 
 
+# the rest of the downstream recipes, the Conformer and the dispatcher
+SLICE_19 = (
+    "audiocodecs_tpu_torch.nn.conformer",
+    "audiocodecs_tpu_torch.downstream.recipes.se",
+    "audiocodecs_tpu_torch.downstream.recipes.ss",
+    "audiocodecs_tpu_torch.downstream.recipes.vc",
+    "audiocodecs_tpu_torch.downstream.recipes.slm",
+    "audiocodecs_tpu_torch.downstream.recipes.tts",
+    "audiocodecs_tpu_torch.downstream.recipes.__main__",
+)
+
+
 def test_module_list_covers_the_slice():
     mods = _port_modules()
     for m in ("audiocodecs_tpu_torch.models.encodec",
@@ -168,7 +180,7 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.convert.audiomae",
               "audiocodecs_tpu_torch.convert.ldm",
               "audiocodecs_tpu_torch.convert.checkpoint_files",
-              *SLICE_16, *SLICE_17, *SLICE_18):
+              *SLICE_16, *SLICE_17, *SLICE_18, *SLICE_19):
         assert m in mods
 
 
@@ -219,6 +231,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.convert.zoo" in loaded
     assert "audiocodecs_tpu_torch.downstream.recipes.asr" in loaded
     assert "audiocodecs_tpu_torch.downstream.models.llama" in loaded
+    assert "audiocodecs_tpu_torch.downstream.recipes.tts" in loaded
+    assert "audiocodecs_tpu_torch.nn.conformer" in loaded
     assert not [m for m in loaded if _is_reference(m)]
     assert not [m for m in loaded if _is_transformers(m)]
 
@@ -301,6 +315,21 @@ def test_default_device_is_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main([str(REPO / "hparams" / "tasks" / "ic.yaml"), "--dataset",
                   "none"])
+    # so do the rest of the recipes, their entry points and the dispatcher
+    from audiocodecs_tpu_torch.downstream.recipes import (
+        __main__ as dispatch, se, slm, ss, tts, vc)
+
+    for run in (se.run_se, ss.run_ss, slm.run_slm, tts.run_tts, vc.run_vc):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run({})
+    for main in (se.main, ss.main, slm.main, tts.main, vc.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([str(REPO / "hparams" / "tasks" / "vc.yaml"), "--dataset",
+                  "none"])
+    for task in ("se", "ss", "slm", "tts", "vc", "ic", "asr"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            dispatch.main([task, str(REPO / "hparams" / "tasks" /
+                                     f"{task}.yaml"), "--dataset", "none"])
     with pytest.raises(RuntimeError):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -392,7 +421,8 @@ def _docstrings(tree) -> set:
     return out
 
 
-@pytest.mark.parametrize("module", SLICE_16 + SLICE_17 + SLICE_18)
+@pytest.mark.parametrize("module",
+                         SLICE_16 + SLICE_17 + SLICE_18 + SLICE_19)
 def test_slice_modules_read_no_environment_and_no_reference_path(module):
     """No switch from the environment (the reference's ``ACX_NATIVE_WAVIO``,
     ``ACX_WAVIO_LIB`` and ``ACX_NATIVE_CACHE`` are not carried over) and no
