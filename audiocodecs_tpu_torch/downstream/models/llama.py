@@ -17,9 +17,10 @@ KV cache, the multi-codebook interleaved embedding, per-codebook heads and
   one table with per-codebook bands and the head one fused product.
 
 Weights keep the reference's tree ``{"body", "embedding", "head"}``:
-:func:`llama_from_jax` builds the module from it. The MoE FFN and
-rematerialization belong to the parallel layer (ROADMAP A.11): a config that
-asks for them raises.
+:func:`llama_from_jax` builds the module from it. ``moe_experts > 0``
+replaces every layer's SwiGLU MLP by the switch-MoE FFN of
+:mod:`...parallel.moe` (leaves ``router``, ``w_in``, ``w_out``), in training
+and in generation; ``remat`` recomputes each layer in the backward.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ from audiocodecs_tpu_torch.downstream.models.multihead import (
 from audiocodecs_tpu_torch.nn.transformer import (
     Transformer,
     TransformerConfig,
+    _ffn,
     _linear,
-    _mlp,
     _norm,
     apply_rope,
     apply_transformer,
@@ -68,22 +69,30 @@ class LlamaConfig:
     # special tokens after the K·C content rows (bos = C·K, eos = C·K + 1,
     # pad = C·K + 2 in the flat vocab)
     num_special: int = 3
+    # per-layer activation recomputation in the backward
     remat: bool = False
+    # moe_experts > 0: every layer's MLP becomes a switch-MoE FFN of width
+    # moe_ffn_size (intermediate_size when 0); top_k 1 is switch, 2 GShard;
+    # the training loss adds moe_aux_weight · the load-balancing loss
     moe_experts: int = 0
     moe_ffn_size: int = 0
     moe_capacity_factor: float = 2.0
     moe_top_k: int = 1
     moe_aux_weight: float = 0.0
 
-    def __post_init__(self):
-        if self.moe_experts > 0:
-            raise NotImplementedError(
-                "the switch-MoE FFN is not ported (ROADMAP A.11)")
-        if self.remat:
-            raise NotImplementedError(
-                "per-layer rematerialization is not ported (ROADMAP A.11)")
-
     def transformer(self) -> TransformerConfig:
+        moe = None
+        if self.moe_experts > 0:
+            from audiocodecs_tpu_torch.parallel.moe import MoEConfig
+
+            moe = MoEConfig(
+                hidden_size=self.hidden_size,
+                ffn_size=self.moe_ffn_size or self.intermediate_size,
+                num_experts=self.moe_experts,
+                capacity_factor=self.moe_capacity_factor,
+                top_k=self.moe_top_k,
+                aux_weight=self.moe_aux_weight,
+            )
         return TransformerConfig(
             hidden_size=self.hidden_size,
             num_layers=self.num_layers,
@@ -96,6 +105,8 @@ class LlamaConfig:
             norm_eps=self.norm_eps,
             rope_theta=self.rope_theta,
             causal=True,
+            remat=self.remat,
+            moe=moe,
         )
 
     @property
@@ -184,26 +195,32 @@ def llama_embed(model: Llama, flat_toks: torch.Tensor,
     ((p−1) % K)·C``, so the band is the codebook (what seeding from
     ``codec.embs()`` assumes). Special tokens (≥ K·C) read their own rows.
     """
-    L = flat_toks.shape[1]
+    return model.embedding.table[embed_rows(flat_toks, cfg)]
+
+
+def embed_rows(flat_toks: torch.Tensor, cfg: LlamaConfig,
+               offset: int = 0) -> torch.Tensor:
+    """The embedding rows that :func:`llama_embed` reads for ``flat_toks``
+    ``[B, L]`` whose first token sits at position ``offset`` of the
+    sequence."""
     K, C = cfg.num_codebooks, cfg.vocab_size
     flat_toks = flat_toks.to(torch.int64)
-    cb = torch.remainder(torch.arange(L, device=flat_toks.device) - 1, K)
-    idx = torch.where(flat_toks >= K * C, flat_toks, flat_toks + cb[None] * C)
-    return model.embedding.table[idx]
+    pos = offset + torch.arange(flat_toks.shape[1], device=flat_toks.device)
+    cb = torch.remainder(pos - 1, K)
+    return torch.where(flat_toks >= K * C, flat_toks,
+                       flat_toks + cb[None] * C)
 
 
 def llama_forward(model: Llama, embs: torch.Tensor, cfg: LlamaConfig,
                   positions: Optional[torch.Tensor] = None,
                   return_aux: bool = False):
     """Embeddings ``[B, L, H]`` → per-codebook logits ``[B, L, K, C +
-    specials]``; ``return_aux`` also returns the MoE aux loss, which is 0
-    for the dense stack."""
-    h = apply_transformer(model.body, embs, cfg.transformer(), positions)
+    specials]``; ``return_aux`` also returns the MoE load-balancing losses
+    summed over the layers (0 for the dense stack)."""
+    h, aux = apply_transformer(model.body, embs, cfg.transformer(),
+                               positions, return_aux=True)
     logits = multihead_logits(_head(model), h, num_heads=cfg.num_codebooks)
-    if return_aux:
-        return logits, torch.zeros((), dtype=logits.dtype,
-                                   device=logits.device)
-    return logits
+    return (logits, aux) if return_aux else logits
 
 
 # --------------------------------------------------------------------- #
@@ -235,7 +252,7 @@ def _attend(x, p, t: TransformerConfig, cos, sin, k_cache, v_cache, start,
     v_cache[:, start:start + T] = v
     a = attention(q, k_cache[:, :start + T], v_cache[:, :start + T], mask)
     x = x + _linear(a.reshape(B, T, t.num_heads * t.head_dim), p.o)
-    return x + _mlp(_norm(x, p.ln2, t.norm, t.norm_eps), p.mlp, t.act)
+    return x + _ffn(_norm(x, p.ln2, t.norm, t.norm_eps), p, t)
 
 
 def _run_cached(model: Llama, cfg: LlamaConfig, x, cache, start: int):

@@ -17,11 +17,11 @@ __all__ = ["prepare_data", "encode_labels", "CharTokenizer",
 
 def is_main_process() -> bool:
     """Rank 0 of the initialised ``torch.distributed`` group; true when no
-    group is initialised."""
-    import torch.distributed as dist
+    group is initialised (:func:`...parallel.mesh.is_main_process`, as the
+    reference's reads its mesh module's)."""
+    from audiocodecs_tpu_torch.parallel.mesh import is_main_process as main
 
-    return not (dist.is_available() and dist.is_initialized()) \
-        or dist.get_rank() == 0
+    return main()
 
 
 def prepare_data(cfg: dict) -> dict:
@@ -236,7 +236,8 @@ def run_cli(run, argv=None) -> int:
     """A recipe's command line: ``task.yaml codec.yaml dataset.yaml
     [--key value ...]`` merged and its data prepared, then ``run(cfg,
     device=...)`` (``--device cpu`` runs on the CPU, the card otherwise)
-    and its summary printed as JSON."""
+    and its summary printed as JSON. Under ``torchrun --nproc_per_node N``
+    each rank joins the launch's process group first."""
     import json
     import sys
 
@@ -244,6 +245,21 @@ def run_cli(run, argv=None) -> int:
 
     cfg, _ = parse_cli(argv if argv is not None else sys.argv[1:])
     device = cfg.pop("device", None)
-    summary = run(prepare_data(cfg), device=device)
+    from audiocodecs_tpu_torch.parallel.mesh import (
+        init_distributed, launched_world_size)
+
+    if launched_world_size() > 1:
+        # a torchrun launch: join its group (one rank a card on CUDA), and
+        # let rank 0 prepare the data before the others read it
+        import torch.distributed as dist
+
+        from audiocodecs_tpu_torch.codec import resolve_device
+
+        init_distributed(resolve_device(device))
+        cfg = prepare_data(cfg)
+        dist.barrier()
+    else:
+        cfg = prepare_data(cfg)
+    summary = run(cfg, device=device)
     print(json.dumps(summary, indent=2, default=float))
     return 0

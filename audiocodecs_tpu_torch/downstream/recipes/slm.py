@@ -9,10 +9,16 @@ utterance's first half and vocodes it, and runs the 2×2 likelihood
 consistency check (reference ``train_slm.py:59-157``; the embedding is
 seeded from the codec's ``embs()``, ``:424-427``).
 
-One device, one process: ``model_parallel``, ``pipeline_parallel`` or
-``expert_parallel`` above 1, and ``moe_experts > 0``, raise (the parallel
-layer and the MoE FFN are ROADMAP A.11). At 1, the default of
-``slm.yaml``, the reference trains through the same ``nll`` as here.
+``moe_experts > 0`` makes the decoder's FFNs switch-MoE, whose weighted
+load-balancing loss the training objective adds. Over several ranks
+(``torchrun``, one rank a card) the decoder trains on a mesh, as the
+reference's recipe does: ``model_parallel: N`` shards it Megatron-style
+(:func:`...parallel.train.shard_llama_params`), ``pipeline_parallel: S``
+splits its depth into S GPipe stages of ``num_microbatches``
+(:mod:`...parallel.pipeline`), ``expert_parallel: S`` splits its experts
+(:func:`...parallel.moe.shard_moe_llama_params`); one of them at a time,
+since they share the ``model`` axis. Evaluation, generation and the
+consistency check run on the whole decoder, gathered on every rank.
 Generation draws from a ``torch.Generator`` on the model's device, seeded
 ``1 + batch index`` as the reference's ``PRNGKey(1 + bi)`` (the draws
 differ from ``jax.random``'s).
@@ -40,10 +46,11 @@ from audiocodecs_tpu_torch.downstream.models.llama import (
     llama_forward,
     llama_from_jax,
 )
-from audiocodecs_tpu_torch.downstream.recipes.se import token_ce
+from audiocodecs_tpu_torch.parallel.train import slm_interleaved_ce
 
-__all__ = ["check_single_device", "flatten_with_specials", "llama_config",
-           "main", "next_token_nll", "run_slm", "seed_embeddings"]
+__all__ = ["flatten_with_specials", "llama_config", "main",
+           "next_token_nll", "parallel_degrees", "run_slm",
+           "seed_embeddings"]
 
 
 def flatten_with_specials(toks: np.ndarray, tok_lengths: np.ndarray,
@@ -63,18 +70,27 @@ def flatten_with_specials(toks: np.ndarray, tok_lengths: np.ndarray,
     return flat, mask
 
 
-def check_single_device(cfg: dict) -> None:
-    """Raise for what the port's one-device recipe cannot run: a parallel
-    degree above 1 or the switch-MoE FFN (ROADMAP A.11)."""
-    for key in ("model_parallel", "pipeline_parallel", "expert_parallel"):
-        if int(cfg.get(key, 1)) > 1:
-            raise NotImplementedError(
-                f"{key} > 1: the parallel layer is not ported yet "
-                "(ROADMAP A.11)")
-    if int(cfg.get("moe_experts", 0)) > 0:
-        raise NotImplementedError(
-            "moe_experts > 0: the switch-MoE FFN is not ported yet "
-            "(ROADMAP A.11)")
+def parallel_degrees(cfg: dict) -> tuple:
+    """``(model_parallel, pipeline_parallel, expert_parallel)`` of ``cfg``,
+    refused as the reference refuses them: more than one above 1 (they
+    share the ``model`` axis), and ``expert_parallel`` without experts;
+    and a degree the launched ranks cannot hold."""
+    from audiocodecs_tpu_torch.parallel.mesh import launched_world_size
+
+    mp, pp, ep = (int(cfg.get(k, 1)) for k in (
+        "model_parallel", "pipeline_parallel", "expert_parallel"))
+    if sum(x > 1 for x in (mp, pp, ep)) > 1:
+        raise ValueError(
+            "set ONE of model_parallel / pipeline_parallel / "
+            "expert_parallel > 1 (they all occupy the model mesh axis)")
+    if ep > 1 and int(cfg.get("moe_experts", 0)) <= 0:
+        raise ValueError("expert_parallel needs moe_experts > 0")
+    world = launched_world_size()
+    if world % max(mp, pp, ep):
+        raise ValueError(
+            f"a model axis of {max(mp, pp, ep)} needs a multiple of that "
+            f"many ranks, one a device; {world} launched")
+    return mp, pp, ep
 
 
 def llama_config(cfg: dict, K: int, C: int, **fields) -> LlamaConfig:
@@ -104,28 +120,22 @@ def seed_embeddings(state: dict, codec_embs, K: int, C: int) -> None:
 
 
 def next_token_nll(model: Llama, flat: torch.Tensor, mask: torch.Tensor,
-                   lcfg: LlamaConfig, embs: torch.Tensor | None = None):
+                   lcfg: LlamaConfig, embs: torch.Tensor | None = None,
+                   with_aux: bool = False):
     """Masked mean CE of next-token prediction over K-interleaved ``flat``
-    [B, L]: position i predicts i + 1 through the head of codebook
-    ``(i + 1) % K``, i.e. ``i % K`` after BOS; special targets (EOS, pad,
-    text ids) map to the extra head logits after the C content ones,
-    clipped to the three specials' (``C + min(t − K·C, 2)``).
+    [B, L] (:func:`..parallel.train.slm_interleaved_ce`).
 
     ``embs`` replaces ``llama_embed(flat)`` (TTS adds its speaker
-    conditioning there)."""
+    conditioning there). ``with_aux`` adds the weighted MoE load-balancing
+    loss (training only: the evaluation's PPL stays the pure CE)."""
     K, C = lcfg.num_codebooks, lcfg.vocab_size
     if embs is None:
         embs = llama_embed(model, flat, lcfg)
-    logits = llama_forward(model, embs, lcfg)  # [B, L, K, C + specials]
-    L = flat.shape[1]
-    cb = torch.arange(L - 1, device=flat.device) % K
-    lg = logits[:, torch.arange(L - 1, device=flat.device), cb]
-    tgt = flat[:, 1:].to(torch.int64)
-    head_tgt = torch.where(tgt >= K * C,
-                           C + torch.clamp(tgt - K * C, max=2), tgt)
-    ce = token_ce(lg, head_tgt)
-    m = mask[:, 1:]
-    return (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+    # [B, L, K, C + specials]
+    logits, aux = llama_forward(model, embs, lcfg, return_aux=True)
+    aux = (lcfg.moe_aux_weight * aux if with_aux and lcfg.moe_experts > 0
+           and lcfg.moe_aux_weight > 0 else 0.0)
+    return slm_interleaved_ce(logits, flat, mask, K, C) + aux
 
 
 def run_slm(cfg: dict, device=None, init_params=None) -> dict:
@@ -137,7 +147,7 @@ def run_slm(cfg: dict, device=None, init_params=None) -> dict:
     checkpoints, ``token_cache.npz``, the generated WAVs, the battery's
     stats files and ``summary.json`` under ``output_folder`` and returns
     the summary."""
-    check_single_device(cfg)
+    mp, pp, ep = parallel_degrees(cfg)
     from audiocodecs_tpu_torch.codec import resolve_device
     from audiocodecs_tpu_torch.downstream.cache import TokenCache
     from audiocodecs_tpu_torch.downstream.config import (
@@ -149,6 +159,7 @@ def run_slm(cfg: dict, device=None, init_params=None) -> dict:
     )
     from audiocodecs_tpu_torch.downstream.models.llama import llama_generate
     from audiocodecs_tpu_torch.downstream.recipes.common import (
+        is_main_process,
         loader_kwargs,
         read_split_manifests,
     )
@@ -175,8 +186,13 @@ def run_slm(cfg: dict, device=None, init_params=None) -> dict:
     K, C = codec.config.num_codebooks, codec.config.vocab_size
     cache = TokenCache(os.path.join(out_dir, "token_cache.npz"))
 
-    lcfg = llama_config(cfg, K, C,
-                        max_seq_len=int(cfg.get("max_seq_len", 2048)))
+    lcfg = llama_config(
+        cfg, K, C, max_seq_len=int(cfg.get("max_seq_len", 2048)),
+        moe_experts=int(cfg.get("moe_experts", 0)),
+        moe_ffn_size=int(cfg.get("moe_ffn_size", 0)),
+        moe_capacity_factor=float(cfg.get("moe_capacity_factor", 2.0)),
+        moe_top_k=int(cfg.get("moe_top_k", 1)),
+        moe_aux_weight=float(cfg.get("moe_aux_weight", 0.0)))
     if init_params is not None:
         model = llama_from_jax(init_params, lcfg, dev)
     else:
@@ -203,9 +219,15 @@ def run_slm(cfg: dict, device=None, init_params=None) -> dict:
             lcfg.eos_token, lcfg.pad_token, max_flat)
 
     def loss_fn(model, batch, generator):
-        return next_token_nll(model, batch["flat"], batch["mask"], lcfg), {}
+        return next_token_nll(model, batch["flat"], batch["mask"], lcfg,
+                              with_aux=True), {}
 
     def make_batches(split, shuffle):
+        # the GPipe schedule splits each batch into microbatches, so ragged
+        # tail batches are padded back to batch_size with all-pad zero-mask
+        # rows (no loss contribution)
+        pad_to = int(cfg.get("batch_size", 4)) if pp > 1 else 0
+
         def gen():
             loader = BucketedLoader(
                 rows[split], sample_rate, shuffle=shuffle, seed=seed,
@@ -213,6 +235,13 @@ def run_slm(cfg: dict, device=None, init_params=None) -> dict:
             )
             for batch in loader:
                 flat, mask = encode_batch(batch)
+                if pad_to and flat.shape[0] < pad_to:
+                    extra = pad_to - flat.shape[0]
+                    flat = np.concatenate(
+                        [flat, np.full((extra, flat.shape[1]),
+                                       lcfg.pad_token, np.int32)])
+                    mask = np.concatenate(
+                        [mask, np.zeros((extra, mask.shape[1]), np.float32)])
                 yield {"flat": torch.from_numpy(flat).to(dev),
                        "mask": torch.from_numpy(mask).to(dev)}
         return gen
@@ -226,16 +255,58 @@ def run_slm(cfg: dict, device=None, init_params=None) -> dict:
                 n += 1
         return float(np.exp(tot / max(n, 1)))
 
-    trainer = Trainer(loss_fn, model, lr=float(cfg.get("lr", 1e-3)),
-                      output_folder=out_dir, **trainer_kwargs(cfg))
+    # the parallel layouts (the reference's slm.py:186-237): each trains
+    # through the sharded module's own loss; evaluation reads the whole
+    # decoder, gathered on every rank
+    sharder, mesh, train_loss = None, None, loss_fn
+    if ep > 1:
+        from audiocodecs_tpu_torch.parallel.moe import shard_moe_llama_params
+
+        mp, sharder = ep, shard_moe_llama_params  # experts on 'model'
+    if pp > 1:
+        from audiocodecs_tpu_torch.parallel.mesh import make_mesh
+        from audiocodecs_tpu_torch.parallel.pipeline import (
+            make_pp_slm_loss, shard_pp_llama_params, stack_pipeline_stages)
+        from audiocodecs_tpu_torch.params import to_jax_params
+
+        mesh = make_mesh(model_parallel=pp, device=dev)
+        pp_loss = make_pp_slm_loss(lcfg, mesh,
+                                   int(cfg.get("num_microbatches", 2)))
+
+        def train_loss(stage, batch, generator):
+            return pp_loss(stage, batch["flat"], batch["mask"]), {}
+
+        def sharder(m, mesh_):
+            return shard_pp_llama_params(stack_pipeline_stages(
+                to_jax_params(m.state_dict(), m), pp), mesh_, lcfg)
+    else:
+        from audiocodecs_tpu_torch.parallel.mesh import launched_world_size
+
+        if sharder is None and (mp > 1 or launched_world_size() > 1):
+            from audiocodecs_tpu_torch.parallel.train import (
+                shard_llama_params)
+
+            sharder = shard_llama_params
+        if sharder is not None:
+            def train_loss(m, batch, generator):
+                return m.nll(batch["flat"], batch["mask"], with_aux=True), {}
+
+    def eval_model(m):
+        return m.full_module() if sharder is not None else m
+
+    trainer = Trainer(train_loss, model, lr=float(cfg.get("lr", 1e-3)),
+                      output_folder=out_dir, model_parallel=mp,
+                      param_sharder=sharder, mesh=mesh,
+                      **trainer_kwargs(cfg))
     trainer.fit(
         int(cfg.get("epochs", 5)),
         make_batches("train", True),
-        valid_fn=lambda m: valid_ppl(m, "valid"),
+        valid_fn=lambda m: valid_ppl(eval_model(m), "valid"),
         generator=torch.Generator(dev).manual_seed(seed),
     )
-    cache.save()
-    model = trainer.load_checkpoint("best")
+    if is_main_process():  # every rank holds the same cache
+        cache.save()
+    model = eval_model(trainer.load_checkpoint("best"))
     summary = {"test_PPL": valid_ppl(model, "test")}
 
     # Continuations of the first half (reference train_slm.py:95-123),
@@ -338,8 +409,9 @@ def run_slm(cfg: dict, device=None, init_params=None) -> dict:
                         errs += int(cross <= own)
                 summary["consistency_ER"] = errs / B
 
-    with open(os.path.join(out_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+    if is_main_process():
+        with open(os.path.join(out_dir, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
     return summary
 
 

@@ -27,8 +27,20 @@ param-tree layout) or an ``nn.Module``; ``loss_fn(model_or_params, batch,
 generator) -> (loss, aux)``. Checkpoints ``ckpt_{best,latest,eN}.npz`` are
 written by :func:`..utils.checkpoint.save_params` in the reference's key
 layout (a module through :func:`..params.to_jax_params`), so a checkpoint
-of either package loads in the other. One process, one device: a mesh,
-``model_parallel > 1`` or a ``param_sharder`` raise (ROADMAP A.11).
+of either package loads in the other.
+
+Over several ranks (a ``torch.distributed`` group of more than one rank,
+``model_parallel > 1`` or a prebuilt ``mesh``) the trainer runs on a
+``(data, model)`` mesh (:func:`...parallel.mesh.make_mesh`), as the
+reference's does: each batch whose rows divide by the data degree is split
+on ``data`` (else every rank takes all of it), the loss is the mean of the
+ranks' values and the gradients their mean. A ``param_sharder(params,
+mesh)`` returns a :class:`...parallel.train.ShardedModule` (Megatron,
+expert or pipeline parallelism), which reduces its own gradients and
+makes the clip's global norm: its split leaves' squares summed over
+``model``, each replicated leaf counted once. Logs and checkpoints are
+written by rank 0 only; a sharded checkpoint is gathered whole, so
+:meth:`Trainer.load_checkpoint` and the evaluation see the one-device tree.
 """
 
 from __future__ import annotations
@@ -44,6 +56,15 @@ import torch
 from torch import nn
 
 from audiocodecs_tpu_torch.downstream.recipes.common import is_main_process
+from audiocodecs_tpu_torch.parallel.comm import all_reduce
+from audiocodecs_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    axis_group,
+    axis_size,
+    launched_world_size,
+    local_batch_slice,
+)
+from audiocodecs_tpu_torch.parallel.train import ShardedModule
 from audiocodecs_tpu_torch.params import flatten_tree
 from audiocodecs_tpu_torch.utils.checkpoint import load_params, save_params
 
@@ -166,14 +187,29 @@ class Trainer:
     ):
         """``params``: a tree of tensors (its float leaves detached and made
         trainable; ``self.params`` is that tree) or an ``nn.Module``, on the
-        device the loss runs on."""
-        if mesh is not None or param_sharder is not None or int(
-                model_parallel) > 1:
-            raise NotImplementedError(
-                "model parallelism, a param_sharder or a mesh: the parallel "
-                "layer is not ported yet (ROADMAP A.11)")
+        device the loss runs on. ``model_parallel > 1`` carves a ``(data,
+        model)`` mesh out of the process group's ranks (one a device) and
+        ``param_sharder(params, mesh)`` places the params on it; a
+        prebuilt ``mesh`` is used as it is (pipeline parallelism's loss
+        closes over the same mesh)."""
         if precision not in ("fp32", "bf16"):
             raise ValueError(f"precision must be fp32|bf16, got {precision}")
+        self.mesh = mesh
+        mp = max(1, int(model_parallel))
+        if self.mesh is None and (launched_world_size() > 1 or mp > 1):
+            from audiocodecs_tpu_torch.parallel.mesh import make_mesh
+
+            first = (next(params.parameters()) if isinstance(params,
+                                                              nn.Module)
+                     else _leaves(params)[0])
+            self.mesh = make_mesh(model_parallel=mp, device=first.device)
+        if self.mesh is not None:
+            if param_sharder is not None:
+                params = param_sharder(params, self.mesh)
+        elif param_sharder is not None:
+            raise ValueError(
+                "param_sharder given but only one device is visible")
+        self.sharded = isinstance(params, ShardedModule)
         self.precision = precision
         self.loss_fn = loss_fn
         self.is_module = isinstance(params, nn.Module)
@@ -210,8 +246,10 @@ class Trainer:
         self.best_metric = math.inf if lower_is_better else -math.inf
         n_params = sum(t.numel() for t in self._leaves)
         dev = self._leaves[0].device if self._leaves else "cpu"
+        mesh_note = ("" if self.mesh is None else ", mesh " + str(
+            dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))))
         self.log(f"trainer: {n_params / 1e6:.2f} M trainable params, "
-                 f"device {dev}")
+                 f"device {dev}{mesh_note}")
 
     @property
     def device(self) -> torch.device:
@@ -246,10 +284,37 @@ class Trainer:
                                      generator)
         return loss.to(torch.float32), aux
 
+    def _data_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` averaged over the mesh's data axis (itself without one)."""
+        if self.mesh is None:
+            return t
+        return all_reduce(t, axis_group(self.mesh, DATA_AXIS)) / axis_size(
+            self.mesh, DATA_AXIS)
+
+    def _place_batch(self, batch):
+        """This rank's rows of ``batch`` when every leaf's rows divide by
+        the data degree, else ``batch`` whole (every rank computes it)."""
+        if self.mesh is None:
+            return batch
+        n = axis_size(self.mesh, DATA_AXIS)
+        leaves = _leaves(batch)
+        split = not any(np.ndim(x) == 0 or np.shape(x)[0] % n
+                        for x in leaves)
+        if self.sharded:
+            self.params.data_split = split
+        if not split:
+            return batch
+        rows = local_batch_slice(np.shape(leaves[0])[0], self.mesh)
+        return tree_map(lambda x: x[rows].contiguous()
+                        if isinstance(x, torch.Tensor) else x[rows], batch)
+
     def _clip(self, grads: list) -> list:
         """``optax.clip_by_global_norm``: unchanged below ``max_norm``,
         else ``(g / norm) * max_norm``."""
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        if self.sharded:
+            norm = torch.sqrt(self.params.sq_norm(grads))
+        else:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         keep = norm < self.max_grad_norm
         return [torch.where(keep, g, (g / norm) * self.max_grad_norm)
                 for g in grads]
@@ -257,14 +322,20 @@ class Trainer:
     def step(self, batch, generator):
         """One train step: ``(loss as a float, aux, applied)``. A non-finite
         loss leaves params and optimizer state as they were; with
-        accumulation, ``applied`` is True on the steps that update."""
+        accumulation, ``applied`` is True on the steps that update. On a
+        mesh ``batch`` is this rank's part (``fit`` places it) and the loss
+        is the ranks' mean."""
         loss, aux = self.compute_loss(batch, generator)
-        value = float(loss.detach())
+        value = float(self._data_mean(loss.detach()))
         if not math.isfinite(value):
             return value, aux, False
         grads = torch.autograd.grad(loss, self._leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self._leaves, grads)]
+        if self.sharded:
+            grads = self.params.reduce_grads(grads)
+        elif self.mesh is not None:
+            grads = [self._data_mean(g) for g in grads]
         if self._accum > 1:
             n = self._mini_step
             self._acc = (grads if self._acc is None else
@@ -298,7 +369,7 @@ class Trainer:
             t0 = time.time()
             losses = []
             for batch in train_loader_fn():
-                loss, _, _ = self.step(batch, generator)
+                loss, _, _ = self.step(self._place_batch(batch), generator)
                 if not math.isfinite(loss):
                     nonfinite += 1
                     if nonfinite > self.nonfinite_patience:
@@ -352,7 +423,10 @@ class Trainer:
         return self.params
 
     def jax_params(self):
-        """The current params as the reference's tree of numpy arrays."""
+        """The current params as the reference's tree of numpy arrays
+        (sharded params gathered whole: every rank must call it)."""
+        if self.sharded:
+            return self.params.jax_tree()
         if self.is_module:
             from audiocodecs_tpu_torch.params import to_jax_params
 
@@ -360,9 +434,13 @@ class Trainer:
         return params_to_jax(self.params)
 
     def save_checkpoint(self, tag: str):
+        tree = self.jax_params()  # a collective when sharded
         if is_main_process():
             save_params(os.path.join(self.output_folder, f"ckpt_{tag}.npz"),
-                        self.jax_params())
+                        tree)
+        if self.mesh is not None:
+            # no rank may read the file before the main process has written
+            torch.distributed.barrier()
 
     def load_checkpoint(self, tag: str = "best"):
         """Copy ``ckpt_<tag>.npz``, if it exists, into the params in place
@@ -370,7 +448,9 @@ class Trainer:
         path = os.path.join(self.output_folder, f"ckpt_{tag}.npz")
         if os.path.exists(path):
             tree = load_params(path)
-            if self.is_module:
+            if self.sharded:
+                self.params.load_jax_tree(tree)
+            elif self.is_module:
                 from audiocodecs_tpu_torch.params import from_jax_params
 
                 self.params.load_state_dict(

@@ -17,8 +17,11 @@ full fp32 (:func:`..nn.layers.exact_fp32`), an additive mask and the softmax
 in fp32. It does not call ``scaled_dot_product_attention``, which picks its
 own backend and summation order; Mimi's tokens depend on this output.
 
-Not ported: the reference's MoE FFN and rematerialization, which belong to
-training and the parallel layer. A config that sets ``moe`` raises.
+``moe`` (a :class:`..parallel.moe.MoEConfig`) replaces each layer's dense
+MLP by the switch-MoE FFN (key ``moe`` in place of ``mlp``), routed over
+the flattened ``[B·T]`` tokens; ``remat`` recomputes each layer's
+activations in the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``), which changes no number.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ from torch import nn
 from audiocodecs_tpu_torch.nn.layers import exact_fp32
 
 __all__ = ["TransformerConfig", "Transformer", "TransformerLayer",
-           "apply_layer", "apply_rope", "apply_transformer", "attention",
-           "causal_mask", "init_transformer_params", "rope_cos_sin"]
+           "apply_layer", "apply_layer_aux", "apply_rope",
+           "apply_transformer", "attention", "causal_mask",
+           "init_transformer_params", "remat_layer", "rope_cos_sin"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,11 +57,18 @@ class TransformerConfig:
     sliding_window: Optional[int] = None
     attention_bias: bool = False
     causal: bool = True
+    # recompute each layer's activations in the backward (less memory)
+    remat: bool = False
+    # a parallel.moe.MoEConfig: token-routed experts in place of the MLP
     moe: Optional[object] = None
 
     def __post_init__(self):
         if self.moe is not None:
-            raise NotImplementedError("the MoE FFN is not ported")
+            from audiocodecs_tpu_torch.parallel.moe import MoEConfig
+
+            if not isinstance(self.moe, MoEConfig):
+                raise TypeError(f"moe must be a parallel.moe.MoEConfig, "
+                                f"not {type(self.moe).__name__}")
         if self.act not in ("gelu", "swiglu"):
             raise ValueError(f"unknown act {self.act!r}")
         if self.norm not in ("layernorm", "rmsnorm"):
@@ -109,7 +120,12 @@ class TransformerLayer(nn.Module):
         self.v = Linear(H, cfg.num_kv_heads * D, bias)
         self.o = Linear(cfg.num_heads * D, H, bias)
         self.ln2 = Norm(H, cfg.norm)
-        self.mlp = MLP(cfg)
+        if cfg.moe is not None:
+            from audiocodecs_tpu_torch.parallel.moe import MoE
+
+            self.moe = MoE(cfg.moe)
+        else:
+            self.mlp = MLP(cfg)
         if cfg.use_layer_scale:
             self.scale_attn = nn.Parameter(torch.empty(H))
             self.scale_mlp = nn.Parameter(torch.empty(H))
@@ -225,11 +241,35 @@ def _mlp(x, p: MLP, act: str):
     return _linear(F.gelu(_linear(x, p.fc1)), p.fc2)
 
 
+def _ffn_aux(x, p: TransformerLayer, cfg: TransformerConfig):
+    """The layer's FFN → (out, aux): the dense MLP (aux 0), or the MoE FFN
+    routed over the flattened [B·T] tokens (aux: its router's
+    load-balancing loss)."""
+    if cfg.moe is None:
+        return _mlp(x, p.mlp, cfg.act), x.new_zeros(())
+    from audiocodecs_tpu_torch.parallel.moe import moe_ffn_dense_aux
+
+    B, T, D = x.shape
+    out, aux = moe_ffn_dense_aux(p.moe.params(), x.reshape(B * T, D),
+                                 cfg.moe)
+    return out.reshape(B, T, D), aux
+
+
+def _ffn(x, p: TransformerLayer, cfg: TransformerConfig):
+    return _ffn_aux(x, p, cfg)[0]
+
+
 def apply_layer(x, p: TransformerLayer, cfg: TransformerConfig, cos, sin,
                 mask, kv=None):
     """One pre-norm layer. With ``kv`` = (k_cache, v_cache) [B, W, Hkv, D],
     this chunk's keys and values attend after the cache's (streaming); the
     return is then (x, k_all, v_all)."""
+    return apply_layer_aux(x, p, cfg, cos, sin, mask, kv)[0]
+
+
+def apply_layer_aux(x, p: TransformerLayer, cfg: TransformerConfig, cos,
+                    sin, mask, kv=None):
+    """:func:`apply_layer` and the layer's MoE aux loss (0 when dense)."""
     B, T, _ = x.shape
     h = _norm(x, p.ln1, cfg.norm, cfg.norm_eps)
     q = _linear(h, p.q).reshape(B, T, cfg.num_heads, cfg.head_dim)
@@ -244,29 +284,48 @@ def apply_layer(x, p: TransformerLayer, cfg: TransformerConfig, cos, sin,
     if cfg.use_layer_scale:
         a = a * p.scale_attn
     x = x + a
-    m = _mlp(_norm(x, p.ln2, cfg.norm, cfg.norm_eps), p.mlp, cfg.act)
+    m, aux = _ffn_aux(_norm(x, p.ln2, cfg.norm, cfg.norm_eps), p, cfg)
     if cfg.use_layer_scale:
         m = m * p.scale_mlp
     x = x + m
-    return x if kv is None else (x, k, v)
+    return (x if kv is None else (x, k, v)), aux
+
+
+def remat_layer(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant) when gradients are on; a
+    plain call otherwise."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def apply_transformer(model: Transformer, x: torch.Tensor,
                       cfg: TransformerConfig,
-                      positions: Optional[torch.Tensor] = None):
+                      positions: Optional[torch.Tensor] = None,
+                      return_aux: bool = False):
     """``x``: [B, T, hidden] → [B, T, hidden] through ``model``'s layers
-    (and its final norm, if it has one)."""
+    (and its final norm, if it has one); ``return_aux`` also returns the
+    MoE aux losses summed over the layers (0 for dense stacks). With
+    ``cfg.remat`` each layer is recomputed in the backward."""
     T = x.shape[1]
     if positions is None:
         positions = torch.arange(T, device=x.device)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     mask = (causal_mask(T, T, cfg.sliding_window, x.device)[None, None, None]
             if cfg.causal else None)
+    aux = x.new_zeros(())
     for p in model.layers:
-        x = apply_layer(x, p, cfg, cos, sin, mask)
+        if cfg.remat:
+            x, a = remat_layer(apply_layer_aux, x, p, cfg, cos, sin, mask)
+        else:
+            x, a = apply_layer_aux(x, p, cfg, cos, sin, mask)
+        aux = aux + a
     if model.final_norm is not None:
         x = _norm(x, model.final_norm, cfg.norm, cfg.norm_eps)
-    return x
+    return (x, aux) if return_aux else x
 
 
 def init_transformer_params(generator: torch.Generator,
@@ -297,7 +356,12 @@ def init_transformer_params(generator: torch.Generator,
         lin(f"{pre}.o", cfg.num_heads * D, H, bias)
         norm(f"{pre}.ln2")
         inner = cfg.intermediate_size
-        if cfg.act == "swiglu":
+        if cfg.moe is not None:
+            from audiocodecs_tpu_torch.parallel.moe import init_moe_params
+
+            for name, t in init_moe_params(generator, cfg.moe).items():
+                out[f"{pre}.moe.{name}"] = t
+        elif cfg.act == "swiglu":
             lin(f"{pre}.mlp.gate", H, inner, False)
             lin(f"{pre}.mlp.up", H, inner, False)
             lin(f"{pre}.mlp.down", inner, H, False)

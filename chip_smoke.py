@@ -199,7 +199,8 @@ it fails:
    EnCodec and DAC, the vendor's for the others) converted by
    ``audiocodecs_tpu_torch/convert/`` and loaded through the registry's
    class: the conversion and the load timed, the two request shapes of the
-   family's phase with the random-init phases' launches a roundtrip, the
+   family's phase (its long rows at 5 s, ``LOADING_SECONDS``) with the
+   random-init phases' launches a roundtrip, the
    ragged request and the rows of the first that the family's phase
    compares (all of EnCodec's B = 8, DAC's B = 1, rows 0-1 elsewhere)
    against the CPU path on the same weights as in 9, the warm roundtrip;
@@ -209,7 +210,8 @@ it fails:
    beside that of the card's unfused (kernel-free) decode.
 36. the rest of the zoo loaded: X-Codec 2.0-16k (B1 wide 2 a roundtrip)
    and BiCodec-16k (B4 6; its XLSR tower a second file) as 35 drives its
-   five, on their phases' requests, shapes and parity rows, with their
+   five, on their phases' requests (the long rows at 5 s), shapes and
+   parity rows, with their
    FSQ margins; then StableCodec, NanoCodec, AudioDec, MagiCodec,
    FocalCodec, HILCodec (whole towers), DyCAST, WavLM+K-means with its
    HiFi-GAN vocoder and SemantiCodec (assembled from its five files) at
@@ -301,6 +303,22 @@ it fails:
    card codec's weights (token grids equal, converted waveforms within
    1e-4 of max|sig|).
    Phases 37-41 write under the git-ignored ``results/chip_smoke/``.
+42. the parallel layer (``audiocodecs_tpu_torch/parallel/``) at world size
+   1 over NCCL (a file store in a temporary directory, a ``(data, model)``
+   mesh of (1, 1)): (a) two steps of the sharded EnCodec-24k codec step at
+   B = 8 x 1 s (weights all-gathered before the forward, 4 kernel-1 and 8
+   kernel-2 launches a step) against two steps of the one-device step on
+   the same weights (losses 1e-6 relative, each leaf after the steps
+   within 1e-5 of the leaf's largest, or phase 41's limits); (b)
+   data-parallel serving of EnCodec-24k at B = 8 x 1 s (tokens equal to
+   the one-device path's, waveform within 1e-5 of max; 4 and 8 launches);
+   (c) the SLM steps at ``slm.yaml``'s widths, each against the unsharded
+   step from one init over two steps (losses 1e-6 relative, first-step
+   gradients 1e-5 of each leaf's largest): Megatron at mp = 1 with remat
+   on, GPipe with S = 1 and M = 2, and a 4-expert switch-MoE decoder with
+   expert parallelism on a model axis of 1; each step's time; (d)
+   ``dryrun_multichip(4, device="cpu")``, the multi-rank math on the
+   machine's CPU over gloo, with its summary line.
 
 The JSON line of every kernel's numbers (``{"kernels": [...]}``) and the
 card line come before the last line, ``{"ok": true, "device": ...}``.
@@ -3111,6 +3129,9 @@ def phase_certify(torch, rows):
 
 # Slice 11: the zoo's first six families at their published widths
 ZOO_SECONDS = 10.0
+# the loading phases' (35, 36) long requests: 5 s rows, cut from 10 s to
+# make room for phase 42 (the rows held against the CPU are unchanged)
+LOADING_SECONDS = 5.0
 # the zoo's codecs whose decoder the reference runs in conv_role("decoder"):
 # path → the CPU twin (host memory only) of its phase's codec, whose weights
 # phase_zoo_one_pass decodes with
@@ -3932,16 +3953,17 @@ def _loading_families(phase: int):
         SpeechTokenizerModelConfig)
 
     s16, s24, s44 = 16000, 24000, 44100
-    eight = [(8, 10 * s16), (1, 80001)]
+    sec = LOADING_SECONDS
+    eight = [(8, int(sec * s16)), (1, 80001)]
     big = BigCodecModelConfig()
     return (
         ("encodec_24k", "encodec", EncodecModelConfig(), encodec_schema,
          convert_encodec_state_dict, {"num_codebooks": 8},
-         [(8, 10 * s24), (1, 79201)], _launch_table(4, 8),
+         [(8, int(sec * s24)), (1, 79201)], _launch_table(4, 8),
          _hop_shapes(320, 8), 8, None),
         ("dac_44k", "dac", DAC.default_model_config(s44), dac_schema,
          convert_dac_state_dict, {"num_codebooks": 9},
-         [(1, 10 * s44), (2, 100001)], _launch_table(0, 0, dac=6),
+         [(1, int(sec * s44)), (2, 100001)], _launch_table(0, 0, dac=6),
          _hop_shapes(512, 9, math.floor), 1, None),
         ("speechtokenizer_16k", "speechtokenizer",
          SpeechTokenizerModelConfig(), speechtokenizer_schema,
@@ -3959,8 +3981,9 @@ def _loading_families(phase: int):
 
 def _zoo_kernel_families():
     """X-Codec 2.0-16k (B1 wide 2 a roundtrip) and BiCodec-16k (B4 6), as
-    their phases 20 and 25 send them: two B = 8 x 10 s requests and a
-    ragged one, its rows and one row of the first against the CPU path.
+    their phases 20 and 25 send them but at ``LOADING_SECONDS``: two
+    B = 8 requests and a ragged one, its rows and one row of the first
+    against the CPU path.
     BiCodec's checkpoint is two files, its own and the XLSR tower's."""
     from audiocodecs_tpu_torch.convert.zoo import (
         bicodec_schema, convert_bicodec_state_dict,
@@ -3968,7 +3991,7 @@ def _zoo_kernel_families():
     from audiocodecs_tpu_torch.models.bicodec import BiCodecModelConfig
     from audiocodecs_tpu_torch.models.xcodec2 import XCodec2ModelConfig
 
-    T = int(16000 * ZOO_SECONDS)
+    T = int(16000 * LOADING_SECONDS)
     zoo = [(8, T), (8, T), (1, 80001)]
     xc, bc = XCodec2ModelConfig(), BiCodecModelConfig()
 
@@ -4351,7 +4374,7 @@ def _zoo_loading():
 def phase_zoo_loading(torch, rows):
     """36. The rest of the zoo on converted checkpoints. X-Codec 2.0-16k
     and BiCodec-16k at their published widths as phase 35 drives its five
-    (``_drive_loaded_families``): their phases' requests (two B = 8 x 10
+    (``_drive_loaded_families``): their phases' requests (two B = 8 x 5
     s, one ragged), launches (X-Codec 2.0 B1 wide 2, BiCodec B4 6 a
     roundtrip), shapes and parity rows, the FSQ margins. Then StableCodec,
     NanoCodec, AudioDec, MagiCodec, FocalCodec, HILCodec (its whole
@@ -6022,6 +6045,242 @@ def phase_downstream_tasks(torch, rows):
         log(f"downstream {label} seconds: {times[label]:.1f}")
 
 
+# the SLM decoder of hparams/tasks/slm.yaml over EnCodec-24k's 8 codebooks
+SLM_WIDTHS = dict(vocab_size=1024, num_codebooks=8, hidden_size=256,
+                  num_layers=4, num_heads=4, num_kv_heads=2,
+                  intermediate_size=688)
+PARALLEL_SLM_B, PARALLEL_SLM_L = 4, 512  # rows, flat tokens (max_flat_len)
+
+
+def _leaf_gaps(got: dict, want: dict, label: str) -> None:
+    """Each leaf of ``got`` within 1e-5 of the leaf's largest element of
+    ``want``."""
+    by_leaf = {}
+    for k, w in want.items():
+        w = w.detach().double().cpu()
+        top = max(float(w.abs().max()), 1e-30)
+        gap = (got[k].detach().double().cpu() - w).abs()
+        by_leaf[k] = float(gap.max()) / top
+    worst = max(by_leaf, key=by_leaf.get)
+    log(f"{label} params after the steps, sharded vs one-device: worst leaf "
+        f"{worst} {by_leaf[worst]:.3e} of its largest, over "
+        f"{len(by_leaf)} leaves")
+    _hold(f"{label} params (worst leaf, of its largest)", by_leaf[worst],
+          1e-5)
+
+
+def _parallel_codec(torch, rows, mesh, card):
+    """Two sharded codec steps against two one-device steps on the same
+    EnCodec-24k weights; the sharded run's launches counted. Returns the
+    one-device model (for serving)."""
+    from audiocodecs_tpu_torch.models.encodec import Encodec
+    from audiocodecs_tpu_torch.parallel.train import shard_codec_params
+
+    sr = 24000
+    ref = Encodec(sr, sr, num_codebooks=8, device="cuda",
+                  generator=torch.Generator().manual_seed(0))
+    twin = Encodec(sr, sr, num_codebooks=8, device="cuda",
+                   state_dict=ref.state_dict())
+    sharded = shard_codec_params(twin, mesh)
+    batches = _train_batches(np.random.default_rng(0), TRAIN_B, 1.0, sr, 2)
+    losses, ms = {}, {}
+    # cuDNN's deterministic algorithms on both runs: its default weight
+    # gradients sum in an order that varies from call to call
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    for label, model in (("one-device", ref), ("sharded", sharded)):
+        state, step = _trainer(torch, model)
+        losses[label], ms[label] = [], []
+        if label == "sharded":
+            reset_counts()
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = step(state, b)
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+            losses[label].append(float(met["loss"]))
+        if label == "sharded":
+            counts = read_counts()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        flags
+    log(f"parallel codec step EnCodec-24k B={TRAIN_B} x 1 s ({card}): "
+        f"losses sharded {losses['sharded']} one-device "
+        f"{losses['one-device']}; ms a step (host clock, synchronised) "
+        f"sharded {[round(v, 3) for v in ms['sharded']]} one-device "
+        f"{[round(v, 3) for v in ms['one-device']]}; launches "
+        f"{json.dumps(counts)}")
+    if counts != _launch_table(8, 16):
+        fail(f"parallel codec step: expected 4 B1 and 8 B2 launches a step "
+             f"over 2 steps, got {counts}")
+    _add_launches(rows, "parallel_codec_step", counts)
+    _hold("parallel codec step losses sharded vs one-device, relative",
+          max(abs(a - b) / abs(b) for a, b in zip(losses["sharded"],
+                                                  losses["one-device"])),
+          1e-6)
+    _leaf_gaps(dict(sharded.full_module().named_parameters()),
+               dict(ref.named_parameters()), "parallel codec step")
+    return ref
+
+
+def _parallel_serving(torch, rows, mesh, codec, card):
+    """Data-parallel serving against the one-device path."""
+    from audiocodecs_tpu_torch.parallel.mesh import data_parallel
+
+    sig = _noise(np.random.default_rng(7), [(TRAIN_B, 24000)])[0]
+    with torch.no_grad():
+        toks = codec.sig_to_toks(sig)
+        rec = codec.toks_to_sig(toks)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        toks_dp = data_parallel(codec.sig_to_toks, mesh, sig)
+        rec_dp = data_parallel(codec.toks_to_sig, mesh, toks_dp)
+        torch.cuda.synchronize()
+        dp_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+    gap = float((rec_dp - rec).abs().max()) / max(float(rec.abs().max()),
+                                                  1e-30)
+    log(f"parallel dp serving EnCodec-24k B={TRAIN_B} x 1 s ({card}): "
+        f"tokens equal {bool(torch.equal(toks_dp, toks))}; waveform "
+        f"{gap:.3e} of max; roundtrip {dp_ms:.3f} ms (host clock); launches "
+        f"{json.dumps(counts)}")
+    if not torch.equal(toks_dp, toks):
+        fail("parallel dp serving: tokens differ from the one-device path")
+    _hold("parallel dp serving waveform / max", gap, 1e-5)
+    if counts != _launch_table(4, 8):
+        fail(f"parallel dp serving: expected 4 B1 and 8 B2 launches, got "
+             f"{counts}")
+    _add_launches(rows, "parallel_dp_serving", counts)
+
+
+def _slm_batch(torch, lcfg):
+    """B rows of L K-interleaved tokens, ragged: BOS, content, EOS, pad,
+    the loss mask over content and EOS."""
+    rng = np.random.default_rng(3)
+    B, L = PARALLEL_SLM_B, PARALLEL_SLM_L
+    flat = rng.integers(0, lcfg.vocab_size, (B, L))
+    mask = np.zeros((B, L), np.float32)
+    for b in range(B):
+        n = L - 1 - 37 * b
+        flat[b, 0], flat[b, n] = lcfg.bos_token, lcfg.eos_token
+        flat[b, n + 1:] = lcfg.pad_token
+        mask[b, 1:n + 1] = 1.0
+    return (torch.as_tensor(flat, device="cuda"),
+            torch.as_tensor(mask, device="cuda"))
+
+
+def _parallel_slm(torch, mesh, card):
+    """Each sharded SLM step against the unsharded one from one init:
+    Megatron (mp = 1, remat on), GPipe (S = 1, M = 2) and the expert-
+    parallel 4-expert MoE decoder."""
+    import copy
+    import dataclasses
+
+    from audiocodecs_tpu_torch.downstream.models.llama import (
+        Llama, LlamaConfig, init_llama_params)
+    from audiocodecs_tpu_torch.parallel.moe import shard_moe_llama_params
+    from audiocodecs_tpu_torch.parallel.pipeline import (
+        make_pp_slm_train_step, shard_pp_llama_params,
+        stack_pipeline_stages)
+    from audiocodecs_tpu_torch.parallel.train import (
+        make_slm_train_step, shard_llama_params)
+    from audiocodecs_tpu_torch.params import to_jax_params
+
+    base = LlamaConfig(**SLM_WIDTHS)
+    flat, mask = _slm_batch(torch, base)
+
+    def pipeline(model, lcfg):
+        stage = shard_pp_llama_params(stack_pipeline_stages(
+            to_jax_params(model.state_dict(), model), 1), mesh, lcfg,
+            device="cuda")
+        step, _ = make_pp_slm_train_step(
+            lcfg, torch.optim.Adam(stage.parameters(), 1e-3), mesh, 2)
+        return stage, lambda f, m: step(stage, f, m)
+
+    def step_of(model):
+        return model, make_slm_train_step(
+            model, torch.optim.Adam(model.parameters(), 1e-3))
+
+    cases = (
+        ("Megatron mp=1, remat", dataclasses.replace(base, remat=True),
+         lambda m, c: step_of(shard_llama_params(m, mesh))),
+        ("GPipe S=1 M=2", base, pipeline),
+        ("switch-MoE 4 experts, expert-parallel", dataclasses.replace(
+            base, moe_experts=4),
+         lambda m, c: step_of(shard_moe_llama_params(m, mesh))))
+    for label, lcfg, make in cases:
+        # the one-device reference without remat (it changes no number)
+        ref = Llama(dataclasses.replace(lcfg, remat=False))
+        ref.load_state_dict(init_llama_params(
+            torch.Generator().manual_seed(11), lcfg))
+        ref = ref.cuda()
+        twin = copy.deepcopy(ref)
+        twin.cfg = lcfg
+        holder, step = make(twin, lcfg)
+        _, ref_step = step_of(ref)
+        losses, ms, grads = {"sharded": [], "one-device": []}, [], {}
+        for i in range(2):
+            for which, fn in (("one-device", ref_step), ("sharded", step)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses[which].append(float(fn(flat, mask)))
+                torch.cuda.synchronize()
+                if which == "sharded":
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                want = {k: p.grad.detach().clone()
+                        for k, p in ref.named_parameters()}
+                got = {k[len("local."):]: p.grad.detach().clone()
+                       for k, p in holder.named_parameters()}
+        worst = max(_rel(got[k], want[k]) for k in want)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["sharded"],
+                                                      losses["one-device"]))
+        log(f"parallel SLM {label} at slm.yaml's widths B={flat.shape[0]} "
+            f"L={flat.shape[1]} ({card}): losses sharded "
+            f"{losses['sharded']} one-device {losses['one-device']}; "
+            f"sharded ms a step (host clock, synchronised) "
+            f"{[round(v, 3) for v in ms]}")
+        _hold(f"parallel SLM {label} losses, relative", rel, 1e-6)
+        _hold(f"parallel SLM {label} first-step gradients / max (worst "
+              f"leaf)", worst, 1e-5)
+
+
+def phase_parallel(torch, rows, card):
+    """The parallel layer at world size 1 over NCCL: the sharded codec step
+    and data-parallel serving (kernels 1 and 2 counted), the Megatron,
+    GPipe and expert-parallel SLM steps at ``slm.yaml``'s widths, each
+    against its one-device twin; then the multichip dry run on 4 CPU
+    ranks over gloo."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from audiocodecs_tpu_torch.parallel.dryrun import dryrun_multichip
+    from audiocodecs_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh)
+
+    tmp = tempfile.mkdtemp()
+    init_distributed("cuda", init_method=f"file://{tmp}/store",
+                     world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, model_parallel=1, device="cuda")
+        log(f"parallel mesh: {mesh} backend {dist.get_backend()}")
+        codec = _parallel_codec(torch, rows, mesh, card)
+        _parallel_serving(torch, rows, mesh, codec, card)
+        _parallel_slm(torch, mesh, card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    line = dryrun_multichip(4, device="cpu")
+    log(f"parallel dryrun on 4 CPU ranks (gloo): {line} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> None:
     import torch
 
@@ -6065,6 +6324,7 @@ def main() -> None:
                   phase_long_audio, phase_sweep_sr, phase_metric_models,
                   phase_downstream_train, phase_downstream_tasks):
         timed(phase, rows)
+    timed(phase_parallel, rows, card)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": rows}))
     log(f"card: {card}")

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``audiocodecs_tpu_torch`` (nor
 ``chip_smoke.py``, nor the port's tools ``tools/certify_torch.py``,
 ``tools/convert_checkpoints_torch.py`` and ``tools/inspect_checkpoint_
-torch.py``) imports ``jax``, ``audiocodecs_tpu`` or ``transformers``, its
+torch.py``, nor the parallel tests' rank workers ``tests/torch_dist_
+workers.py``) imports ``jax``, ``audiocodecs_tpu`` or ``transformers``, its
 entry points run on the card unless the caller asks for the CPU, and its
 converters read no environment."""
 
@@ -115,6 +116,17 @@ SLICE_19 = (
 )
 
 
+# the parallel layer: mesh, collectives, sharded steps, MoE, GPipe, dry run
+SLICE_20 = (
+    "audiocodecs_tpu_torch.parallel",
+    "audiocodecs_tpu_torch.parallel.mesh",
+    "audiocodecs_tpu_torch.parallel.comm",
+    "audiocodecs_tpu_torch.parallel.moe",
+    "audiocodecs_tpu_torch.parallel.pipeline",
+    "audiocodecs_tpu_torch.parallel.dryrun",
+)
+
+
 def test_module_list_covers_the_slice():
     mods = _port_modules()
     for m in ("audiocodecs_tpu_torch.models.encodec",
@@ -180,7 +192,7 @@ def test_module_list_covers_the_slice():
               "audiocodecs_tpu_torch.convert.audiomae",
               "audiocodecs_tpu_torch.convert.ldm",
               "audiocodecs_tpu_torch.convert.checkpoint_files",
-              *SLICE_16, *SLICE_17, *SLICE_18, *SLICE_19):
+              *SLICE_16, *SLICE_17, *SLICE_18, *SLICE_19, *SLICE_20):
         assert m in mods
 
 
@@ -233,6 +245,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
     assert "audiocodecs_tpu_torch.downstream.models.llama" in loaded
     assert "audiocodecs_tpu_torch.downstream.recipes.tts" in loaded
     assert "audiocodecs_tpu_torch.nn.conformer" in loaded
+    for m in SLICE_20:
+        assert m in loaded
     assert not [m for m in loaded if _is_reference(m)]
     assert not [m for m in loaded if _is_transformers(m)]
 
@@ -240,7 +254,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_reference():
 @pytest.mark.parametrize("path", ["audiocodecs_tpu_torch", "chip_smoke.py",
                                   "tools/certify_torch.py",
                                   "tools/convert_checkpoints_torch.py",
-                                  "tools/inspect_checkpoint_torch.py"])
+                                  "tools/inspect_checkpoint_torch.py",
+                                  "tests/torch_dist_workers.py"])
 def test_no_import_statement_names_jax_or_reference(path):
     files = [REPO / path] if path.endswith(".py") else sorted(
         (REPO / path).rglob("*.py"))

@@ -10,8 +10,9 @@ JAX init bridged by ``llama_from_jax`` (2 layers, K = 2 codebooks, GQA).
   package, with EOS forced in one row and prompt conditioning added.
 * ``nucleus_filter`` keeps the same set as the JAX package's
   ``_sample_top_p`` filter; nucleus sampling stays inside it.
-* MoE and rematerialization raise (ROADMAP A.11); ``init_llama_params``
-  has the JAX tree's keys and shapes.
+* The MoE and remat fields reach the transformer's config as the
+  reference's do (the MoE decoder's numbers are ``tests/test_torch_moe.py``);
+  ``init_llama_params`` has the JAX tree's keys and shapes.
 """
 
 import numpy as np
@@ -155,10 +156,20 @@ def test_nucleus_sampling_stays_in_the_nucleus(pair):
 
 
 def test_moe_and_remat_raise():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        llama.LlamaConfig(**KW, moe_experts=2)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        llama.LlamaConfig(**KW, remat=True)
+    import dataclasses
+
+    for extra in ({"moe_experts": 2}, {"remat": True},
+                  {"moe_experts": 4, "moe_ffn_size": 48, "moe_top_k": 2,
+                   "moe_capacity_factor": 1.5, "moe_aux_weight": 0.01}):
+        got = llama.LlamaConfig(**KW, **extra).transformer()
+        want = jllama.LlamaConfig(**KW, **extra).transformer()
+        assert got.remat == want.remat
+        assert (got.moe is None) == (want.moe is None)
+        if want.moe is not None:
+            assert dataclasses.asdict(got.moe) == dataclasses.asdict(
+                want.moe)
+    with pytest.raises(ValueError, match="unknown act"):
+        dataclasses.replace(CFG.transformer(), act="relu")
 
 
 def test_init_has_the_reference_tree():

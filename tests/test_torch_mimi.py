@@ -131,9 +131,33 @@ def test_streaming_transformer_matches_jax_and_batch(rng, form):
         _rel_close(np.concatenate(outs, 1), batch, 1e-5)
 
 
-def test_moe_config_refuses():
-    with pytest.raises(NotImplementedError, match="MoE"):
+def test_moe_config_refuses(rng):
+    """A ``moe`` that is not an MoE config is refused; the MoE FFN in
+    Mimi's form (gelu, LayerNorm, LayerScale, sliding window) matches the
+    reference's, its aux loss too."""
+    from audiocodecs_tpu.parallel.moe import MoEConfig as JMoEConfig
+    from audiocodecs_tpu_torch.parallel.moe import MoEConfig
+
+    with pytest.raises(TypeError, match="MoEConfig"):
         TransformerConfig(**MIMI_FORM, moe=object())
+    kw = dict(hidden_size=32, ffn_size=48, num_experts=4,
+              capacity_factor=1.0, top_k=2)
+    jcfg = JTConfig(**MIMI_FORM, moe=JMoEConfig(**kw))
+    cfg = TransformerConfig(**MIMI_FORM, moe=MoEConfig(**kw))
+    tree = jax.tree.map(np.array, j_init(jax.random.PRNGKey(0), jcfg))
+    for key, a in flatten_tree(tree).items():
+        if key.endswith((".g", ".b", "scale_attn", "scale_mlp")):
+            a[...] = (1.0 if key.endswith(".g") else 0.0) + 0.2 * \
+                rng.standard_normal(a.shape)
+    model = Transformer(cfg)
+    model.load_state_dict(from_jax_params(tree, model), strict=True)
+    x = rng.standard_normal((2, 13, 32)).astype(np.float32)
+    want, jaux = j_apply(tree, jnp.asarray(x), jcfg, return_aux=True)
+    with torch.no_grad():
+        got, aux = apply_transformer(model, torch.from_numpy(x), cfg,
+                                     return_aux=True)
+    _rel_close(got.numpy(), want, 1e-5)
+    assert abs(float(aux) - float(jaux)) <= 1e-6 * float(jaux)
 
 
 @pytest.mark.parametrize("cin,cout,groups", [(16, 16, 16), (8, 12, 4),

@@ -16,8 +16,10 @@ against the JAX package, on the CPU.
   the same token cache, every generated grid equal, the PPL within 1e-4
   relative, ``consistency_ER`` and the battery as ``recipe_pairs.
   assert_same_summary`` holds them.
-* A parallel degree above 1 and the MoE FFN raise ``NotImplementedError``
-  naming ROADMAP A.11.
+* What the recipe refuses, as the reference does: two parallel degrees
+  above 1, ``expert_parallel`` without experts, and a model axis larger
+  than the launched ranks (checked before anything is built). The
+  parallel runs themselves are ``tests/test_torch_parallel_recipes.py``.
 * The dispatcher: the JAX one's 11 tasks, help and an unknown task, and
   ``vc`` run through it with ``--device cpu`` from one YAML.
 """
@@ -141,12 +143,15 @@ def test_run_slm_matches_jax(tmp_path, monkeypatch, inputs):
         assert np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("key,value", [
-    ("model_parallel", 2), ("pipeline_parallel", 2), ("expert_parallel", 2),
-    ("moe_experts", 4)])
-def test_parallel_and_moe_raise(key, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        slm.run_slm({key: value}, device="cpu")
+@pytest.mark.parametrize("cfg,match", [
+    ({"model_parallel": 2, "pipeline_parallel": 2}, "set ONE of"),
+    ({"pipeline_parallel": 2, "expert_parallel": 2, "moe_experts": 4},
+     "set ONE of"),
+    ({"expert_parallel": 2}, "expert_parallel needs moe_experts > 0"),
+    ({"model_parallel": 2}, "needs a multiple of that many ranks")])
+def test_parallel_and_moe_raise(cfg, match):
+    with pytest.raises(ValueError, match=match):
+        slm.run_slm(cfg, device="cpu")
 
 
 def test_dispatcher_tasks_help_and_unknown(capsys):

@@ -21,7 +21,10 @@ recipes/trainer.py``) against the JAX package's optax chain, on the CPU.
   fp32 updates 1.9e-6 (``tools/bf16_probe_gap.py``, this file's probe).
   A param tree and an ``nn.Module`` agree exactly.
 * Checkpoints written by either package load in the other.
-* Model parallelism raises (ROADMAP A.11).
+* In one process, ``model_parallel > 1`` and a ``param_sharder`` are
+  refused (a model axis the one rank cannot hold; a sharder with one
+  device, the reference's message); the mesh runs are
+  ``tests/test_torch_parallel_recipes.py``.
 """
 
 import os
@@ -186,12 +189,17 @@ def test_checkpoints_cross_packages(tmp_path, writer):
         _assert_params_close(mod.jax_params(), jax_t.params, rtol=0)
 
 
-def test_model_parallel_raises():
+def test_model_parallel_raises(tmp_path):
+    import torch.distributed as dist
+
     p = {"w": torch.zeros(2)}
-    for kw in ({"model_parallel": 2}, {"mesh": object()},
-               {"param_sharder": lambda p, m: p}):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            trainer.Trainer(_port_loss, p, **kw)
+    out = str(tmp_path)
+    with pytest.raises(ValueError, match="1 devices not divisible by mp=2"):
+        trainer.Trainer(_port_loss, p, model_parallel=2, output_folder=out)
+    with pytest.raises(ValueError, match="only one device is visible"):
+        trainer.Trainer(_port_loss, p, param_sharder=lambda p, m: p,
+                        output_folder=out)
+    assert not dist.is_initialized()
     with pytest.raises(ValueError, match="precision"):
         trainer.Trainer(_port_loss, p, precision="fp16")
 
